@@ -1,0 +1,4 @@
+"""Dense decoder-only model over the hand-written kernels."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]
