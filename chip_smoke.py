@@ -278,7 +278,7 @@ def serve(engine, reqs):
     return report, outs
 
 
-def engine_phase(device, reduced=False):
+def engine_phase(device):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
@@ -287,13 +287,11 @@ def engine_phase(device, reduced=False):
     counters = {"paged_decode_attention": pda.paged_decode_attention,
                 "flash_attention": fa.flash_attention}
     vocab = get_config("smollm-135m").vocab_size
-    if reduced:            # a CPU rehearsal of this phase, never the card
-        vocab = get_config("smollm-135m").reduced().vocab_size
     reqs = requests(12, 16, 600, 32, vocab, SEED)
     runs = {}
     params = None
     for label, chunk in (("chunked", "auto"), ("whole_prompt", None)):
-        eng = ServeEngine("smollm-135m", reduced=reduced, slots=8,
+        eng = ServeEngine("smollm-135m", reduced=False, slots=8,
                           max_len=1024, prefill_chunk=chunk, params=params,
                           seed=SEED, device=device)
         params = eng.params
@@ -362,15 +360,13 @@ def profile_phase(device, params, reqs):
               for k, ms, n in rows[:10]])
 
 
-def parity_phase(device, reduced=False):
+def parity_phase(device):
     """Full width in float32: kernels vs plain on the same requests."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config("smollm-135m")
-    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
     reqs = requests(6, 16, 200, 16, cfg.vocab_size, SEED + 1)
     streams, first = {}, {}
     params = None

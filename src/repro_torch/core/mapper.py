@@ -12,30 +12,24 @@ VMEM rules when a plan is legalised:
   * each kernel's staged tiles fit the block's opt-in shared memory
     (227 KB on an H100).
 
-This is the AUTO/TUNED *seed*: the measured refinement and the tuning
-cache of the JAX package's tuner (and its NAIVE/FIXED baselines) are not
-ported yet, so TUNED plans exactly as AUTO does.
+This is the seed of the JAX package's AUTO policy, and the only plan
+there is: the mapping policies (NAIVE/FIXED baselines, TUNED with its
+measured refinement and tuning cache) come with the tuner slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import enum
 
 from repro_torch.core.hw import GpuParams, ceil_div, round_up
 
-__all__ = ["MappingPolicy", "resolve_lws", "AttentionPlan",
-           "plan_attention_blocks", "attention_plan_for_blocks",
-           "flash_smem_bytes", "paged_smem_bytes", "plan_paged_block"]
+__all__ = ["resolve_lws", "AttentionPlan", "plan_attention_blocks",
+           "attention_plan_for_blocks", "flash_smem_bytes",
+           "paged_smem_bytes", "plan_paged_block"]
 
 MAX_BLOCK_Q = 128         # one query row per thread, 128 threads at most
 MAX_BLOCK_K = 128
 TILE_QUANTUM = 16         # mma's row/column quantum on Hopper
-
-
-class MappingPolicy(str, enum.Enum):
-    AUTO = "auto"
-    TUNED = "tuned"
 
 
 def resolve_lws(gws: int, hp: int) -> int:
@@ -50,7 +44,6 @@ def resolve_lws(gws: int, hp: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    policy: MappingPolicy
     block_q: int
     block_k: int
     smem_bytes: int
@@ -64,21 +57,18 @@ def flash_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
 
 
 def plan_attention_blocks(seq_q: int, seq_k: int, head_dim: int,
-                          hw: GpuParams,
-                          policy: MappingPolicy = MappingPolicy.AUTO
-                          ) -> AttentionPlan:
+                          hw: GpuParams) -> AttentionPlan:
     """Flash tiling: ``block_q`` query rows per CTA, keys swept in
-    ``block_k`` tiles (the temporal ``lws`` loop).  AUTO resolves Eq. 1
+    ``block_k`` tiles (the temporal ``lws`` loop).  Eq. 1 is resolved
     over query rows and SMs — rows per CTA = seq_q / SMs — so a short
-    prompt still spreads over the card, then legalises."""
+    prompt still spreads over the card, then legalised."""
     return attention_plan_for_blocks(seq_q, seq_k, head_dim, hw,
                                      resolve_lws(seq_q, hw.sm_count),
-                                     MAX_BLOCK_K, MappingPolicy(policy))
+                                     MAX_BLOCK_K)
 
 
 def attention_plan_for_blocks(seq_q: int, seq_k: int, head_dim: int,
-                              hw: GpuParams, bq: int, bk: int,
-                              policy: MappingPolicy = MappingPolicy.TUNED
+                              hw: GpuParams, bq: int, bk: int
                               ) -> AttentionPlan:
     """Legalise a (block_q, block_k) decision onto Hopper's rules."""
     bq = min(MAX_BLOCK_Q, max(32, round_up(bq, TILE_QUANTUM)))
@@ -90,8 +80,7 @@ def attention_plan_for_blocks(seq_q: int, seq_k: int, head_dim: int,
     if smem > hw.smem_per_block:
         raise ValueError(f"no legal flash tile for head_dim={head_dim}: "
                          f"{smem} B of shared memory at the smallest tile")
-    return AttentionPlan(policy=policy, block_q=bq, block_k=bk,
-                         smem_bytes=smem)
+    return AttentionPlan(block_q=bq, block_k=bk, smem_bytes=smem)
 
 
 # --------------------------------------------------------------------------- #

@@ -32,7 +32,8 @@
 //
 // Launch geometry: grid (ceil(Sq / block_q), B * G * R), round_up(block_q,
 // 32) threads, dynamic shared memory 4 * (2 * block_k * D + threads *
-// (block_k + 1)) bytes.  D in {32, 64, 128}.  Inputs fp32 or bf16;
+// (block_k + 1)) bytes.  D = 64 only (smollm-135m's head_dim; another
+// head_dim comes with the model that needs it).  Inputs fp32 or bf16;
 // accumulation fp32; output in the input dtype.
 
 #include <cuda_bf16.h>
@@ -40,6 +41,8 @@
 #include <math.h>
 
 namespace {
+
+constexpr int kHeadDim = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -159,25 +162,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Sk, int G, int R, int block_q, int block_k,
-             int q_offset, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
-                           q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
-                           q_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
-                            q_offset, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -186,14 +170,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Sk, int G, int R,
                                int D, int block_q, int block_k, int q_offset,
                                float scale, int dtype, void* stream) {
-  if (block_q < 1 || block_q > 128 || block_k < 1 || q_offset < 0)
+  if (D != kHeadDim || block_q < 1 || block_q > 128 || block_k < 1 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, out, B, Sq, Sk, G, R, block_q,
-                           block_k, q_offset, scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, G, R, block_q,
+    return launch<float, kHeadDim>(q, k, v, out, B, Sq, Sk, G, R, block_q,
                                    block_k, q_offset, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kHeadDim>(q, k, v, out, B, Sq, Sk, G, R,
+                                           block_q, block_k, q_offset, scale,
+                                           st);
   return (int)cudaErrorInvalidValue;
 }

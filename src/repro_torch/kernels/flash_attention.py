@@ -26,7 +26,7 @@ from repro_torch.kernels import _build
 __all__ = ["flash_attention", "flash_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIM = 64           # the one head_dim built: smollm-135m's
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -81,8 +81,8 @@ def _check(q, k, v, block_q, block_k, q_offset):
                          f"not match q {tuple(q.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got {d}")
+    if d != _HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, got {d}")
     if not (1 <= block_q <= 128 and block_k >= 1 and q_offset >= 0):
         raise ValueError(f"illegal tiles ({block_q}, {block_k}) or "
                          f"q_offset {q_offset}")

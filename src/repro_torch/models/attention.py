@@ -13,8 +13,6 @@ functionally; every such write says so.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -24,12 +22,7 @@ from repro_torch.kernels.paged_gather import flat_position
 from repro_torch.models.layers import apply_rope
 
 __all__ = ["project_qkv", "attention_block", "paged_write_index",
-           "cache_write", "chunk_cache_write", "attention_decode", "out_proj",
-           "DEFAULT_TILES"]
-
-#: flash tiles for callers that pass none (the serving engine always
-#: passes the router's plan)
-DEFAULT_TILES = (64, 64)
+           "cache_write", "chunk_cache_write", "attention_decode", "out_proj"]
 
 
 def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin):
@@ -54,10 +47,11 @@ def out_proj(params: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                    cos, sin, prefill_tiles: Optional[tuple] = None):
-    """Whole-prompt causal attention; returns (out (B, S, D), (k, v))."""
+                    cos, sin, prefill_tiles: tuple):
+    """Whole-prompt causal attention at the mapper's ``prefill_tiles``
+    (block_q, block_k); returns (out (B, S, D), (k, v))."""
     q, k, v = project_qkv(params, x, cfg, cos, sin)
-    bq, bk = prefill_tiles or DEFAULT_TILES
+    bq, bk = prefill_tiles
     o = flash_attention(q, k, v, block_q=bq, block_k=bk, q_offset=0)
     return out_proj(params, o, cfg), (k, v)
 

@@ -2,8 +2,11 @@
 
     m = build_model(get_config("smollm-135m"), device="cuda")
     params = m.init(seed=0)
-    logits, cache = m.prefill(params, tokens, max_len, last_pos=...)
-    logits, cache = m.prefill_chunk(params, cache, chunk_tokens, n_valid)
+    tiles = (plan.block_q, plan.block_k)       # core.mapper's plan
+    logits, cache = m.prefill(params, tokens, max_len, prefill_tiles=tiles,
+                              last_pos=...)
+    logits, cache = m.prefill_chunk(params, cache, chunk_tokens, n_valid,
+                                    prefill_tiles=tiles)
     logits, cache = m.decode_step(params, pool_cache, tokens,
                                   page_tables=..., page_block=16,
                                   paged_decode_block=...)
@@ -45,10 +48,11 @@ class Model:
                                  self.device)
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_len: int, *,
-                last_pos=None, prefill_tiles: Optional[tuple] = None):
-        """Run the prompt; return (last-token logits (B, 1, V), primed
-        cache padded to ``max_len``).  ``last_pos`` (B,) picks each row's
-        true final-token logits when prompts are right-padded."""
+                prefill_tiles: tuple, last_pos=None):
+        """Run the prompt at the mapper's ``prefill_tiles``; return
+        (last-token logits (B, 1, V), primed cache padded to ``max_len``).
+        ``last_pos`` (B,) picks each row's true final-token logits when
+        prompts are right-padded."""
         logits, (k, v) = tf_mod.forward(params, tokens, self.cfg,
                                         prefill_tiles=prefill_tiles)
         s = k.shape[2]
@@ -63,7 +67,7 @@ class Model:
         return logits[:, -1:], cache
 
     def prefill_chunk(self, params: dict, cache: dict, tokens: torch.Tensor,
-                      n_valid: int, *, prefill_tiles: Optional[tuple] = None):
+                      n_valid: int, *, prefill_tiles: tuple):
         """Advance a prefill cache by one (B, C) prompt chunk; the caller
         reads the true last-token logits at ``[:, n_valid - 1]`` of the
         final chunk (attention needs no validity mask: padded queries

@@ -6,14 +6,11 @@ params are views into the stacked tensors.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.attention import (DEFAULT_TILES, attention_block,
-                                          attention_decode,
+from repro_torch.models.attention import (attention_block, attention_decode,
                                           chunk_cache_write, out_proj,
                                           paged_write_index, project_qkv)
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_tables,
@@ -32,9 +29,9 @@ def layer_params(params: dict, i: int) -> dict:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            prefill_tiles: Optional[tuple] = None):
-    """Whole-prompt prefill.  Returns (logits (B, S, V) float32,
-    (k, v) caches each (L, B, S, G, hd))."""
+            prefill_tiles: tuple):
+    """Whole-prompt prefill at the mapper's ``prefill_tiles``.  Returns
+    (logits (B, S, V) float32, (k, v) caches each (L, B, S, G, hd))."""
     x = embed(params["embed"], tokens)
     s = tokens.shape[1]
     cos, sin = rope_tables(torch.arange(s, device=tokens.device),
@@ -66,8 +63,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def chunk_prefill_step(params: dict, cache: dict, tokens: torch.Tensor,
                        cfg: ModelConfig, *,
-                       prefill_tiles: Optional[tuple] = None):
-    """Advance a prefill row cache by one (B, C) prompt chunk.
+                       prefill_tiles: tuple):
+    """Advance a prefill row cache by one (B, C) prompt chunk, attention
+    at the mapper's ``prefill_tiles``.
 
     The chunk's queries attend over the whole row cache with
     ``q_offset = cache["pos"]`` (a runtime kernel argument); the chunk's
@@ -80,7 +78,7 @@ def chunk_prefill_step(params: dict, cache: dict, tokens: torch.Tensor,
     x = embed(params["embed"], tokens)
     cos, sin = rope_tables(start + torch.arange(c, device=tokens.device),
                            cfg.head_dim, cfg.rope_theta)
-    bq, bk = prefill_tiles or DEFAULT_TILES
+    bq, bk = prefill_tiles
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         k_c, v_c = cache["k"][i], cache["v"][i]

@@ -15,8 +15,7 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hw import GpuParams
-from repro_torch.core.mapper import (MappingPolicy, plan_attention_blocks,
-                                     plan_paged_block)
+from repro_torch.core.mapper import plan_attention_blocks, plan_paged_block
 
 __all__ = ["BucketSpec", "Bucket", "BucketPlan", "RouterStats",
            "BucketRouter"]
@@ -194,8 +193,7 @@ class BucketRouter:
             return hit
         self.stats.cold += 1
         plan = plan_attention_blocks(prompt_bucket, prompt_bucket,
-                                     self.cfg.head_dim, self.hw,
-                                     MappingPolicy.TUNED)
+                                     self.cfg.head_dim, self.hw)
         tiles = (plan.block_q, plan.block_k)
         self._prefill_tiles[prompt_bucket] = tiles
         return tiles

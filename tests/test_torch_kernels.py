@@ -166,8 +166,8 @@ def test_kernel_input_checks_raise(case):
     """The checks run before a launch; they raise on what the kernels do
     not take."""
     q, k, v, tables, clen = (torch.from_numpy(a) for a in _paged_case(4))
-    fq = torch.zeros(1, 8, 2, 2, 32)
-    fk = torch.zeros(1, 8, 2, 32)
+    fq = torch.zeros(1, 8, 2, 2, 64)
+    fk = torch.zeros(1, 8, 2, 64)
     with pytest.raises((TypeError, ValueError)):
         if case == "dtype":
             pda._check(q.half(), k.half(), v.half(), tables, clen, 16, 16)
