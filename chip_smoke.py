@@ -15,6 +15,18 @@ Phases, each printing one JSON line:
            25 runs after warm-up, L2 flushed before each) of the kernel,
            the plain version and, where one exists, one PyTorch library
            call computing the same function, beside the roofline bound;
+  suite    the paper's kernel suite through ``repro_torch.kernels.ops``
+           (vecadd, saxpy, matmul, rmsnorm) under each mapping policy
+           (naive, fixed, auto) at the cases of ``SUITE_CASES``: each op
+           driven once per policy with its launch counts reset just
+           before and read just after (all must be above 0); then per
+           case and policy the plan (threads, lws, grid, rounds,
+           regime), the resident CTAs per SM that the CUDA runtime reports
+           beside the plan's full-residency assumption, the error
+           against the plain version (``SUITE_TOL``), CUDA-event times
+           of the op, its plain version and one PyTorch call computing
+           the same function, and the roofline bound; then the vecadd
+           sweep (float32, n = 2^12 ... 2^26, the three policies);
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
            requests in bf16, once with chunked prefill (the default) and
            once with whole-prompt prefill; each kernel's launch count is
@@ -72,13 +84,21 @@ class Timer:
         self.scratch = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                                    device=device)
 
-    def ms(self, fn, runs: int = 25, warmup: int = 3) -> float:
+    def ms(self, fn, runs: int = 25, warmup: int = 3,
+           head_start: bool = False) -> float:
+        """``head_start`` spins the card ~1 ms after the flush, so the
+        host has enqueued ``fn``'s launch before the start event fires
+        and a microsecond kernel is timed without the host's overhead
+        (0.1 ms was too short on the card's shared host: identical plans
+        timed up to 40x apart)."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(runs):
             self.scratch.zero_()
+            if head_start:
+                torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -249,6 +269,228 @@ def kernels_phase(cfg, hw, timer, device):
                        flash_bound, sdpa_call)),
     ]
     return results
+
+
+# --------------------------------------------------------------------------- #
+# suite
+# --------------------------------------------------------------------------- #
+
+POLICIES = ("naive", "fixed", "auto")
+# (op, shape, dtype): vectors under, at (hp, filled in at run time) and
+# over hp; smollm-135m's decode-row MLP projection (m, n, k) = (8 slots,
+# d_ff, d_model) and its decode rows (8, d_model); the paper's sgemm
+# size and a long-prompt norm.
+SUITE_CASES = (
+    [(op, (n,), torch.float32) for op in ("vecadd", "saxpy")
+     for n in (1 << 16, "hp", 1 << 26)]
+    + [(op, (1 << 26,), torch.bfloat16) for op in ("vecadd", "saxpy")]
+    + [("matmul", s, dt) for s in ((8, 1536, 576), (4096, 4096, 4096))
+       for dt in (torch.float32, torch.bfloat16)]
+    + [("rmsnorm", s, dt) for s in ((8, 576), (16384, 4096))
+       for dt in (torch.float32, torch.bfloat16)])
+# (atol, rtol) of each kernel against its plain version: the CPU tests'
+# tolerances against JAX (tests/test_torch_suite.py).  vecadd and saxpy
+# round where their plain versions round; matmul's inputs are scaled by
+# k^-1/4 so its outputs are O(1) and float32 sums over k = 4096 stay
+# within 1e-4.
+SUITE_TOL = {
+    ("vecadd", torch.float32): (0.0, 0.0),
+    ("vecadd", torch.bfloat16): (0.0, 0.0),
+    ("saxpy", torch.float32): (1e-6, 1e-6),
+    ("saxpy", torch.bfloat16): (0.0, 8e-3),
+    ("rmsnorm", torch.float32): (1e-5, 1e-5),
+    ("rmsnorm", torch.bfloat16): (0.0, 8e-3),
+    ("matmul", torch.float32): (1e-4, 1e-4),
+    ("matmul", torch.bfloat16): (1.6e-2, 1.6e-2),
+}
+SAXPY_A = 1.7
+SWEEP_EXPONENTS = range(12, 27)      # vecadd sweep: n = 2^12 ... 2^26
+RMS_EPS = 1e-6
+
+
+def suite_inputs(cases, device):
+    """Seeded inputs for every case, made on the card; vecadd and saxpy
+    of one shape and dtype share their vectors."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    made = {}
+
+    def randn(*shape, dtype, scale=1.0):
+        x = torch.randn(shape, generator=gen, device=device) * scale
+        return x.to(dtype)
+
+    for op, shape, dtype in cases:
+        key = ("vec" if op in ("vecadd", "saxpy") else op, shape, dtype)
+        if key in made:
+            continue
+        if op in ("vecadd", "saxpy"):
+            made[key] = (randn(*shape, dtype=dtype),
+                         randn(*shape, dtype=dtype))
+        elif op == "matmul":
+            m, n, k = shape
+            made[key] = (randn(m, k, dtype=dtype, scale=k ** -0.25),
+                         randn(k, n, dtype=dtype, scale=k ** -0.25))
+        else:
+            made[key] = (randn(*shape, dtype=dtype),
+                         randn(shape[1], dtype=dtype))
+    return lambda op, shape, dtype: made[
+        ("vec" if op in ("vecadd", "saxpy") else op, shape, dtype)]
+
+
+def suite_call(op, ins, policy):
+    """The user's call: ``repro_torch.kernels.ops.<op>`` under ``policy``."""
+    from repro_torch.kernels import ops
+
+    if op == "vecadd":
+        return lambda: ops.vecadd(*ins, policy=policy)
+    if op == "saxpy":
+        return lambda: ops.saxpy(SAXPY_A, *ins, policy=policy)
+    if op == "matmul":
+        return lambda: ops.matmul(*ins, policy=policy)
+    return lambda: ops.rmsnorm(*ins, eps=RMS_EPS, policy=policy)
+
+
+def suite_library(op, ins):
+    """One PyTorch call computing the op's function: a yardstick only;
+    the port never calls it."""
+    import torch.nn.functional as F
+
+    if op == "vecadd":
+        return lambda: torch.add(*ins)
+    if op == "saxpy":
+        x, y = ins
+        return lambda: torch.add(y, x, alpha=SAXPY_A)
+    if op == "matmul":
+        return lambda: torch.matmul(*ins)
+    x, g = ins
+    return lambda: F.rms_norm(x, (x.shape[1],), g, RMS_EPS)
+
+
+def suite_plan(op, shape, dtype, policy, hw):
+    from repro_torch.core import workload
+    from repro_torch.core.mapper import (plan_matmul_blocks, plan_rows,
+                                         plan_vector_blocks)
+
+    es = torch.empty((), dtype=dtype).element_size()
+    if op in ("vecadd", "saxpy"):
+        return plan_vector_blocks(getattr(workload, op)(shape[0], es), hw,
+                                  policy)
+    if op == "matmul":
+        return plan_matmul_blocks(*shape, hw, policy)
+    return plan_rows(shape[0], hw, policy)
+
+
+def suite_bound(op, shape, dtype, hw):
+    """Each input read once, each output written once, over 3.35 TB/s;
+    the workload's FLOPs over the dtype's peak."""
+    from repro_torch.core import workload
+
+    es = torch.empty((), dtype=dtype).element_size()
+    if op in ("vecadd", "saxpy"):
+        w = getattr(workload, op)(shape[0], es)
+        return bound(w.total_bytes, w.total_flops, dtype, hw)
+    if op == "matmul":
+        m, n, k = shape
+        w = workload.sgemm(m, n, k, es)
+        return bound((m * k + k * n + m * n) * es, w.total_flops, dtype, hw)
+    t, d = shape
+    return bound((2 * t * d + d) * es, 4 * t * d, dtype, hw)
+
+
+def suite_occupancy(op, plan, dtype):
+    from repro_torch.kernels import matmul, rmsnorm, saxpy, vecadd
+
+    if op == "matmul":
+        return matmul.occupancy(plan, dtype)
+    return {"vecadd": vecadd, "saxpy": saxpy,
+            "rmsnorm": rmsnorm}[op].occupancy(dtype)
+
+
+SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
+                  "saxpy": "src/repro/kernels/saxpy.py:15",
+                  "matmul": "src/repro/kernels/matmul.py:24",
+                  "rmsnorm": "src/repro/kernels/rmsnorm.py:19"}
+
+
+def suite_phase(hw, timer, device):
+    """The paper's kernel suite on the card under the three policies."""
+    from repro_torch import kernels
+    from repro_torch.kernels import matmul, rmsnorm, saxpy, vecadd
+
+    counters = {"vecadd": vecadd.vecadd, "saxpy": saxpy.saxpy,
+                "matmul": matmul.matmul, "rmsnorm": rmsnorm.rmsnorm}
+    cases = [(op, (hw.hp(),) if shape == ("hp",) else shape, dtype)
+             for op, shape, dtype in SUITE_CASES]
+    inputs = suite_inputs(cases, device)
+    t0 = time.perf_counter()
+
+    # the main path: every op under every policy, counts read per policy
+    outs, launches = {}, {}
+    for policy in POLICIES:
+        for fn in counters.values():
+            fn.launches = 0
+        for case in cases:
+            outs[case, policy] = suite_call(case[0], inputs(*case), policy)()
+        torch.cuda.synchronize()
+        launches[policy] = {k: fn.launches for k, fn in counters.items()}
+        for k, n in launches[policy].items():
+            if n <= 0:
+                raise AssertionError(f"suite: {k} was never launched under "
+                                     f"policy {policy}")
+    emit("suite_launches", **launches)
+
+    results = {}
+    for case in cases:
+        op, shape, dtype = case
+        ins = inputs(*case)
+        atol, rtol = SUITE_TOL[op, dtype]
+        dt = str(dtype).split(".")[1]
+        library_ms = timer.ms(suite_library(op, ins), head_start=True)
+        bound_ms, bound_by = suite_bound(op, shape, dtype, hw)
+        for policy in POLICIES:
+            plan = suite_plan(op, shape, dtype, policy, hw)
+            call = suite_call(op, ins, policy)
+            with kernels.force("plain"):
+                want = call()
+            got = outs.pop((case, policy))
+            err = float((got.float() - want.float()).abs().max())
+            ok = torch.allclose(got.float(), want.float(), atol=atol,
+                                rtol=rtol)
+            if not ok or not torch.isfinite(got.float()).all():
+                raise AssertionError(
+                    f"suite {op} {shape} {dt} {policy}: kernel disagrees "
+                    f"with its plain version, max abs err {err} (atol "
+                    f"{atol}, rtol {rtol})")
+            del got, want
+
+            def plain():
+                with kernels.force("plain"):
+                    call()
+            entry = dict(
+                op=op, shape=list(shape), dtype=dt, policy=policy,
+                plan={k: (v.value if hasattr(v, "value") else v)
+                      for k, v in dataclasses.asdict(plan).items()},
+                resident_ctas_per_sm=suite_occupancy(op, plan, dtype),
+                assumed_ctas_per_sm=hw.warps_per_sm * hw.warp_size
+                // plan.threads,
+                max_abs_err=err, atol=atol, rtol=rtol,
+                kernel_ms=timer.ms(call, head_start=True),
+                plain_ms=timer.ms(plain, head_start=True),
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            emit("suite", **entry)
+            results[op, shape, dt, policy] = entry
+
+    x, y = inputs("vecadd", (1 << SWEEP_EXPONENTS[-1],), torch.float32)
+    sweep = {}
+    for e in SWEEP_EXPONENTS:
+        n = 1 << e
+        xs, ys = x[:n], y[:n]
+        sweep[n] = {p: timer.ms(suite_call("vecadd", (xs, ys), p),
+                                head_start=True) for p in POLICIES}
+    emit("suite_sweep", op="vecadd", dtype="float32",
+         kernel_ms={str(n): v for n, v in sweep.items()})
+    emit("suite_done", seconds=time.perf_counter() - t0)
+    total = {k: sum(launches[p][k] for p in POLICIES) for k in counters}
+    return results, total
 
 
 # --------------------------------------------------------------------------- #
@@ -434,6 +676,7 @@ def main() -> int:
     timer = Timer(device)
     kres = kernels_phase(cfg, hw, timer, device)
     emit("kernels", card=smi, results=kres)
+    sres, suite_launches = suite_phase(hw, timer, device)
     runs, params, reqs = engine_phase(device)
     profile_phase(device, params, reqs)
     del params
@@ -457,6 +700,22 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "shape": main_case["shape"]})
+    # the suite's row per kernel: AUTO (the default policy) at its
+    # largest case
+    for op, shape, dt in (("vecadd", (1 << 26,), "float32"),
+                          ("saxpy", (1 << 26,), "float32"),
+                          ("matmul", (4096, 4096, 4096), "float32"),
+                          ("rmsnorm", (16384, 4096), "bfloat16")):
+        e = sres[op, shape, dt, "auto"]
+        summary.append({
+            "name": op, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{op}.cu",
+            "replaces": SUITE_REPLACES[op],
+            "launches": suite_launches[op], "max_abs_err": e["max_abs_err"],
+            "ms": e["kernel_ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": e["library_ms"],
+            "shape": f"{dt} {list(shape)}, policy auto"})
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,51 @@
 """Runtime hardware-aware workload mapping — Eq. 1 resolved over a GPU.
 
-``lws = gws / hp`` is resolved at runtime from ``GpuParams``: the
-streaming multiprocessors take the place of the TPU's TensorCores at the
-program tier, and Hopper's rules take the place of the 8x128 tile and
-VMEM rules when a plan is legalised:
+``lws = gws / hp`` is resolved at runtime from ``GpuParams``.  On a GPU
+the paper's ``hp = cores x warps x threads`` is literal: streaming
+multiprocessors x resident warps per SM x the 32 lanes of a warp
+(270,336 on an H100).  Hopper's rules take the place of the TPU's 8x128
+tile and VMEM rules when a plan is legalised.
+
+**The paper's kernel suite** (vecadd, saxpy, matmul, rmsnorm) runs under
+three mapping policies, which decide two counts: how many work items each
+hardware thread loops over (``lws``) and how many threads are launched.
+
+  * ``NAIVE``: ``lws = 1``, one work item per thread, maximal grid;
+  * ``FIXED``: ``lws = FIXED_LWS = 32`` whatever the workload or card;
+  * ``AUTO``: Eq. 1, ``lws = resolve_lws(gws, hp)``, so a workload at or
+    above ``hp`` fills the card exactly once (one round of CTAs).
+
+Per kernel (every CTA has 256 threads, i.e. 8 warps):
+
+  * vecadd / saxpy: a work item is one element, ``gws = n``,
+    ``hp = GpuParams.hp()``; ``grid = ceil(n / (256 lws))``.  Thread
+    ``t`` of ``T`` launched takes items ``t, t + T, t + 2T, ...`` so a
+    warp's 32 loads are consecutive (coalesced); a bounds check stands
+    where the JAX kernel pads.
+  * rmsnorm: a row reduction is one warp's work, ``gws = tokens``,
+    ``hp = SMs x warps_per_sm``; ``lws`` = rows per warp and a CTA owns
+    ``8 lws`` consecutive rows, so ``grid = ceil(tokens / (8 lws))``.
+  * matmul: a work item is one output element, ``gws = m n``,
+    ``hp = GpuParams.hp()``; ``lws`` = outputs per thread, held in
+    registers as a ``tm x tn`` micro-tile over a 16 x 16 thread grid, so
+    a CTA owns a ``(16 tm) x (16 tn)`` output tile.  The micro-tile's
+    dimensions size register arrays and are template parameters of the
+    kernel: ``tm, tn`` are powers of two up to 8, so the legal ``lws``
+    are 1, 2, 4, ..., 64.  64 (8 x 8) is the register budget: the 64 f32
+    accumulators plus operand fragments take ~100 registers a thread;
+    a 16 x 16 micro-tile would pass the 255-register limit and spill.
+    Eq. 1's ``lws`` is rounded UP to the next legal value (63 -> 64 at
+    4096^2) so AUTO still takes one round; a tile dimension is halved
+    while half of it still covers the matrix.  ``bk`` (the K step staged
+    per ``__syncthreads``) is 32 for every policy, cut to 16 for K <= 16.
+
+``rounds`` counts waves of CTAs at full residency (``warps_per_sm / 8``
+CTAs of 8 warps on each SM); the matmul micro-tile's registers may
+lower the real residency, which ``chip_smoke.py`` reads from the CUDA runtime
+beside the plan.  ``TUNED`` (the measured refinement with its tuning
+cache) comes with the tuner slice and raises here.
+
+**The serving kernels** keep the AUTO seed as their only plan:
 
   * flash ``block_q`` and ``block_k`` are multiples of 16; ``block_q``
     is at least one warp of rows (the kernel maps one query row to one
@@ -11,19 +53,21 @@ VMEM rules when a plan is legalised:
   * the paged sweep's ``block_s`` is a whole number of pages;
   * each kernel's staged tiles fit the block's opt-in shared memory
     (227 KB on an H100).
-
-This is the seed of the JAX package's AUTO policy, and the only plan
-there is: the mapping policies (NAIVE/FIXED baselines, TUNED with its
-measured refinement and tuning cache) come with the tuner slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 from repro_torch.core.hw import GpuParams, ceil_div, round_up
+from repro_torch.core.workload import Workload
 
-__all__ = ["resolve_lws", "AttentionPlan", "plan_attention_blocks",
+__all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
+           "BlockPlan", "plan_vector_blocks", "vector_plan_for_block",
+           "plan_rows", "row_plan_for_block", "MatmulPlan",
+           "plan_matmul_blocks", "matmul_plan_for_blocks",
+           "matmul_smem_bytes", "AttentionPlan", "plan_attention_blocks",
            "attention_plan_for_blocks", "flash_smem_bytes",
            "paged_smem_bytes", "plan_paged_block"]
 
@@ -32,9 +76,218 @@ MAX_BLOCK_K = 128
 TILE_QUANTUM = 16         # mma's row/column quantum on Hopper
 
 
+FIXED_LWS = 32            # the paper's fixed baseline
+CTA_THREADS = 256         # every suite kernel's CTA: 8 warps
+MM_THREAD_GRID = 16       # matmul CTA: 16 x 16 threads
+MM_MAX_TILE = 8           # micro-tile side: 8 x 8 = 64 accumulators
+MM_BK = 32
+
+
+class MappingPolicy(str, enum.Enum):
+    """The paper's three mappings (module docstring)."""
+
+    NAIVE = "naive"
+    FIXED = "fixed"
+    AUTO = "auto"
+
+    @classmethod
+    def _missing_(cls, value):
+        if value == "tuned":
+            raise ValueError(
+                "policy 'tuned' is not ported yet: the measured refinement "
+                "and its tuning cache come with the tuner slice (ROADMAP "
+                "queue 1, item 4); use 'naive', 'fixed' or 'auto'")
+        return None
+
+
+class Regime(str, enum.Enum):
+    """The three scenarios of the paper's Fig. 1."""
+
+    OVERSUBSCRIBED = "oversubscribed"    # lws < gws/hp: several rounds
+    EXACT = "exact"                      # lws = gws/hp: one full round
+    UNDERSUBSCRIBED = "undersubscribed"  # lws > gws/hp: idle hardware
+
+
 def resolve_lws(gws: int, hp: int) -> int:
     """Eq. 1: ``lws = gws / hp`` — 1 when ``hp`` exceeds ``gws``."""
     return max(1, ceil_div(gws, hp))
+
+
+def classify_regime(lws: int, gws: int, hp: int) -> Regime:
+    needed_lanes = ceil_div(gws, lws)
+    if needed_lanes > hp:
+        return Regime.OVERSUBSCRIBED
+    if needed_lanes == hp or gws == lws * hp:
+        return Regime.EXACT
+    return Regime.UNDERSUBSCRIBED
+
+
+def _policy_lws(policy: MappingPolicy, gws: int, hp: int) -> int:
+    policy = MappingPolicy(policy)
+    if policy is MappingPolicy.NAIVE:
+        return 1
+    if policy is MappingPolicy.FIXED:
+        return FIXED_LWS
+    return resolve_lws(gws, hp)
+
+
+def _rounds(grid: int, hw: GpuParams) -> int:
+    """Waves of 256-thread CTAs at full residency on every SM."""
+    per_sm = max(1, hw.warps_per_sm * hw.warp_size // CTA_THREADS)
+    return ceil_div(grid, hw.sm_count * per_sm)
+
+
+# --------------------------------------------------------------------------- #
+# Vector and row kernels (vecadd, saxpy, rmsnorm)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """Launch of a vector or row kernel: ``grid`` CTAs of ``threads``
+    threads; each thread (vector) or warp (rows) loops over ``lws`` work
+    items; ``rounds`` waves of CTAs at full residency."""
+
+    policy: MappingPolicy
+    lws: int
+    threads: int
+    grid: int
+    rounds: int
+    regime: Regime
+
+
+def plan_vector_blocks(w: Workload, hw: GpuParams,
+                       policy: MappingPolicy = MappingPolicy.AUTO
+                       ) -> BlockPlan:
+    """Map an elementwise kernel of ``w.gws`` elements onto the card.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> from repro_torch.core.workload import vecadd
+        >>> p = plan_vector_blocks(vecadd(1 << 26), GPU_REGISTRY["h100_sxm"])
+        >>> p.lws, p.grid, p.rounds
+        (249, 1053, 1)
+    """
+    lws = _policy_lws(policy, w.gws, hw.hp())
+    return vector_plan_for_block(w, hw, lws, policy)
+
+
+def vector_plan_for_block(w: Workload, hw: GpuParams, lws: int,
+                          policy: MappingPolicy = MappingPolicy.AUTO
+                          ) -> BlockPlan:
+    """Legalise an ``lws`` decision: at least 1, at most what one CTA
+    needs to cover the whole vector."""
+    lws = max(1, min(int(lws), ceil_div(w.gws, CTA_THREADS)))
+    grid = ceil_div(w.gws, CTA_THREADS * lws)
+    return BlockPlan(policy=MappingPolicy(policy), lws=lws,
+                     threads=CTA_THREADS, grid=grid,
+                     rounds=_rounds(grid, hw),
+                     regime=classify_regime(lws, w.gws, hw.hp()))
+
+
+def plan_rows(tokens: int, hw: GpuParams,
+              policy: MappingPolicy = MappingPolicy.AUTO) -> BlockPlan:
+    """Row plan for rmsnorm: one warp reduces one row at a time, so Eq. 1
+    runs over rows and resident warps (``hp = SMs x warps_per_sm``)."""
+    lws = _policy_lws(policy, tokens, hw.sm_count * hw.warps_per_sm)
+    return row_plan_for_block(tokens, hw, lws, policy)
+
+
+def row_plan_for_block(tokens: int, hw: GpuParams, lws: int,
+                       policy: MappingPolicy = MappingPolicy.AUTO
+                       ) -> BlockPlan:
+    """Legalise rows per warp: at least 1, at most what one CTA (8 warps)
+    needs to cover every row.  A CTA owns ``8 lws`` consecutive rows."""
+    warps = CTA_THREADS // hw.warp_size
+    lws = max(1, min(int(lws), ceil_div(tokens, warps)))
+    grid = ceil_div(tokens, warps * lws)
+    return BlockPlan(policy=MappingPolicy(policy), lws=lws,
+                     threads=CTA_THREADS, grid=grid,
+                     rounds=_rounds(grid, hw),
+                     regime=classify_regime(lws, tokens,
+                                            hw.sm_count * hw.warps_per_sm))
+
+
+# --------------------------------------------------------------------------- #
+# Matmul
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """A CTA of 16 x 16 threads owns a ``bm x bn = (16 tm) x (16 tn)``
+    output tile and sweeps K in ``bk`` steps staged in shared memory;
+    ``grid`` is (n tiles, m tiles)."""
+
+    policy: MappingPolicy
+    lws: int
+    tm: int
+    tn: int
+    bm: int
+    bn: int
+    bk: int
+    threads: int
+    grid: tuple[int, int]
+    rounds: int
+    regime: Regime
+    smem_bytes: int
+
+
+def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of ``csrc/matmul.cu``: the f32 A tile stored
+    transposed with one word of padding per row (no bank conflicts when
+    it is written) and the f32 B tile."""
+    return 4 * bk * ((bm + 1) + bn)
+
+
+def plan_matmul_blocks(m: int, n: int, k: int, hw: GpuParams,
+                       policy: MappingPolicy = MappingPolicy.AUTO
+                       ) -> MatmulPlan:
+    """Map ``C[m,n] = A[m,k] @ B[k,n]`` onto the card: ``lws`` outputs
+    per thread from the policy, legalised to a micro-tile.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> p = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"])
+        >>> p.lws, (p.bm, p.bn), p.grid, p.rounds
+        (64, (128, 128), (32, 32), 1)
+    """
+    lws = _policy_lws(policy, m * n, hw.hp())
+    return matmul_plan_for_blocks(m, n, k, hw, lws, MM_BK, policy)
+
+
+def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
+                           bk: int, policy: MappingPolicy = MappingPolicy.AUTO
+                           ) -> MatmulPlan:
+    """Legalise an (``lws``, ``bk``) decision onto the kernel's rules:
+    ``lws`` rounded up to a power of two and capped at 64 (the register
+    budget), split as ``tm x tn`` with ``tn >= tm``; each tile side
+    halved while half still covers the matrix; ``bk`` a multiple of 16,
+    at most K rounded up to 16, shrunk while the staged tiles overflow
+    shared memory."""
+    t = MM_THREAD_GRID
+    lws = min(max(1, int(lws)), MM_MAX_TILE * MM_MAX_TILE)
+    e = (lws - 1).bit_length()                      # 2**e >= lws
+    tm, tn = 1 << (e // 2), 1 << (e - e // 2)
+    while tm > 1 and t * (tm // 2) >= m:
+        tm //= 2
+    while tn > 1 and t * (tn // 2) >= n:
+        tn //= 2
+    bm, bn = t * tm, t * tn
+    bk = min(max(16, round_up(int(bk), 16)), round_up(max(k, 1), 16))
+    while matmul_smem_bytes(bm, bn, bk) > hw.smem_per_block and bk > 16:
+        bk -= 16
+    smem = matmul_smem_bytes(bm, bn, bk)
+    if smem > hw.smem_per_block:
+        raise ValueError(f"no legal matmul tile: {smem} B of shared memory")
+    grid = (ceil_div(n, bn), ceil_div(m, bm))
+    return MatmulPlan(policy=MappingPolicy(policy), lws=tm * tn, tm=tm,
+                      tn=tn, bm=bm, bn=bn, bk=bk, threads=t * t, grid=grid,
+                      rounds=_rounds(grid[0] * grid[1], hw),
+                      regime=classify_regime(tm * tn, m * n, hw.hp()),
+                      smem_bytes=smem)
 
 
 # --------------------------------------------------------------------------- #

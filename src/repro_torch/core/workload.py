@@ -1,0 +1,88 @@
+"""Workload descriptors — the software side of Eq. 1.
+
+A kernel is characterised by its global work size ``gws`` (total
+iterations) and its per-iteration arithmetic and memory traffic.  The
+mapper reads ``gws``; ``chip_smoke.py`` reads the FLOPs for its roofline
+bounds.  A copy of the paper-suite part of the JAX package's
+``core/workload.py`` (the port imports nothing of it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+__all__ = ["Workload", "vecadd", "saxpy", "sgemm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """One kernel invocation's software parameters.
+
+    gws              total kernel iterations (paper's global work size)
+    flops_per_iter   arithmetic per iteration
+    bytes_per_iter   memory traffic per iteration (read + write)
+    instrs_per_iter  issued instructions per iteration (trace model)
+    dtype_bytes      element width
+    dims             optional nd shape whose product is gws
+    reduce_dim       inner reduction length (matmul-like kernels), if any
+    """
+
+    name: str
+    gws: int
+    flops_per_iter: float
+    bytes_per_iter: float
+    instrs_per_iter: float
+    dtype_bytes: int = 4
+    dims: Optional[tuple[int, ...]] = None
+    reduce_dim: Optional[int] = None
+
+    @property
+    def arithmetic_intensity(self) -> float:
+        return self.flops_per_iter / max(self.bytes_per_iter, 1e-9)
+
+    @property
+    def total_flops(self) -> float:
+        return self.gws * self.flops_per_iter
+
+    @property
+    def total_bytes(self) -> float:
+        return self.gws * self.bytes_per_iter
+
+
+def vecadd(n: int, dtype_bytes: int = 4) -> Workload:
+    """c[i] = a[i] + b[i] — the paper's Fig. 1 kernel."""
+    return Workload(
+        name="vecadd", gws=n, flops_per_iter=1,
+        bytes_per_iter=3 * dtype_bytes, instrs_per_iter=8,
+        dtype_bytes=dtype_bytes, dims=(n,),
+    )
+
+
+def saxpy(n: int, dtype_bytes: int = 4) -> Workload:
+    """y[i] = a*x[i] + y[i]."""
+    return Workload(
+        name="saxpy", gws=n, flops_per_iter=2,
+        bytes_per_iter=3 * dtype_bytes, instrs_per_iter=9,
+        dtype_bytes=dtype_bytes, dims=(n,),
+    )
+
+
+#: operand reuse factor through the per-core data cache for gemm-like
+#: kernels (a 16-wide cache block is reused across neighbouring outputs).
+_CACHE_REUSE = 16.0
+
+
+def sgemm(m: int, n: int, k: int, dtype_bytes: int = 4) -> Workload:
+    """C[m,n] = A[m,k] @ B[k,n] — one iteration produces one C element.
+
+    Per-iteration traffic is divided by the cache reuse factor (rows and
+    columns are shared across neighbouring output elements), which is
+    the trace model's view, not the bytes a roofline bound counts.
+    """
+    return Workload(
+        name="sgemm", gws=m * n, flops_per_iter=2.0 * k,
+        bytes_per_iter=(2.0 * k / _CACHE_REUSE + 1) * dtype_bytes,
+        instrs_per_iter=4.0 * k + 10,
+        dtype_bytes=dtype_bytes, dims=(m, n), reduce_dim=k,
+    )

@@ -1,0 +1,335 @@
+"""The port's paper kernel suite on the CPU: ``repro_torch.kernels.ops``
+(vecadd, saxpy, matmul, rmsnorm; plain versions on CPU tensors) against
+the JAX Pallas kernels in interpret mode, on the same numpy inputs, under
+each mapping policy and in float32 and bfloat16; and the Hopper mapper's
+policies, legality and Eq. 1 against the JAX mapper.
+
+The port plans under the ``"cpu"`` stand-in (``hp`` = 8 x 64 x 32 =
+16,384), so the sizes below fall under, at and over ``hp``.  The CUDA
+kernels themselves run only on the card: ``chip_smoke.py`` holds each
+against its plain version there.
+
+Tolerances (port vs JAX):
+  vecadd   bitwise (one rounding of an exact sum either way);
+  saxpy    float32 atol = rtol = 1e-6; bfloat16 one ulp of |a x| + |y|
+           (8e-3 of it): the port rounds once, the JAX kernel rounds the
+           product to bf16 too;
+  rmsnorm  float32 atol = rtol = 1e-5; bfloat16 rtol 8e-3 (one ulp);
+  matmul   float32 atol = rtol = 1e-4 (k <= 600: summation order);
+           bfloat16 atol = rtol = 1.6e-2 (two ulps; atol for outputs
+           near zero, where the float32 sums differ before rounding).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core.hw import TPU_REGISTRY
+from repro.core.mapper import MappingPolicy as JaxPolicy
+from repro.core.mapper import classify_regime as jax_classify_regime
+from repro.core.mapper import resolve_lws as jax_resolve_lws
+from repro.kernels.matmul import matmul_pallas
+from repro.kernels.rmsnorm import rmsnorm_pallas
+from repro.kernels.saxpy import saxpy_pallas
+from repro.kernels.vecadd import vecadd_pallas
+
+from repro_torch.core import workload
+from repro_torch.core.hw import GPU_REGISTRY
+from repro_torch.core.mapper import (FIXED_LWS, MappingPolicy, Regime,
+                                     classify_regime, matmul_plan_for_blocks,
+                                     matmul_smem_bytes, plan_matmul_blocks,
+                                     plan_rows, plan_vector_blocks,
+                                     resolve_lws)
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import saxpy as sx
+from repro_torch.kernels import vecadd as va
+
+TPU = TPU_REGISTRY["cpu_sim"]
+H100 = GPU_REGISTRY["h100_sxm"]
+CPU = GPU_REGISTRY["cpu"]
+POLICIES = ["naive", "fixed", "auto"]
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _inputs(seed, *shapes, dtype="float32", scale=1.0):
+    """Seeded numpy normals rounded to ``dtype``: the same values as a
+    torch tensor and as a JAX array for each shape."""
+    rng = np.random.default_rng(seed)
+    tdt, jdt = DTYPES[dtype]
+    out = []
+    for shape in shapes:
+        t = torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(tdt)
+        out.append((t, jnp.asarray(t.float().numpy()).astype(jdt)))
+    return out
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else x.astype(jnp.float32), np.float32)
+
+
+# --------------------------------------------------------------------------- #
+# ops against the Pallas kernels
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("n", [1000, 16384, 70000])
+def test_vecadd_matches_pallas(n, policy, dtype):
+    (x, jx), (y, jy) = _inputs(n, (n,), (n,), dtype=dtype)
+    got = ops.vecadd(x, y, policy=policy)
+    assert got.dtype == x.dtype and got.shape == (n,)
+    want = vecadd_pallas(jx, jy, hw=TPU, policy=JaxPolicy(policy),
+                         interpret=True)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("n", [1000, 16384, 70000])
+def test_saxpy_matches_pallas(n, policy, dtype):
+    (x, jx), (y, jy) = _inputs(n + 1, (n,), (n,), dtype=dtype)
+    a = 1.7
+    got = ops.saxpy(a, x, y, policy=policy)
+    assert got.dtype == x.dtype and got.shape == (n,)
+    want = _np(saxpy_pallas(jnp.float32(a), jx, jy, hw=TPU,
+                            policy=JaxPolicy(policy), interpret=True))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, atol=1e-6, rtol=1e-6)
+    else:
+        a_bf16 = float(torch.tensor(a).bfloat16())
+        mag = np.abs(a_bf16 * _np(x)) + np.abs(_np(y))
+        assert (np.abs(_np(got) - want) <= 8e-3 * mag).all()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("mnk", [(8, 1536, 576), (130, 70, 300),
+                                 (256, 192, 96)])
+def test_matmul_matches_pallas(mnk, policy, dtype):
+    m, n, k = mnk
+    (a, ja), (b, jb) = _inputs(m + k, (m, k), (k, n), dtype=dtype,
+                               scale=k ** -0.25)
+    got = ops.matmul(a, b, policy=policy)
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    want = matmul_pallas(ja, jb, hw=TPU, policy=JaxPolicy(policy),
+                         interpret=True)
+    tol = 1e-4 if dtype == "float32" else 1.6e-2
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_out_dtype(out_dtype):
+    (a, ja), (b, jb) = _inputs(5, (40, 48), (48, 24), dtype="bfloat16")
+    got = ops.matmul(a, b, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    want = matmul_pallas(ja, jb, hw=TPU, out_dtype=DTYPES[
+        str(out_dtype).split(".")[1]][1], interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1.6e-2, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("shape", [(8, 576), (37, 256), (3, 400, 64)])
+def test_rmsnorm_matches_pallas(shape, policy, dtype):
+    d = shape[-1]
+    (x, jx), (g, jg) = _inputs(sum(shape), shape, (d,), dtype=dtype)
+    got = ops.rmsnorm(x, g, eps=1e-6, policy=policy)
+    assert got.dtype == x.dtype and got.shape == shape
+    want = rmsnorm_pallas(jx.reshape(-1, d), jg, hw=TPU, eps=1e-6,
+                          policy=JaxPolicy(policy), interpret=True)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" \
+        else dict(atol=0, rtol=8e-3)
+    np.testing.assert_allclose(_np(got), _np(want).reshape(shape), **tol)
+
+
+# --------------------------------------------------------------------------- #
+# the mapper: Eq. 1, policies, legality
+# --------------------------------------------------------------------------- #
+
+
+def test_eq1_and_regimes_equal_the_jax_mapper():
+    rng = np.random.default_rng(0)
+    for gws, hp, lws in rng.integers(1, 1 << 20, size=(500, 3)):
+        gws, hp, lws = int(gws), int(hp), int(lws) % 512 + 1
+        assert resolve_lws(gws, hp) == jax_resolve_lws(gws, hp)
+        assert classify_regime(lws, gws, hp).value == \
+            jax_classify_regime(lws, gws, hp).value
+    for gws, hp in [(16384, 16384), (1, 16384), (16385, 16384)]:
+        lws = resolve_lws(gws, hp)
+        assert classify_regime(lws, gws, hp).value == \
+            jax_classify_regime(lws, gws, hp).value
+
+
+def test_tuned_policy_raises_and_names_the_tuner_slice():
+    with pytest.raises(ValueError, match="tuner slice"):
+        MappingPolicy("tuned")
+    with pytest.raises(ValueError, match="tuner slice"):
+        ops.vecadd(torch.zeros(4), torch.zeros(4), policy="tuned")
+    with pytest.raises(ValueError):
+        MappingPolicy("fastest")
+    assert [p.value for p in MappingPolicy] == POLICIES
+
+
+SIZES = [1, 255, 1000, 16384, 70000, 270336, 1 << 20, (1 << 26) + 3]
+
+
+@pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_vector_and_row_plans_cover_gws_and_are_legal(policy, hw):
+    for gws in SIZES:
+        p = plan_vector_blocks(workload.vecadd(gws), hw, policy)
+        assert p.threads == 256 and p.lws >= 1 and 1 <= p.grid < 2 ** 31
+        assert p.grid * p.threads * p.lws >= gws
+        assert (p.grid - 1) * p.threads * p.lws < gws     # no idle CTA
+        r = plan_rows(gws, hw, policy)
+        assert r.threads == 256 and r.grid * 8 * r.lws >= gws
+        assert (r.grid - 1) * 8 * r.lws < gws
+
+
+@pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_matmul_plans_cover_and_are_hopper_legal(policy, hw):
+    for m, n, k in [(1, 1, 1), (8, 1536, 576), (130, 70, 300),
+                    (4096, 4096, 4096), (100_000, 48, 9), (37, 5000, 2048)]:
+        p = plan_matmul_blocks(m, n, k, hw, policy)
+        assert p.tm in (1, 2, 4, 8) and p.tn in (1, 2, 4, 8)
+        assert p.lws == p.tm * p.tn and p.threads == 256
+        assert (p.bm, p.bn) == (16 * p.tm, 16 * p.tn)
+        assert p.bm % 16 == 0 and p.bn % 16 == 0 and p.bk % 16 == 0
+        assert p.bk <= max(16, -(-k // 16) * 16)
+        assert p.smem_bytes == matmul_smem_bytes(p.bm, p.bn, p.bk) \
+            <= hw.smem_per_block
+        assert p.grid[0] * p.bn >= n and p.grid[1] * p.bm >= m
+        assert p.grid[1] <= 65535
+        assert p.grid[0] * p.grid[1] * p.threads * p.lws >= m * n
+
+
+def test_policies_translate_eq1_to_hopper():
+    """NAIVE one item per thread, FIXED 32, AUTO Eq. 1 over hp =
+    SMs x warps x 32 (rows: SMs x warps), matmul rounded up to 8 x 8."""
+    n = 1 << 26
+    plans = {p: plan_vector_blocks(workload.vecadd(n), H100, p)
+             for p in POLICIES}
+    assert plans["naive"].lws == 1 and plans["naive"].grid == n // 256
+    assert plans["fixed"].lws == FIXED_LWS
+    assert plans["auto"].lws == -(-n // H100.hp()) == 249
+    assert plans["naive"].regime is Regime.OVERSUBSCRIBED
+    assert plan_vector_blocks(workload.vecadd(H100.hp()), H100,
+                              "auto").regime is Regime.EXACT
+    assert plan_rows(16384, H100, "auto").lws == -(-16384 // (132 * 64))
+    mm_auto = plan_matmul_blocks(4096, 4096, 4096, H100, "auto")
+    assert resolve_lws(4096 * 4096, H100.hp()) == 63
+    assert (mm_auto.tm, mm_auto.tn, mm_auto.lws) == (8, 8, 64)
+    assert plan_matmul_blocks(4096, 4096, 4096, H100, "fixed").lws == 32
+    assert plan_matmul_blocks(4096, 4096, 4096, H100, "naive").lws == 1
+    # a tile side never outgrows the matrix: 8 rows keep tm = 1
+    assert plan_matmul_blocks(8, 1536, 576, H100, "fixed").tm == 1
+    # the register budget caps lws at 64 whatever Eq. 1 asks
+    assert matmul_plan_for_blocks(4096, 4096, 64, H100, 500, 32).lws == 64
+
+
+@pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
+def test_auto_takes_one_round_at_or_above_hp(hw):
+    for mult in (1, 2, 3.7, 64, 249):
+        gws = int(hw.hp() * mult)
+        assert plan_vector_blocks(workload.vecadd(gws), hw, "auto").rounds \
+            == 1
+        assert plan_rows(int(hw.sm_count * hw.warps_per_sm * mult), hw,
+                         "auto").rounds == 1
+    assert plan_matmul_blocks(4096, 4096, 4096, H100, "auto").rounds == 1
+    # NAIVE past hp needs more than one round; FIXED under hp idles SMs
+    big = plan_vector_blocks(workload.vecadd(4 * hw.hp()), hw, "naive")
+    assert big.rounds > 1
+    small = plan_vector_blocks(workload.vecadd(hw.hp() // 4), hw, "fixed")
+    assert small.grid < hw.sm_count
+
+
+# --------------------------------------------------------------------------- #
+# wrappers, scoped policy, build
+# --------------------------------------------------------------------------- #
+
+
+def test_default_policy_is_auto_and_scoped(monkeypatch):
+    seen = []
+    real = ops.plan_vector_blocks
+
+    def spy(w, hw, policy):
+        seen.append(policy)
+        return real(w, hw, policy)
+
+    monkeypatch.setattr(ops, "plan_vector_blocks", spy)
+    x = torch.ones(100)
+    ops.vecadd(x, x)
+    with ops.policy("naive"):
+        ops.vecadd(x, x)
+        ops.vecadd(x, x, policy="fixed")
+    ops.vecadd(x, x)
+    assert [p.value for p in seen] == ["auto", "naive", "fixed", "auto"]
+
+
+def test_cpu_tensors_launch_nothing():
+    fns = (va.vecadd, sx.saxpy, mm.matmul, rn.rmsnorm)
+    before = [f.launches for f in fns]
+    x = torch.randn(64)
+    a = torch.randn(16, 32)
+    for policy in POLICIES:
+        ops.vecadd(x, x, policy=policy)
+        ops.saxpy(2.0, x, x, policy=policy)
+        ops.matmul(a, a.T.contiguous(), policy=policy)
+        ops.rmsnorm(a, torch.ones(32), policy=policy)
+    assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("case", ["vec_dtype", "vec_shape", "vec_plan",
+                                  "mm_dtype", "mm_shape", "mm_contiguous",
+                                  "rms_gamma", "rms_dtype"])
+def test_kernel_input_checks_raise(case):
+    """The checks run before a launch; they raise on what the kernels do
+    not take."""
+    x = torch.zeros(1000)
+    vplan = plan_vector_blocks(workload.vecadd(1000), H100, "auto")
+    a, b = torch.zeros(8, 16), torch.zeros(16, 4)
+    mplan = plan_matmul_blocks(8, 4, 16, H100, "auto")
+    rplan = plan_rows(8, H100, "auto")
+    with pytest.raises((TypeError, ValueError)):
+        if case == "vec_dtype":
+            va.check_vector_args("vecadd", vplan, x.half(), x.half())
+        elif case == "vec_shape":
+            va.check_vector_args("vecadd", vplan, x, torch.zeros(999))
+        elif case == "vec_plan":
+            small = plan_vector_blocks(workload.vecadd(10), H100, "naive")
+            va.check_vector_args("vecadd", small, x, x)
+        elif case == "mm_dtype":
+            mm._check(a, b.bfloat16(), mplan, torch.float32)
+        elif case == "mm_shape":
+            mm._check(a, torch.zeros(15, 4), mplan, torch.float32)
+        elif case == "mm_contiguous":
+            mm._check(a, torch.zeros(4, 16).T, mplan, torch.float32)
+        elif case == "rms_gamma":
+            rn._check(a, torch.zeros(15), rplan)
+        else:
+            rn._check(a.double(), torch.zeros(16).double(), rplan)
+
+
+def test_saxpy_scalar_is_rounded_to_x_dtype():
+    x = torch.ones(4, dtype=torch.bfloat16)
+    y = torch.zeros(4, dtype=torch.bfloat16)
+    a = 1.0 + 2 ** -9                     # not a bf16 value: rounds to 1.0
+    assert (sx.saxpy_plain(a, x, y) == 1.0).all()
+    assert (sx.saxpy_plain(torch.tensor(a), x.float(), y.float())
+            == torch.tensor(a)).all()
+
+
+def test_build_sources_name_every_cu():
+    on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.SOURCES) == on_disk
+    for name in ("vecadd", "saxpy", "rmsnorm", "matmul"):
+        assert name in _build.SOURCES
