@@ -16,17 +16,21 @@ Phases, each printing one JSON line:
            the plain version and, where one exists, one PyTorch library
            call computing the same function, beside the roofline bound;
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
-           (vecadd, saxpy, matmul, rmsnorm) under each mapping policy
-           (naive, fixed, auto) at the cases of ``SUITE_CASES``: each op
-           driven once per policy with its launch counts reset just
-           before and read just after (all must be above 0); then per
-           case and policy the plan (threads, lws, grid, rounds,
-           regime), the resident CTAs per SM that the CUDA runtime reports
-           beside the plan's full-residency assumption, the error
-           against the plain version (``SUITE_TOL``), CUDA-event times
-           of the op, its plain version and one PyTorch call computing
-           the same function, and the roofline bound; then the vecadd
-           sweep (float32, n = 2^12 ... 2^26, the three policies);
+           (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
+           gcn_aggregate) under each mapping policy (naive, fixed, auto)
+           at the cases of ``SUITE_CASES``: each op driven once per
+           policy with its launch counts reset just before and read just
+           after (all eight kernels' must be above 0); then per case and
+           policy the plan, the resident CTAs per SM that the CUDA
+           runtime reports beside the plan's full-residency assumption,
+           the error against the plain version (``SUITE_TOL``; for
+           nn_search ``NN_DIST_TOL`` and the near-ties counted),
+           CUDA-event times of the op, its plain version and one PyTorch
+           call computing the same function (none for nn_search), and
+           the roofline bound; for the blur each pass held and timed
+           apart, for the aggregation the occupied share of the plan's
+           tiles and the occupancy pass and kernel timed apart; then the
+           vecadd sweep (float32, n = 2^12 ... 2^26, the three policies);
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
            requests in bf16, once with chunked prefill (the default) and
            once with whole-prompt prefill; each kernel's launch count is
@@ -60,6 +64,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
+SLOW_S, SLOW_RUNS = 0.1, 5
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 
 
@@ -90,10 +95,18 @@ class Timer:
         host has enqueued ``fn``'s launch before the start event fires
         and a microsecond kernel is timed without the host's overhead
         (0.1 ms was too short on the card's shared host: identical plans
-        timed up to 40x apart)."""
-        for _ in range(warmup):
+        timed up to 40x apart).  A call that takes over 100 ms on its
+        first warm-up is timed over 5 runs (``last_runs`` says how many
+        were taken)."""
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 > SLOW_S:      # one call over 100 ms
+            runs, warmup = min(runs, SLOW_RUNS), 1
+        for _ in range(warmup - 1):
             fn()
         torch.cuda.synchronize()
+        self.last_runs = runs
         times = []
         for _ in range(runs):
             self.scratch.zero_()
@@ -276,36 +289,88 @@ def kernels_phase(cfg, hw, timer, device):
 # --------------------------------------------------------------------------- #
 
 POLICIES = ("naive", "fixed", "auto")
+F32, BF16 = torch.float32, torch.bfloat16
+# GCN graphs with the sizes of the Planetoid datasets: (nodes, features,
+# undirected edges), Cora and Pubmed.
+CORA = (2708, 1433, 5278)
+PUBMED = (19717, 500, 44324)
+COMMUNITY, LOCAL_P = 256, 0.9
+BLUR_SIGMA = 1.0
 # (op, shape, dtype): vectors under, at (hp, filled in at run time) and
 # over hp; smollm-135m's decode-row MLP projection (m, n, k) = (8 slots,
 # d_ff, d_model) and its decode rows (8, d_model); the paper's sgemm
-# size and a long-prompt norm.
+# size and a long-prompt norm.  The atypical kernels: the blur (h, w,
+# ksize) of 256^2 (under hp) and of a 16-megapixel frame (62x hp) with
+# halo 2 and 3; nn_search (nq, nr, d) of SIFT-style 128-dim descriptors
+# (gws under hp) and at the workload's default 4 dims (gws ~1.9x hp);
+# GCN aggregation (nodes, features, edges) at Cora's and Pubmed's sizes.
 SUITE_CASES = (
-    [(op, (n,), torch.float32) for op in ("vecadd", "saxpy")
+    [(op, (n,), F32) for op in ("vecadd", "saxpy")
      for n in (1 << 16, "hp", 1 << 26)]
-    + [(op, (1 << 26,), torch.bfloat16) for op in ("vecadd", "saxpy")]
+    + [(op, (1 << 26,), BF16) for op in ("vecadd", "saxpy")]
     + [("matmul", s, dt) for s in ((8, 1536, 576), (4096, 4096, 4096))
-       for dt in (torch.float32, torch.bfloat16)]
+       for dt in (F32, BF16)]
     + [("rmsnorm", s, dt) for s in ((8, 576), (16384, 4096))
-       for dt in (torch.float32, torch.bfloat16)])
+       for dt in (F32, BF16)]
+    + [("gaussian_blur", (256, 256, 5), F32)]
+    + [("gaussian_blur", (4096, 4096, 5), dt) for dt in (F32, BF16)]
+    + [("gaussian_blur", (4096, 4096, 7), F32)]
+    + [("nn_search", (4096, 65536, 128), dt) for dt in (F32, BF16)]
+    + [("nn_search", (524288, 4096, 4), F32)]
+    + [("gcn_aggregate", CORA, F32)]
+    + [("gcn_aggregate", PUBMED, dt) for dt in (F32, BF16)])
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
-# tolerances against JAX (tests/test_torch_suite.py).  vecadd and saxpy
-# round where their plain versions round; matmul's inputs are scaled by
-# k^-1/4 so its outputs are O(1) and float32 sums over k = 4096 stay
-# within 1e-4.
+# tolerances against JAX (tests/test_torch_suite.py,
+# tests/test_torch_suite_atypical.py).  vecadd and saxpy round where
+# their plain versions round; matmul's inputs are scaled by k^-1/4 so its
+# outputs are O(1) and float32 sums over k = 4096 stay within 1e-4.  The
+# blur passes repeat their plain versions' roundings (expected bitwise);
+# the aggregation sums each row in another order.
 SUITE_TOL = {
-    ("vecadd", torch.float32): (0.0, 0.0),
-    ("vecadd", torch.bfloat16): (0.0, 0.0),
-    ("saxpy", torch.float32): (1e-6, 1e-6),
-    ("saxpy", torch.bfloat16): (0.0, 8e-3),
-    ("rmsnorm", torch.float32): (1e-5, 1e-5),
-    ("rmsnorm", torch.bfloat16): (0.0, 8e-3),
-    ("matmul", torch.float32): (1e-4, 1e-4),
-    ("matmul", torch.bfloat16): (1.6e-2, 1.6e-2),
+    ("vecadd", F32): (0.0, 0.0),
+    ("vecadd", BF16): (0.0, 0.0),
+    ("saxpy", F32): (1e-6, 1e-6),
+    ("saxpy", BF16): (0.0, 8e-3),
+    ("rmsnorm", F32): (1e-5, 1e-5),
+    ("rmsnorm", BF16): (0.0, 8e-3),
+    ("matmul", F32): (1e-4, 1e-4),
+    ("matmul", BF16): (1.6e-2, 1.6e-2),
+    ("gaussian_blur", F32): (1e-6, 1e-6),
+    ("gaussian_blur", BF16): (1e-6, 8e-3),
+    ("gcn_aggregate", F32): (1e-5, 1e-5),
+    ("gcn_aggregate", BF16): (1e-5, 8e-3),
 }
+# nn_search's dist: within NN_DIST_TOL x (max |q|^2 + max |r|^2) of the
+# plain version (the cancellation in |q|^2 - 2 q.r + |r|^2 leaves an
+# error of the norms' size, not the distance's); idx equal except where
+# the plain version's distance at the kernel's index is within that
+# tolerance of its minimum (a near-tie: counted and printed).
+NN_DIST_TOL = 2.0 ** -18
 SAXPY_A = 1.7
 SWEEP_EXPONENTS = range(12, 27)      # vecadd sweep: n = 2^12 ... 2^26
 RMS_EPS = 1e-6
+
+
+def planetoid_like(n, f, edges, dtype, gen, device):
+    """A synthetic graph of a Planetoid dataset's size: each undirected
+    edge falls within one community of 256 consecutive node ids with
+    probability 0.9, otherwise anywhere; made symmetric, with
+    self-loops, row-normalised as tests/test_kernels.py does."""
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device=device)
+
+    src = randint(n, edges)
+    local = (src // COMMUNITY * COMMUNITY + randint(COMMUNITY, edges)) \
+        .clamp(max=n - 1)
+    near = torch.rand(edges, generator=gen, device=device) < LOCAL_P
+    dst = torch.where(near, local, randint(n, edges))
+    a = torch.zeros(n, n, device=device)
+    a[src, dst] = 1.0
+    a[dst, src] = 1.0
+    a.fill_diagonal_(1.0)
+    a /= a.sum(1, keepdim=True).clamp(min=1.0)
+    x = torch.randn(n, f, generator=gen, device=device)
+    return a.to(dtype), x.to(dtype)
 
 
 def suite_inputs(cases, device):
@@ -329,6 +394,14 @@ def suite_inputs(cases, device):
             m, n, k = shape
             made[key] = (randn(m, k, dtype=dtype, scale=k ** -0.25),
                          randn(k, n, dtype=dtype, scale=k ** -0.25))
+        elif op == "gaussian_blur":
+            made[key] = (randn(*shape[:2], dtype=dtype), shape[2])
+        elif op == "nn_search":
+            nq, nr, d = shape
+            made[key] = (randn(nq, d, dtype=dtype), randn(nr, d, dtype=dtype))
+        elif op == "gcn_aggregate":
+            n, f, edges = shape
+            made[key] = planetoid_like(n, f, edges, dtype, gen, device)
         else:
             made[key] = (randn(*shape, dtype=dtype),
                          randn(shape[1], dtype=dtype))
@@ -346,28 +419,53 @@ def suite_call(op, ins, policy):
         return lambda: ops.saxpy(SAXPY_A, *ins, policy=policy)
     if op == "matmul":
         return lambda: ops.matmul(*ins, policy=policy)
+    if op == "gaussian_blur":
+        img, k = ins
+        return lambda: ops.gaussian_blur(img, ksize=k, sigma=BLUR_SIGMA,
+                                         policy=policy)
+    if op == "nn_search":
+        return lambda: ops.nn_search(*ins, policy=policy)
+    if op == "gcn_aggregate":
+        return lambda: ops.gcn_aggregate(*ins, policy=policy)
     return lambda: ops.rmsnorm(*ins, eps=RMS_EPS, policy=policy)
 
 
-def suite_library(op, ins):
-    """One PyTorch call computing the op's function: a yardstick only;
-    the port never calls it."""
+def blur_conv(img, taps_2d):
+    """One ``F.conv2d`` with ``padding="same"`` over the image."""
     import torch.nn.functional as F
+
+    w = taps_2d.to(device=img.device, dtype=img.dtype)[None, None]
+    return lambda: F.conv2d(img[None, None], w, padding="same")
+
+
+def suite_library(op, ins):
+    """One PyTorch call computing the op's function, or None where no
+    single call does: a yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.stencil import gaussian_kernel_1d
 
     if op == "vecadd":
         return lambda: torch.add(*ins)
     if op == "saxpy":
         x, y = ins
         return lambda: torch.add(y, x, alpha=SAXPY_A)
-    if op == "matmul":
+    if op == "matmul" or op == "gcn_aggregate":
         return lambda: torch.matmul(*ins)
+    if op == "gaussian_blur":
+        img, k = ins
+        taps = gaussian_kernel_1d(k, BLUR_SIGMA)
+        return blur_conv(img, torch.outer(taps, taps))
+    if op == "nn_search":
+        return None
     x, g = ins
     return lambda: F.rms_norm(x, (x.shape[1],), g, RMS_EPS)
 
 
 def suite_plan(op, shape, dtype, policy, hw):
     from repro_torch.core import workload
-    from repro_torch.core.mapper import (plan_matmul_blocks, plan_rows,
+    from repro_torch.core.mapper import (plan_gcn, plan_matmul_blocks,
+                                         plan_nn, plan_rows, plan_stencil,
                                          plan_vector_blocks)
 
     es = torch.empty((), dtype=dtype).element_size()
@@ -376,12 +474,18 @@ def suite_plan(op, shape, dtype, policy, hw):
                                   policy)
     if op == "matmul":
         return plan_matmul_blocks(*shape, hw, policy)
+    if op == "gaussian_blur":
+        return plan_stencil(*shape, hw, policy)
+    if op == "nn_search":
+        return plan_nn(*shape, hw, policy)
+    if op == "gcn_aggregate":
+        return plan_gcn(shape[0], shape[1], hw, policy)
     return plan_rows(shape[0], hw, policy)
 
 
-def suite_bound(op, shape, dtype, hw):
+def suite_bound(op, shape, dtype, hw, ins):
     """Each input read once, each output written once, over 3.35 TB/s;
-    the workload's FLOPs over the dtype's peak."""
+    the operations these inputs need over the dtype's peak."""
     from repro_torch.core import workload
 
     es = torch.empty((), dtype=dtype).element_size()
@@ -392,32 +496,142 @@ def suite_bound(op, shape, dtype, hw):
         m, n, k = shape
         w = workload.sgemm(m, n, k, es)
         return bound((m * k + k * n + m * n) * es, w.total_flops, dtype, hw)
+    if op == "gaussian_blur":        # two passes, each 2 h w elements
+        h, w, k = shape
+        return bound(2 * 2 * h * w * es, 2 * 2 * k * h * w, dtype, hw)
+    if op == "nn_search":
+        nq, nr, d = shape
+        return bound((nq + nr) * d * es + 8 * nq,
+                     2 * nq * nr * d + 3 * nq * nr, dtype, hw)
+    if op == "gcn_aggregate":        # A read once (the occupancy pass)
+        n, f, _ = shape
+        nnz = int(torch.count_nonzero(ins[0]))
+        return bound((n * n + 2 * n * f) * es, 2 * nnz * f, dtype, hw)
     t, d = shape
     return bound((2 * t * d + d) * es, 4 * t * d, dtype, hw)
 
 
-def suite_occupancy(op, plan, dtype):
-    from repro_torch.kernels import matmul, rmsnorm, saxpy, vecadd
+def suite_occupancy(op, plan, dtype, shape):
+    from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
+                                     saxpy, stencil, vecadd)
 
     if op == "matmul":
         return matmul.occupancy(plan, dtype)
+    if op == "gaussian_blur":
+        return {p: stencil.occupancy(p, plan, dtype) for p in ("rows", "cols")}
+    if op == "nn_search":
+        return nn_search.occupancy(plan, shape[2], dtype)
+    if op == "gcn_aggregate":
+        return gcn_agg.occupancy(plan, dtype)
     return {"vecadd": vecadd, "saxpy": saxpy,
             "rmsnorm": rmsnorm}[op].occupancy(dtype)
+
+
+def nn_compare(got, want, ins):
+    """(max abs dist error, near-tie rows, dist tolerance); raises when
+    an index differs outside a near-tie or a distance is out of
+    tolerance."""
+    q, r = (t.float() for t in ins)
+    (gi, gd), (wi, wd) = got, want
+    tol = NN_DIST_TOL * float((q * q).sum(-1).max() + (r * r).sum(-1).max())
+    rows = (gi != wi).nonzero()[:, 0]
+    if rows.numel():
+        qq, rr = q[rows], r[gi[rows].long()]
+        at = (qq * qq).sum(-1) - 2.0 * (qq * rr).sum(-1) + (rr * rr).sum(-1)
+        if ((at - wd[rows]).abs() > tol).any():
+            raise AssertionError("nn_search: an index differs from the "
+                                 "plain version's outside a near-tie")
+    gap = (gd - wd).abs()
+    err = float(gap.max())
+    if not torch.isfinite(gd).all() or err > 2 * tol \
+            or float(torch.where(gi == wi, gap, 0.0).max()) > tol:
+        raise AssertionError(f"nn_search: dist differs by {err} (tol {tol})")
+    return err, int(rows.numel()), tol
+
+
+def blur_passes(ins, plan, timer):
+    """Each pass of the blur against its plain version on the same input
+    (the column pass on the kernel's intermediate), and each timed."""
+    from repro_torch.kernels import stencil as st
+
+    img, k = ins
+    taps = st.gaussian_kernel_1d(k, BLUR_SIGMA)
+    mid = st.stencil_rows(img, taps, plan=plan)
+    out = st.stencil_cols(mid, taps, plan=plan)
+    errs = {}
+    for name, got, want in (("rows", mid, st.stencil_rows_plain(img, taps)),
+                            ("cols", out, st.stencil_cols_plain(mid, taps))):
+        atol, rtol = SUITE_TOL["gaussian_blur", img.dtype]
+        errs[name] = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=atol,
+                              rtol=rtol):
+            raise AssertionError(f"stencil_{name} disagrees with its plain "
+                                 f"version by {errs[name]}")
+    ms = {"rows": timer.ms(lambda: st.stencil_rows(img, taps, plan=plan),
+                           head_start=True),
+          "cols": timer.ms(lambda: st.stencil_cols(mid, taps, plan=plan),
+                           head_start=True)}
+    return dict(pass_max_abs_err=errs, pass_ms=ms,
+                passes_ms=ms["rows"] + ms["cols"])
+
+
+def blur_pass_yardsticks(ins, timer):
+    """Per pass, once per case: the plain version's time and one
+    ``F.conv2d`` with a 1 x k or k x 1 kernel."""
+    from repro_torch.kernels import stencil as st
+
+    img, k = ins
+    taps = st.gaussian_kernel_1d(k, BLUR_SIGMA)
+    mid = st.stencil_rows_plain(img, taps)
+    return dict(
+        pass_plain_ms={
+            "rows": timer.ms(lambda: st.stencil_rows_plain(img, taps),
+                             head_start=True),
+            "cols": timer.ms(lambda: st.stencil_cols_plain(mid, taps),
+                             head_start=True)},
+        pass_library_ms={
+            "rows": timer.ms(blur_conv(img, taps[None, :]), head_start=True),
+            "cols": timer.ms(blur_conv(mid, taps[:, None]),
+                             head_start=True)})
+
+
+def gcn_parts(ins, plan, timer):
+    """The occupied share of the plan's tiles, and the op's two parts
+    timed apart: the occupancy pass and the kernel alone."""
+    from repro_torch.kernels import gcn_agg as gc
+
+    adj, x = ins
+    occ = gc.tile_occupancy(adj, plan.block_n, plan.block_s)
+    return dict(
+        occupied_tile_share=float(occ.float().mean()),
+        occupancy_pass_ms=timer.ms(
+            lambda: gc.tile_occupancy(adj, plan.block_n, plan.block_s),
+            head_start=True),
+        kernel_only_ms=timer.ms(lambda: gc.gcn_agg(adj, x, occ, plan=plan),
+                                head_start=True))
 
 
 SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
                   "saxpy": "src/repro/kernels/saxpy.py:15",
                   "matmul": "src/repro/kernels/matmul.py:24",
-                  "rmsnorm": "src/repro/kernels/rmsnorm.py:19"}
+                  "rmsnorm": "src/repro/kernels/rmsnorm.py:19",
+                  "stencil_rows": "src/repro/kernels/stencil.py:40",
+                  "stencil_cols": "src/repro/kernels/stencil.py:59",
+                  "nn_search": "src/repro/kernels/nn_search.py:39",
+                  "gcn_agg": "src/repro/kernels/gcn_agg.py:38"}
 
 
 def suite_phase(hw, timer, device):
     """The paper's kernel suite on the card under the three policies."""
     from repro_torch import kernels
-    from repro_torch.kernels import matmul, rmsnorm, saxpy, vecadd
+    from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
+                                     saxpy, stencil, vecadd)
 
     counters = {"vecadd": vecadd.vecadd, "saxpy": saxpy.saxpy,
-                "matmul": matmul.matmul, "rmsnorm": rmsnorm.rmsnorm}
+                "matmul": matmul.matmul, "rmsnorm": rmsnorm.rmsnorm,
+                "stencil_rows": stencil.stencil_rows,
+                "stencil_cols": stencil.stencil_cols,
+                "nn_search": nn_search.nn_search, "gcn_agg": gcn_agg.gcn_agg}
     cases = [(op, (hw.hp(),) if shape == ("hp",) else shape, dtype)
              for op, shape, dtype in SUITE_CASES]
     inputs = suite_inputs(cases, device)
@@ -442,25 +656,38 @@ def suite_phase(hw, timer, device):
     for case in cases:
         op, shape, dtype = case
         ins = inputs(*case)
-        atol, rtol = SUITE_TOL[op, dtype]
         dt = str(dtype).split(".")[1]
-        library_ms = timer.ms(suite_library(op, ins), head_start=True)
-        bound_ms, bound_by = suite_bound(op, shape, dtype, hw)
+        library = suite_library(op, ins)
+        library_ms = timer.ms(library, head_start=True) if library else None
+        bound_ms, bound_by = suite_bound(op, shape, dtype, hw, ins)
+        per_case = blur_pass_yardsticks(ins, timer) \
+            if op == "gaussian_blur" else {}
         for policy in POLICIES:
             plan = suite_plan(op, shape, dtype, policy, hw)
             call = suite_call(op, ins, policy)
             with kernels.force("plain"):
                 want = call()
             got = outs.pop((case, policy))
-            err = float((got.float() - want.float()).abs().max())
-            ok = torch.allclose(got.float(), want.float(), atol=atol,
-                                rtol=rtol)
-            if not ok or not torch.isfinite(got.float()).all():
-                raise AssertionError(
-                    f"suite {op} {shape} {dt} {policy}: kernel disagrees "
-                    f"with its plain version, max abs err {err} (atol "
-                    f"{atol}, rtol {rtol})")
+            extra = dict(per_case)
+            if op == "nn_search":
+                err, extra["idx_near_ties"], extra["dist_atol"] = \
+                    nn_compare(got, want, ins)
+                atol = rtol = None
+            else:
+                atol, rtol = SUITE_TOL[op, dtype]
+                err = float((got.float() - want.float()).abs().max())
+                ok = torch.allclose(got.float(), want.float(), atol=atol,
+                                    rtol=rtol)
+                if not ok or not torch.isfinite(got.float()).all():
+                    raise AssertionError(
+                        f"suite {op} {shape} {dt} {policy}: kernel disagrees "
+                        f"with its plain version, max abs err {err} (atol "
+                        f"{atol}, rtol {rtol})")
             del got, want
+            if op == "gaussian_blur":
+                extra.update(blur_passes(ins, plan, timer))
+            elif op == "gcn_aggregate":
+                extra.update(gcn_parts(ins, plan, timer))
 
             def plain():
                 with kernels.force("plain"):
@@ -469,17 +696,19 @@ def suite_phase(hw, timer, device):
                 op=op, shape=list(shape), dtype=dt, policy=policy,
                 plan={k: (v.value if hasattr(v, "value") else v)
                       for k, v in dataclasses.asdict(plan).items()},
-                resident_ctas_per_sm=suite_occupancy(op, plan, dtype),
+                resident_ctas_per_sm=suite_occupancy(op, plan, dtype, shape),
                 assumed_ctas_per_sm=hw.warps_per_sm * hw.warp_size
                 // plan.threads,
                 max_abs_err=err, atol=atol, rtol=rtol,
                 kernel_ms=timer.ms(call, head_start=True),
+                kernel_runs=timer.last_runs,
                 plain_ms=timer.ms(plain, head_start=True),
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                **extra)
             emit("suite", **entry)
             results[op, shape, dt, policy] = entry
 
-    x, y = inputs("vecadd", (1 << SWEEP_EXPONENTS[-1],), torch.float32)
+    x, y = inputs("vecadd", (1 << SWEEP_EXPONENTS[-1],), F32)
     sweep = {}
     for e in SWEEP_EXPONENTS:
         n = 1 << e
@@ -702,20 +931,34 @@ def main() -> int:
             "shape": main_case["shape"]})
     # the suite's row per kernel: AUTO (the default policy) at its
     # largest case
-    for op, shape, dt in (("vecadd", (1 << 26,), "float32"),
-                          ("saxpy", (1 << 26,), "float32"),
-                          ("matmul", (4096, 4096, 4096), "float32"),
-                          ("rmsnorm", (16384, 4096), "bfloat16")):
+    for name, op, shape, dt in (
+            ("vecadd", "vecadd", (1 << 26,), "float32"),
+            ("saxpy", "saxpy", (1 << 26,), "float32"),
+            ("matmul", "matmul", (4096, 4096, 4096), "float32"),
+            ("rmsnorm", "rmsnorm", (16384, 4096), "bfloat16"),
+            ("stencil_rows", "gaussian_blur", (4096, 4096, 5), "float32"),
+            ("stencil_cols", "gaussian_blur", (4096, 4096, 5), "float32"),
+            ("nn_search", "nn_search", (4096, 65536, 128), "float32"),
+            ("gcn_agg", "gcn_aggregate", PUBMED, "float32")):
         e = sres[op, shape, dt, "auto"]
-        summary.append({
-            "name": op, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{op}.cu",
-            "replaces": SUITE_REPLACES[op],
-            "launches": suite_launches[op], "max_abs_err": e["max_abs_err"],
-            "ms": e["kernel_ms"], "plain_ms": e["plain_ms"],
-            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-            "library_ms": e["library_ms"],
-            "shape": f"{dt} {list(shape)}, policy auto"})
+        row = {"max_abs_err": e["max_abs_err"], "ms": e["kernel_ms"],
+               "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+               "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+               "shape": f"{dt} {list(shape)}, policy auto"}
+        if name.startswith("stencil_"):
+            p = name.split("_")[1]           # one pass: half the op's bytes
+            row.update(max_abs_err=e["pass_max_abs_err"][p],
+                       ms=e["pass_ms"][p], plain_ms=e["pass_plain_ms"][p],
+                       library_ms=e["pass_library_ms"][p],
+                       bound_ms=e["bound_ms"] / 2)
+            row["shape"] += f", {p} pass"
+        elif name == "gcn_agg":
+            row["shape"] += ", the op: occupancy pass + kernel"
+        src = "stencil" if name.startswith("stencil_") else name
+        summary.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{src}.cu",
+                        "replaces": SUITE_REPLACES[name],
+                        "launches": suite_launches[name], **row})
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

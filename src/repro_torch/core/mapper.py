@@ -6,7 +6,8 @@ multiprocessors x resident warps per SM x the 32 lanes of a warp
 (270,336 on an H100).  Hopper's rules take the place of the TPU's 8x128
 tile and VMEM rules when a plan is legalised.
 
-**The paper's kernel suite** (vecadd, saxpy, matmul, rmsnorm) runs under
+**The paper's kernel suite** (vecadd, saxpy, matmul, rmsnorm, gaussian
+blur, nn_search, gcn_aggregate) runs under
 three mapping policies, which decide two counts: how many work items each
 hardware thread loops over (``lws``) and how many threads are launched.
 
@@ -39,6 +40,43 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     while half of it still covers the matrix.  ``bk`` (the K step staged
     per ``__syncthreads``) is 32 for every policy, cut to 16 for K <= 16.
 
+  * gaussian blur (two passes, one plan): a work item is one output
+    pixel, ``gws = h w``, ``hp = GpuParams.hp()``; ``lws`` = pixels per
+    thread, taken down one column, so a CTA covers ``lws`` rows x 256
+    columns and a warp's 32 threads take 32 consecutive columns
+    (coalesced).  The row pass stages the tile plus ``2 halo`` columns,
+    the column pass the tile plus ``2 halo`` rows, in shared memory, so
+    the JAX kernel's rule ``rows >= halo`` (neighbouring row blocks as
+    the halo source) is not needed.  ``grid`` is 1-D: row blocks x
+    column tiles (65,536 CTAs for NAIVE at 4096^2).  The legaliser
+    clamps ``lws`` to ``[1, h]`` and keeps the staged f32 tile within
+    ``smem_per_block``.
+  * nn_search: a work item is one query, ``gws = nq``,
+    ``hp = GpuParams.hp()``; a thread keeps the running ``(min d^2,
+    argmin)`` of ``lws`` queries (in shared memory, one slot per query,
+    read and written only by its thread), so a CTA owns ``256 lws``
+    queries and sweeps every ref once per CTA in blocks of ``block_r``
+    refs staged in shared memory with their ``|r|^2``: a larger ``lws``
+    streams the refs through fewer CTAs (the reuse the paper flags).
+    ``block_r`` is the same for every policy: the JAX default 512 halved
+    until the staged refs (and, for ``d`` over one 32-dim chunk, each
+    thread's partial dots) take at most half of ``smem_per_block`` (64
+    at d = 128, 512 at d = 4); the legaliser then caps ``lws`` so the
+    per-query slots fit the other half.
+  * gcn_aggregate: a node's output row is one warp's work (lanes over
+    features, as rmsnorm's row per warp), ``gws = n``, ``hp = SMs x
+    warps_per_sm``; ``lws`` = node rows per warp, a CTA's 8 warps own
+    ``block_n = 8 lws`` consecutive rows, the node block whose
+    occupancy row decides which ``block_s = 256``-wide source tiles it
+    skips (256 = the JAX default: one coalesced 32-lane read of an A row
+    covers a tile in 8 steps).  Nothing is staged in shared memory: a
+    warp reads its A row segment coalesced, finds the non-zeros with a
+    ballot and gathers only those rows of X (from L2), so the feature
+    width is tiled by the register budget, not by shared memory: each
+    lane holds ``fpl`` accumulators (a power of two up to 16), a feature
+    tile is ``32 fpl`` wide and ``grid`` is (node blocks, feature
+    tiles): at F = 1,433 (Cora) three tiles of 512.
+
 ``rounds`` counts waves of CTAs at full residency (``warps_per_sm / 8``
 CTAs of 8 warps on each SM); the matmul micro-tile's registers may
 lower the real residency, which ``chip_smoke.py`` reads from the CUDA runtime
@@ -61,13 +99,18 @@ import dataclasses
 import enum
 
 from repro_torch.core.hw import GpuParams, ceil_div, round_up
-from repro_torch.core.workload import Workload
+from repro_torch.core.workload import (Workload, gaussian_blur, gcn_aggregate,
+                                       nearest_neighbor)
 
 __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "BlockPlan", "plan_vector_blocks", "vector_plan_for_block",
            "plan_rows", "row_plan_for_block", "MatmulPlan",
            "plan_matmul_blocks", "matmul_plan_for_blocks",
-           "matmul_smem_bytes", "AttentionPlan", "plan_attention_blocks",
+           "matmul_smem_bytes", "StencilPlan", "plan_stencil",
+           "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
+           "plan_nn", "nn_plan_for_block", "nn_block_r", "nn_smem_bytes",
+           "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
+           "plan_attention_blocks",
            "attention_plan_for_blocks", "flash_smem_bytes",
            "paged_smem_bytes", "plan_paged_block"]
 
@@ -81,6 +124,12 @@ CTA_THREADS = 256         # every suite kernel's CTA: 8 warps
 MM_THREAD_GRID = 16       # matmul CTA: 16 x 16 threads
 MM_MAX_TILE = 8           # micro-tile side: 8 x 8 = 64 accumulators
 MM_BK = 32
+STENCIL_TILE_W = 256      # blur CTA: 256 columns, one per thread
+MAX_KSIZE = 63            # blur taps passed by value (csrc/stencil.cu)
+NN_BLOCK_R = 512          # the JAX default ref block, cut to fit on Hopper
+NN_MAX_CHUNK = 32         # query dims held in registers at a time
+GCN_BLOCK_S = 256         # source-tile width, every policy
+GCN_MAX_FPL = 16          # feature accumulators per lane
 
 
 class MappingPolicy(str, enum.Enum):
@@ -288,6 +337,230 @@ def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
                       rounds=_rounds(grid[0] * grid[1], hw),
                       regime=classify_regime(tm * tn, m * n, hw.hp()),
                       smem_bytes=smem)
+
+
+# --------------------------------------------------------------------------- #
+# Gaussian blur (two stencil passes, one plan)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPlan:
+    """Both blur passes: ``grid`` CTAs (1-D: row blocks x column tiles)
+    of ``threads`` threads; a CTA covers ``lws`` rows x ``tile_w``
+    columns, one column per thread, ``lws`` pixels down it; ``halo``
+    extra rows or columns are staged beside the tile."""
+
+    policy: MappingPolicy
+    lws: int
+    threads: int
+    grid: int
+    rounds: int
+    regime: Regime
+    halo: int
+    tile_w: int
+    smem_bytes: int
+
+
+def stencil_smem_bytes(lws: int, halo: int) -> int:
+    """Shared memory of the larger pass of ``csrc/stencil.cu``: the f32
+    tile with its halo columns (row pass) or halo rows (column pass),
+    plus the 64 taps."""
+    t = STENCIL_TILE_W
+    return 4 * (max(lws * (t + 2 * halo), (lws + 2 * halo) * t)
+                + MAX_KSIZE + 1)
+
+
+def _check_ksize(ksize: int) -> int:
+    if ksize < 1 or ksize % 2 == 0 or ksize > MAX_KSIZE:
+        raise ValueError(f"ksize must be odd and in [1, {MAX_KSIZE}], got "
+                         f"{ksize}")
+    return (ksize - 1) // 2
+
+
+def plan_stencil(h: int, w: int, ksize: int, hw: GpuParams,
+                 policy: MappingPolicy = MappingPolicy.AUTO) -> StencilPlan:
+    """Map the blur of an ``(h, w)`` image onto the card.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> p = plan_stencil(4096, 4096, 5, GPU_REGISTRY["h100_sxm"])
+        >>> p.lws, p.grid
+        (63, 1056)
+    """
+    gws = gaussian_blur(h, w, ksize).gws
+    lws = _policy_lws(policy, gws, hw.hp())
+    return stencil_plan_for_block(h, w, ksize, hw, lws, policy)
+
+
+def stencil_plan_for_block(h: int, w: int, ksize: int, hw: GpuParams,
+                           lws: int,
+                           policy: MappingPolicy = MappingPolicy.AUTO
+                           ) -> StencilPlan:
+    """Legalise rows per thread: clamped to ``[1, h]``, then shrunk while
+    the staged tile overflows shared memory."""
+    halo = _check_ksize(ksize)
+    lws = max(1, min(int(lws), h))
+    while lws > 1 and stencil_smem_bytes(lws, halo) > hw.smem_per_block:
+        lws -= 1
+    smem = stencil_smem_bytes(lws, halo)
+    if smem > hw.smem_per_block:
+        raise ValueError(f"no legal blur tile: {smem} B of shared memory")
+    grid = ceil_div(h, lws) * ceil_div(w, STENCIL_TILE_W)
+    return StencilPlan(policy=MappingPolicy(policy), lws=lws,
+                       threads=CTA_THREADS, grid=grid,
+                       rounds=_rounds(grid, hw),
+                       regime=classify_regime(lws, h * w, hw.hp()),
+                       halo=halo, tile_w=STENCIL_TILE_W, smem_bytes=smem)
+
+
+# --------------------------------------------------------------------------- #
+# Nearest-neighbour search
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class NNPlan:
+    """``grid`` CTAs of ``threads`` threads; a thread owns ``lws``
+    queries, a CTA ``threads * lws``; refs are swept in ``block_r``
+    blocks; query dims are taken ``chunk`` at a time in registers."""
+
+    policy: MappingPolicy
+    lws: int
+    threads: int
+    grid: int
+    rounds: int
+    regime: Regime
+    block_r: int
+    chunk: int
+    smem_bytes: int
+
+
+def nn_chunk(d: int) -> int:
+    """Query dims held in registers at a time (a template parameter of
+    ``csrc/nn_search.cu``): the least of 4, 8, 16, 32 covering ``d``,
+    else 32."""
+    for c in (4, 8, 16):
+        if d <= c:
+            return c
+    return NN_MAX_CHUNK
+
+
+def nn_smem_bytes(block_r: int, d: int, lws: int) -> int:
+    """Dynamic shared memory of ``csrc/nn_search.cu``: the f32 ref block
+    (rows zero-padded to whole chunks) and its ``|r|^2``; each thread's
+    partial dots over the block when ``d`` spans several chunks; one
+    ``(min, argmin)`` slot per owned query."""
+    c = nn_chunk(d)
+    dp = round_up(max(d, 1), c)
+    partial = block_r * CTA_THREADS if dp > c else 0
+    return 4 * (block_r * (dp + 1) + partial) + 8 * CTA_THREADS * lws
+
+
+def nn_block_r(d: int, hw: GpuParams) -> int:
+    """The ref block, the same for every policy: the JAX default 512
+    halved until the staged refs take at most half of shared memory."""
+    br = NN_BLOCK_R
+    while br > 1 and nn_smem_bytes(br, d, 0) > hw.smem_per_block // 2:
+        br //= 2
+    return br
+
+
+def plan_nn(nq: int, nr: int, d: int, hw: GpuParams,
+            policy: MappingPolicy = MappingPolicy.AUTO) -> NNPlan:
+    """Map a search of ``nq`` queries over ``nr`` refs of ``d`` dims.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> p = plan_nn(4096, 65536, 128, GPU_REGISTRY["h100_sxm"], "fixed")
+        >>> p.lws, p.grid, p.block_r
+        (16, 1, 64)
+    """
+    gws = nearest_neighbor(nq, nr, d).gws
+    lws = _policy_lws(policy, gws, hw.hp())
+    return nn_plan_for_block(nq, d, hw, lws, policy)
+
+
+def nn_plan_for_block(nq: int, d: int, hw: GpuParams, lws: int,
+                      policy: MappingPolicy = MappingPolicy.AUTO) -> NNPlan:
+    """Legalise queries per thread: at least 1, at most what one CTA
+    needs to cover every query, and no more slots than shared memory
+    holds beside the ref block."""
+    br = nn_block_r(d, hw)
+    lws = max(1, min(int(lws), ceil_div(nq, CTA_THREADS)))
+    while lws > 1 and nn_smem_bytes(br, d, lws) > hw.smem_per_block:
+        lws -= 1
+    smem = nn_smem_bytes(br, d, lws)
+    if smem > hw.smem_per_block:
+        raise ValueError(f"no legal nn_search block for d={d}: {smem} B of "
+                         f"shared memory")
+    grid = ceil_div(nq, CTA_THREADS * lws)
+    return NNPlan(policy=MappingPolicy(policy), lws=lws,
+                  threads=CTA_THREADS, grid=grid, rounds=_rounds(grid, hw),
+                  regime=classify_regime(lws, nq, hw.hp()), block_r=br,
+                  chunk=nn_chunk(d), smem_bytes=smem)
+
+
+# --------------------------------------------------------------------------- #
+# GCN aggregation
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class GcnPlan:
+    """``grid`` = (node blocks, feature tiles) CTAs of ``threads``
+    threads; a warp owns ``lws`` node rows, a CTA ``block_n = 8 lws``;
+    source tiles are ``block_s`` wide; a lane holds ``fpl`` features of
+    a ``32 fpl`` feature tile."""
+
+    policy: MappingPolicy
+    lws: int
+    threads: int
+    grid: tuple[int, int]
+    rounds: int
+    regime: Regime
+    block_n: int
+    block_s: int
+    fpl: int
+
+
+def plan_gcn(n: int, f: int, hw: GpuParams,
+             policy: MappingPolicy = MappingPolicy.AUTO) -> GcnPlan:
+    """Map ``A_hat (n, n) @ X (n, f)``: Eq. 1 over node rows and resident
+    warps (``gws = n``, as ``workload.gcn_aggregate``).
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> p = plan_gcn(19717, 500, GPU_REGISTRY["h100_sxm"])
+        >>> p.lws, p.block_n, p.grid, p.fpl
+        (3, 24, (822, 1), 16)
+    """
+    gws = gcn_aggregate(n, 1, f).gws
+    lws = _policy_lws(policy, gws, hw.sm_count * hw.warps_per_sm)
+    return gcn_plan_for_block(n, f, hw, lws, policy)
+
+
+def gcn_plan_for_block(n: int, f: int, hw: GpuParams, lws: int,
+                       policy: MappingPolicy = MappingPolicy.AUTO
+                       ) -> GcnPlan:
+    """Legalise rows per warp (at least 1, at most what one CTA needs to
+    cover every node) and size the lane's feature accumulators: the
+    least power of two covering ``f`` over 32 lanes, at most 16."""
+    warps = CTA_THREADS // hw.warp_size
+    lws = max(1, min(int(lws), ceil_div(n, warps)))
+    fpl = 1
+    while fpl < GCN_MAX_FPL and 32 * fpl < f:
+        fpl *= 2
+    grid = (ceil_div(n, warps * lws), ceil_div(max(f, 1), 32 * fpl))
+    return GcnPlan(policy=MappingPolicy(policy), lws=lws,
+                   threads=CTA_THREADS, grid=grid,
+                   rounds=_rounds(grid[0] * grid[1], hw),
+                   regime=classify_regime(lws, n,
+                                          hw.sm_count * hw.warps_per_sm),
+                   block_n=warps * lws, block_s=GCN_BLOCK_S, fpl=fpl)
 
 
 # --------------------------------------------------------------------------- #

@@ -12,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["Workload", "vecadd", "saxpy", "sgemm"]
+__all__ = ["Workload", "vecadd", "saxpy", "sgemm", "gaussian_blur",
+           "nearest_neighbor", "gcn_aggregate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,4 +86,40 @@ def sgemm(m: int, n: int, k: int, dtype_bytes: int = 4) -> Workload:
         bytes_per_iter=(2.0 * k / _CACHE_REUSE + 1) * dtype_bytes,
         instrs_per_iter=4.0 * k + 10,
         dtype_bytes=dtype_bytes, dims=(m, n), reduce_dim=k,
+    )
+
+
+def gaussian_blur(h: int, w: int, ksize: int = 5,
+                  dtype_bytes: int = 4) -> Workload:
+    """2D stencil; the paper notes its atypical trend (halo reuse)."""
+    taps = ksize * ksize
+    return Workload(
+        name="gaussian_blur", gws=h * w, flops_per_iter=2.0 * taps,
+        bytes_per_iter=(taps / 2.0 + 1) * dtype_bytes,  # halo reuse factor
+        instrs_per_iter=5.0 * taps + 10,
+        dtype_bytes=dtype_bytes, dims=(h, w), reduce_dim=taps,
+    )
+
+
+def nearest_neighbor(n_query: int, n_ref: int, dim: int = 4,
+                     dtype_bytes: int = 4) -> Workload:
+    """Near-neighbour search: one iter = one query scanned over all refs."""
+    work = n_ref * dim
+    return Workload(
+        name="nn_search", gws=n_query, flops_per_iter=3.0 * work,
+        bytes_per_iter=(work / _CACHE_REUSE + dim + 1.0) * dtype_bytes,
+        instrs_per_iter=6.0 * work + 16,
+        dtype_bytes=dtype_bytes, dims=(n_query,), reduce_dim=n_ref,
+    )
+
+
+def gcn_aggregate(n_nodes: int, avg_degree: int, feat: int,
+                  dtype_bytes: int = 4) -> Workload:
+    """GCN neighbourhood aggregation (Kipf & Welling): irregular gather-sum."""
+    work = avg_degree * feat
+    return Workload(
+        name="gcn_agg", gws=n_nodes, flops_per_iter=2.0 * work,
+        bytes_per_iter=(work + feat + avg_degree) * dtype_bytes,
+        instrs_per_iter=5.0 * work + 20,
+        dtype_bytes=dtype_bytes, dims=(n_nodes,), reduce_dim=avg_degree,
     )

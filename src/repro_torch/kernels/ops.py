@@ -26,15 +26,19 @@ import torch
 
 from repro_torch.core import workload
 from repro_torch.core.hw import GpuParams, detect
-from repro_torch.core.mapper import (MappingPolicy, plan_matmul_blocks,
-                                     plan_rows, plan_vector_blocks)
+from repro_torch.core.mapper import (MappingPolicy, plan_gcn,
+                                     plan_matmul_blocks, plan_nn, plan_rows,
+                                     plan_stencil, plan_vector_blocks)
+from repro_torch.kernels import gcn_agg as _gcn_agg
 from repro_torch.kernels import matmul as _matmul
+from repro_torch.kernels import nn_search as _nn_search
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import saxpy as _saxpy
+from repro_torch.kernels import stencil as _stencil
 from repro_torch.kernels import vecadd as _vecadd
 
-__all__ = ["vecadd", "saxpy", "matmul", "rmsnorm", "set_default_policy",
-           "policy"]
+__all__ = ["vecadd", "saxpy", "matmul", "rmsnorm", "gaussian_blur",
+           "nn_search", "gcn_aggregate", "set_default_policy", "policy"]
 
 _DEFAULT_POLICY: MappingPolicy = MappingPolicy.AUTO
 
@@ -90,3 +94,26 @@ def rmsnorm(x, gamma, *, eps: float = 1e-6, policy=None,
     x2 = x.reshape(-1, shape[-1])
     plan = plan_rows(x2.shape[0], _hw(x, hw), _resolve(policy))
     return _rmsnorm.rmsnorm(x2, gamma, eps=eps, plan=plan).reshape(shape)
+
+
+def gaussian_blur(img, *, ksize: int = 5, sigma: float = 1.0, policy=None,
+                  hw: Optional[GpuParams] = None):
+    """img: (h, w) — separable blur, zero "same" padding."""
+    plan = plan_stencil(img.shape[0], img.shape[1], ksize, _hw(img, hw),
+                        _resolve(policy))
+    return _stencil.gaussian_blur(img, ksize=ksize, sigma=sigma, plan=plan)
+
+
+def nn_search(queries, refs, *, policy=None, hw: Optional[GpuParams] = None):
+    """queries (Q, D), refs (R, D) -> (idx int32 (Q,), sq-dist f32 (Q,))."""
+    plan = plan_nn(queries.shape[0], refs.shape[0], queries.shape[1],
+                   _hw(queries, hw), _resolve(policy))
+    return _nn_search.nn_search(queries, refs, plan=plan)
+
+
+def gcn_aggregate(adj_norm, feats, *, policy=None,
+                  hw: Optional[GpuParams] = None):
+    """adj_norm (N, N) dense normalised adjacency; feats (N, F)."""
+    plan = plan_gcn(feats.shape[0], feats.shape[1], _hw(feats, hw),
+                    _resolve(policy))
+    return _gcn_agg.gcn_aggregate(adj_norm, feats, plan=plan)

@@ -1,0 +1,409 @@
+"""The port's atypical kernels on the CPU: ``repro_torch.kernels.ops``
+(gaussian_blur, nn_search, gcn_aggregate; plain versions on CPU tensors)
+against the JAX Pallas kernels in interpret mode, on the same seeded
+numpy inputs, under each mapping policy and in float32 and bfloat16; and
+the Hopper planners of the three ops against the JAX mapper's Eq. 1.
+
+The sizes are small and not multiples of any plan's tiles: blur images
+with ragged row blocks and a halo wider than the image; nr not a
+multiple of any ``block_r``; graphs with empty rows, empty tiles and a
+partly empty last tile.  The CUDA kernels run only on the card:
+``chip_smoke.py`` holds each against its plain version there.
+
+Tolerances (port vs JAX):
+  blur     float32 atol = rtol = 1e-6 (the taps' exp and XLA's fusion of
+           the tap sum may each differ by an ulp); bfloat16 atol 1e-6,
+           rtol 8e-3 (one bf16 ulp) for at least 99.9% of the pixels, and
+           everywhere one bf16 ulp of the largest row-pass value times
+           the largest tap: both round the row pass to bf16, so a value
+           on a rounding boundary may round the other way, and the column
+           pass carries that ulp, weighted by its tap, into a pixel that
+           may be smaller than it;
+  search   idx equal (no near-ties in these seeded inputs; a built tie
+           must give the lowest index); dist atol = rtol = 1e-5 (float32
+           dot products in another order);
+  gcn      float32 atol = rtol = 1e-5 (summation order); bfloat16 atol
+           1e-5, rtol 8e-3 (one ulp of one rounding from float32);
+  tile_occupancy  equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core.hw import TPU_REGISTRY
+from repro.core.mapper import MappingPolicy as JaxPolicy
+from repro.core.mapper import classify_regime as jax_classify_regime
+from repro.core.mapper import resolve_lws as jax_resolve_lws
+from repro.kernels.gcn_agg import gcn_aggregate_pallas
+from repro.kernels.gcn_agg import tile_occupancy as jax_tile_occupancy
+from repro.kernels.nn_search import nn_search_pallas
+from repro.kernels.ref import gaussian_kernel_1d as jax_taps
+from repro.kernels.stencil import gaussian_blur_pallas
+
+from repro_torch.core.hw import GPU_REGISTRY
+from repro_torch.core.mapper import (FIXED_LWS, GCN_BLOCK_S, Regime,
+                                     gcn_plan_for_block, nn_block_r,
+                                     nn_smem_bytes, plan_gcn, plan_nn,
+                                     plan_stencil, stencil_plan_for_block,
+                                     stencil_smem_bytes)
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import gcn_agg as gc
+from repro_torch.kernels import nn_search as nn
+from repro_torch.kernels import stencil as st
+
+TPU = TPU_REGISTRY["cpu_sim"]
+H100 = GPU_REGISTRY["h100_sxm"]
+CPU = GPU_REGISTRY["cpu"]
+POLICIES = ["naive", "fixed", "auto"]
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a torch tensor and a JAX array in ``dtype``."""
+    tdt, jdt = DTYPES[dtype]
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(tdt)
+    return t, jnp.asarray(t.float().numpy()).astype(jdt)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else x.astype(jnp.float32), np.float32)
+
+
+def _graph(n: int, seed: int, empty=(3, 7)) -> np.ndarray:
+    """Row-normalised symmetric graph with self-loops, edges mostly within
+    64-node communities, and the nodes in ``empty`` cut off (empty rows
+    and columns)."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((n, n), np.float32)
+    for _ in range(2 * n):
+        i = int(rng.integers(n))
+        j = int(min(n - 1, i // 64 * 64 + rng.integers(64))
+                if rng.random() < 0.9 else rng.integers(n))
+        a[i, j] = a[j, i] = 1.0
+    a[np.arange(n), np.arange(n)] = 1.0
+    for i in empty:
+        a[i, :] = 0.0
+        a[:, i] = 0.0
+    return a / np.maximum(a.sum(1, keepdims=True), 1.0)
+
+
+# --------------------------------------------------------------------------- #
+# ops against the Pallas kernels
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("h,w,ksize", [(37, 300, 3), (64, 64, 5),
+                                       (130, 70, 7), (5, 3, 7)])
+def test_gaussian_blur_matches_pallas(h, w, ksize, policy, dtype):
+    rng = np.random.default_rng(h * w + ksize)
+    img, jimg = _pair(rng.standard_normal((h, w)), dtype)
+    got = ops.gaussian_blur(img, ksize=ksize, sigma=1.0, policy=policy)
+    assert got.dtype == img.dtype and got.shape == (h, w)
+    want = gaussian_blur_pallas(jimg, hw=TPU, ksize=ksize, sigma=1.0,
+                                policy=JaxPolicy(policy), interpret=True)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
+        return
+    # one bf16 ulp of the output for all but a few pixels; everywhere,
+    # one bf16 ulp of the largest row-pass value times the largest tap
+    taps = st.gaussian_kernel_1d(ksize, 1.0)
+    inter = st.stencil_rows_plain(img, taps).float().abs().max().item()
+    err = np.abs(_np(got) - _np(want))
+    assert (err <= 1e-6 + 8e-3 * np.abs(_np(want))).mean() >= 0.999
+    assert err.max() <= 2 ** -7 * inter * taps.max().item()
+
+
+@pytest.mark.parametrize("ksize,sigma", [(3, 0.5), (5, 1.0), (7, 2.0)])
+def test_taps_match_the_reference(ksize, sigma):
+    got = st.gaussian_kernel_1d(ksize, sigma)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax_taps(ksize, sigma)),
+                               atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("nq,nr,d", [(64, 128, 8), (100, 300, 16),
+                                     (17, 511, 4), (33, 700, 40)])
+def test_nn_search_matches_pallas(nq, nr, d, policy, dtype):
+    rng = np.random.default_rng(nq + nr + d)
+    q, jq = _pair(rng.standard_normal((nq, d)), dtype)
+    r, jr = _pair(rng.standard_normal((nr, d)), dtype)
+    idx, dist = ops.nn_search(q, r, policy=policy)
+    assert idx.dtype == torch.int32 and dist.dtype == torch.float32
+    assert idx.shape == dist.shape == (nq,)
+    jidx, jdist = nn_search_pallas(jq, jr, hw=TPU, policy=JaxPolicy(policy),
+                                   interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(jdist), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+def test_nn_search_ties_go_to_the_lowest_index(policy, dtype):
+    """Refs 3, 9 and 600 are one vector (equal distances bit for bit);
+    query 1 is equidistant from refs 10 and 20 (+-e0 about the origin)."""
+    rng = np.random.default_rng(11)
+    d, nr = 8, 601
+    refs = rng.standard_normal((nr, d)) + 8.0
+    refs[9] = refs[600] = refs[3]
+    refs[10], refs[20] = 0.0, 0.0
+    refs[10, 0], refs[20, 0] = 1.0, -1.0
+    queries = np.stack([refs[3] + 1e-3, np.zeros(d)])
+    q, jq = _pair(queries, dtype)
+    r, jr = _pair(refs, dtype)
+    idx, _ = ops.nn_search(q, r, policy=policy)
+    jidx, _ = nn_search_pallas(jq, jr, hw=TPU, policy=JaxPolicy(policy),
+                               interpret=True, block_r=512)
+    assert idx.tolist() == [3, 10] == np.asarray(jidx).tolist()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("n,f", [(300, 40), (520, 33), (64, 128)])
+def test_gcn_aggregate_matches_pallas(n, f, policy, dtype):
+    rng = np.random.default_rng(n + f)
+    adj, jadj = _pair(_graph(n, n), dtype)
+    x, jx = _pair(rng.standard_normal((n, f)), dtype)
+    got = ops.gcn_aggregate(adj, x, policy=policy)
+    assert got.dtype == x.dtype and got.shape == (n, f)
+    assert not got[3].any() and not got[7].any()          # empty rows
+    want = gcn_aggregate_pallas(jadj, jx, hw=TPU, policy=JaxPolicy(policy),
+                                interpret=True)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" \
+        else dict(atol=1e-5, rtol=8e-3)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bm,bk", [(8, 256), (24, 64), (256, 256),
+                                   (8, 100)])
+def test_tile_occupancy_equals_the_jax_one(bm, bk, dtype):
+    adj, jadj = _pair(_graph(520, 5), dtype)
+    got = gc.tile_occupancy(adj, bm, bk)
+    want = np.asarray(jax_tile_occupancy(jadj, bm, bk))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.mean() < 1            # both empty and occupied tiles
+
+
+def test_tile_occupancy_keeps_negative_and_nan_tiles_as_jax_does():
+    a = np.zeros((20, 20), np.float32)
+    a[0, 0] = -0.5                        # negative only: occupied
+    a[15, 15] = np.nan                    # NaN: sum |a| > 0 is False
+    got = gc.tile_occupancy(torch.from_numpy(a), 8, 8)
+    want = np.asarray(jax_tile_occupancy(jnp.asarray(a), 8, 8))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --------------------------------------------------------------------------- #
+# the planners: Eq. 1, regimes, coverage, legality
+# --------------------------------------------------------------------------- #
+
+
+BLUR_SHAPES = [(1, 1, 3), (5, 3, 7), (37, 300, 3), (256, 256, 5),
+               (4096, 4096, 5), (4096, 4096, 7), (10_000, 77, 63)]
+NN_SHAPES = [(1, 1, 1), (17, 511, 4), (4096, 65536, 128),
+             (524288, 4096, 4), (1000, 100, 40), (100, 10, 1000)]
+GCN_SHAPES = [(1, 1), (300, 40), (2708, 1433), (19717, 500),
+              (100_000, 7), (64, 70_000)]
+
+
+@pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
+def test_auto_is_eq1_and_regimes_equal_the_jax_mapper(hw):
+    for h, w, k in BLUR_SHAPES:
+        p = plan_stencil(h, w, k, hw, "auto")
+        if stencil_smem_bytes(jax_resolve_lws(h * w, hw.hp()), p.halo) \
+                <= hw.smem_per_block:
+            assert p.lws == min(jax_resolve_lws(h * w, hw.hp()), h)
+        assert p.regime.value == \
+            jax_classify_regime(p.lws, h * w, hw.hp()).value
+    for nq, nr, d in NN_SHAPES:
+        p = plan_nn(nq, nr, d, hw, "auto")
+        assert p.lws <= jax_resolve_lws(nq, hw.hp())
+        assert p.regime.value == jax_classify_regime(p.lws, nq,
+                                                     hw.hp()).value
+    rows_hp = hw.sm_count * hw.warps_per_sm
+    for n, f in GCN_SHAPES:
+        p = plan_gcn(n, f, hw, "auto")
+        assert p.lws == min(jax_resolve_lws(n, rows_hp), -(-n // 8))
+        assert p.regime.value == jax_classify_regime(p.lws, n,
+                                                     rows_hp).value
+
+
+@pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_atypical_plans_cover_gws_and_are_legal(policy, hw):
+    for h, w, k in BLUR_SHAPES:
+        p = plan_stencil(h, w, k, hw, policy)
+        row_blocks, col_tiles = -(-h // p.lws), -(-w // p.tile_w)
+        assert p.threads == 256 == p.tile_w and 1 <= p.lws <= h
+        assert p.grid == row_blocks * col_tiles < 2 ** 31
+        assert p.grid * p.threads * p.lws >= h * w
+        assert p.halo == (k - 1) // 2
+        assert p.smem_bytes == stencil_smem_bytes(p.lws, p.halo) \
+            <= hw.smem_per_block
+    for nq, nr, d in NN_SHAPES:
+        p = plan_nn(nq, nr, d, hw, policy)
+        assert p.threads == 256 and p.lws >= 1
+        assert p.grid * p.threads * p.lws >= nq
+        assert (p.grid - 1) * p.threads * p.lws < nq      # no idle CTA
+        assert p.block_r == nn_block_r(d, hw)             # every policy
+        assert p.chunk in (4, 8, 16, 32) and p.chunk >= min(d, 32)
+        assert p.smem_bytes == nn_smem_bytes(p.block_r, d, p.lws) \
+            <= hw.smem_per_block
+    for n, f in GCN_SHAPES:
+        p = plan_gcn(n, f, hw, policy)
+        assert p.threads == 256 and p.block_n == 8 * p.lws
+        assert p.block_s == GCN_BLOCK_S and p.fpl in (1, 2, 4, 8, 16)
+        assert p.grid[0] * p.block_n >= n > (p.grid[0] - 1) * p.block_n
+        assert p.grid[1] * 32 * p.fpl >= f and p.grid[1] <= 65535
+
+
+def test_policies_translate_eq1_to_hopper_for_the_atypical_kernels():
+    """The H100 plans of the smoke's suite cases: NAIVE one item per thread,
+    FIXED 32, AUTO Eq. 1; block_r and feature tiles fixed per shape."""
+    blur = {p: plan_stencil(4096, 4096, 5, H100, p) for p in POLICIES}
+    assert blur["naive"].lws == 1 and blur["naive"].grid == 65536
+    assert blur["fixed"].lws == FIXED_LWS
+    assert blur["auto"].lws == 63 and blur["auto"].grid == 66 * 16
+    assert blur["naive"].regime is Regime.OVERSUBSCRIBED
+    sift = {p: plan_nn(4096, 65536, 128, H100, p) for p in POLICIES}
+    assert sift["naive"].grid == sift["auto"].grid == 16
+    assert sift["fixed"].grid == 1                  # one CTA: 16 a thread
+    assert {p.block_r for p in sift.values()} == {64}
+    wide = {p: plan_nn(524288, 4096, 4, H100, p) for p in POLICIES}
+    assert [wide[p].lws for p in POLICIES] == [1, 32, 2]
+    assert {p.block_r for p in wide.values()} == {512}
+    cora = plan_gcn(2708, 1433, H100, "auto")
+    assert cora.lws == 1 and cora.fpl == 16 and cora.grid == (339, 3)
+    pubmed = {p: plan_gcn(19717, 500, H100, p) for p in POLICIES}
+    assert [pubmed[p].lws for p in POLICIES] == [1, 32, 3]
+    assert pubmed["auto"].grid == (822, 1)
+
+
+def test_legalisers_clamp_to_the_image_and_shared_memory():
+    assert stencil_plan_for_block(10, 500, 5, H100, 1000).lws == 10
+    big = stencil_plan_for_block(100_000, 256, 63, H100, 100_000)
+    assert big.smem_bytes <= H100.smem_per_block
+    assert stencil_smem_bytes(big.lws + 1, big.halo) > H100.smem_per_block
+    assert gcn_plan_for_block(20, 8, H100, 99).lws == 3
+    with pytest.raises(ValueError):
+        plan_stencil(8, 8, 4, H100)                 # even ksize
+    with pytest.raises(ValueError):
+        plan_stencil(8, 8, 65, H100)
+
+
+# --------------------------------------------------------------------------- #
+# wrappers, checks, build
+# --------------------------------------------------------------------------- #
+
+
+def test_cpu_tensors_launch_nothing():
+    fns = (st.stencil_rows, st.stencil_cols, nn.nn_search, gc.gcn_agg)
+    before = [f.launches for f in fns]
+    img = torch.randn(20, 30)
+    adj = torch.from_numpy(_graph(40, 1))
+    for policy in POLICIES:
+        ops.gaussian_blur(img, policy=policy)
+        ops.nn_search(img, img[:7].contiguous(), policy=policy)
+        ops.gcn_aggregate(adj, torch.randn(40, 5), policy=policy)
+    assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("op", ["stencil_rows", "stencil_cols",
+                                "nn_search", "gcn_agg"])
+def test_empty_inputs_count_no_launch(op, monkeypatch):
+    """The kernel path, entered with empty operands, returns before its
+    launch and adds nothing to the count (the CPU tensors here reach the
+    kernel path only because ``use_plain`` is patched off; an empty
+    operand returns before anything is built)."""
+    from repro_torch import kernels
+
+    monkeypatch.setattr(kernels, "use_plain", lambda t: False)
+    fn = {"stencil_rows": st.stencil_rows, "stencil_cols": st.stencil_cols,
+          "nn_search": nn.nn_search, "gcn_agg": gc.gcn_agg}[op]
+    before = fn.launches
+    if op.startswith("stencil"):
+        out = fn(torch.zeros(0, 7), st.gaussian_kernel_1d(5),
+                 plan=plan_stencil(1, 7, 5, H100, "auto"))
+        assert out.shape == (0, 7)
+    elif op == "nn_search":
+        idx, dist = fn(torch.zeros(0, 4), torch.zeros(3, 4),
+                       plan=plan_nn(1, 3, 4, H100, "auto"))
+        assert idx.shape == dist.shape == (0,)
+    else:
+        plan = plan_gcn(1, 5, H100, "auto")
+        out = fn(torch.zeros(0, 0), torch.zeros(0, 5),
+                 torch.zeros(0, 0, dtype=torch.int32), plan=plan)
+        assert out.shape == (0, 5)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("case", ["blur_dtype", "blur_shape", "blur_taps",
+                                  "blur_plan", "nn_dtype", "nn_dims",
+                                  "nn_empty", "nn_plan", "gcn_square",
+                                  "gcn_dtype", "gcn_occ", "gcn_plan"])
+def test_kernel_input_checks_raise(case):
+    """The checks run before a launch; they raise on what the kernels do
+    not take."""
+    img = torch.zeros(40, 300)
+    splan = plan_stencil(40, 300, 5, H100, "auto")
+    taps = st.gaussian_kernel_1d(5)
+    q, r = torch.zeros(100, 16), torch.zeros(50, 16)
+    nplan = plan_nn(100, 50, 16, H100, "auto")
+    adj, x = torch.zeros(30, 30), torch.zeros(30, 8)
+    gplan = plan_gcn(30, 8, H100, "auto")
+    occ = gc.tile_occupancy(adj, gplan.block_n, gplan.block_s)
+    with pytest.raises((TypeError, ValueError)):
+        if case == "blur_dtype":
+            st._check(img.half(), taps, splan)
+        elif case == "blur_shape":
+            st._check(torch.zeros(2, 40, 300), taps, splan)
+        elif case == "blur_taps":
+            st._check(img, st.gaussian_kernel_1d(7), splan)
+        elif case == "blur_plan":
+            st._check(torch.zeros(400, 3000), taps, splan)
+        elif case == "nn_dtype":
+            nn._check(q.double(), r.double(), nplan)
+        elif case == "nn_dims":
+            nn._check(q, torch.zeros(50, 8), nplan)
+        elif case == "nn_empty":
+            nn._check(q, torch.zeros(0, 16), nplan)
+        elif case == "nn_plan":
+            nn._check(torch.zeros(100_000, 16), r, nplan)
+        elif case == "gcn_square":
+            gc._check(torch.zeros(30, 31), x, occ, gplan)
+        elif case == "gcn_dtype":
+            gc._check(adj.bfloat16(), x, occ, gplan)
+        elif case == "gcn_occ":
+            gc._check(adj, x, occ[:, :0], gplan)
+        else:
+            gc._check(torch.zeros(3000, 3000), torch.zeros(3000, 8),
+                      occ, gplan)
+
+
+def test_force_plain_is_the_cpu_path():
+    from repro_torch import kernels
+
+    img = torch.randn(9, 11)
+    with kernels.force("plain"):
+        a = ops.gaussian_blur(img, ksize=3)
+    taps = st.gaussian_kernel_1d(3)
+    b = st.stencil_cols_plain(st.stencil_rows_plain(img, taps), taps)
+    assert torch.equal(a, b)
+
+
+def test_build_sources_name_the_atypical_kernels():
+    for name in ("stencil", "nn_search", "gcn_agg"):
+        assert name in _build.SOURCES
+        assert (_build.CSRC / f"{name}.cu").exists()
