@@ -8,13 +8,18 @@ Phases, each printing one JSON line:
            GpuParams ``detect()`` read and Eq. 1's ``hp``;
   build    nvcc seconds for every kernel in ``src/repro_torch/csrc``
            (all compiled in parallel) and each one's ptxas report;
-  kernels  each kernel against its plain PyTorch version on the same
-           inputs at smollm-135m's serving shapes, in float32 (atol = rtol
-           = 2e-5: summation order only) and bfloat16 (atol = rtol =
-           1.6e-2: two bf16 ulps near 1), with CUDA-event times (median of
-           25 runs after warm-up, L2 flushed before each) of the kernel,
-           the plain version and, where one exists, one PyTorch library
-           call computing the same function, beside the roofline bound;
+  kernels  each serving kernel against its plain PyTorch version on the
+           same inputs at smollm-135m's serving shapes (8 rows, a pool of
+           1024, the ragged lengths of ``decode_case``), in float32 (atol
+           = rtol = 2e-5: summation order only) and bfloat16 (atol = rtol
+           = 1.6e-2: two bf16 ulps near 1); the two gathers bit for bit;
+           the int8 decode and dequant gather over int8 codes with random
+           positive scales; with CUDA-event times (median of 25 runs
+           after warm-up, L2 flushed before each) of the kernel, the plain
+           version and, where one exists, one PyTorch library call
+           computing the same function (SDPA for flash and the contiguous
+           decode, ``index_select`` for the gather), beside the roofline
+           bound, and the host's time to enqueue one call (``host_ms``);
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) under each mapping policy (naive, fixed, auto)
@@ -32,15 +37,21 @@ Phases, each printing one JSON line:
            tiles and the occupancy pass and kernel timed apart; then the
            vecadd sweep (float32, n = 2^12 ... 2^26, the three policies);
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
-           requests in bf16, once with chunked prefill (the default) and
-           once with whole-prompt prefill; each kernel's launch count is
-           reset just before each run and must be above 0 just after;
-  profile  the chunked path on the mix's first 4 requests, unprofiled
-           (wall time) and under torch.profiler (device time by kernel,
-           busy time, idle share; no check: a reading);
-  parity   the same engine in float32, once on the kernels and once under
-           ``kernels.force("plain")``: identical token streams, first
-           decode-step logits within atol 1e-3.
+           requests in bf16 on each path of ``ENGINE_RUNS``: the default
+           (fused paged decode) with chunked and with whole-prompt
+           prefill, then ``paged=False``, ``fused_decode=False``,
+           ``kv_dtype="int8"`` and int8 with ``fused_decode=False``
+           (chunked); the kernels' launch counts are reset just before
+           each run and read just after: the path's own kernels must be
+           above 0, every other serving kernel 0;
+  profile  the chunked path, fp and int8 pools, on the mix's first 4
+           requests, unprofiled (wall time) and under torch.profiler
+           (device time by kernel, busy time, idle share; no check: a
+           reading);
+  parity   the same engine in float32 on each path (chunked), once on the
+           kernels and once under ``kernels.force("plain")``: identical
+           token streams, first decode-step logits within atol 1e-3;
+  timing   seconds per phase.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernel summary as one JSON line, and as the last line
@@ -122,6 +133,20 @@ class Timer:
         return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 20) -> float:
+    """Host time to enqueue one call (the wrapper's checks, allocation
+    and launch), averaged over ``calls`` calls issued back to back; the
+    device runs them behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
 def check_close(got, want, dtype, what: str) -> float:
     err = float((got.float() - want.float()).abs().max())
     tol = TOL[dtype]
@@ -178,14 +203,73 @@ def flash_case(cfg, sq, sk, q_offset, tiles, device, dtype):
 
 
 def decode_bound(case, hw):
+    """The live prefix's K/V read once (for int8 codes: one byte a value,
+    plus the live pages' scales), q read and the output written once."""
     q, k = case["q"], case["k_cache"]
     b, g, r, d = q.shape
     es = q.element_size()
-    n = int(case["cache_len"].clamp(max=k.shape[1]).sum())
-    nbytes = (2 * n * g * d * es + 2 * q.numel() * es
-              + case["tables"].numel() * 4 + b * 4)
+    clen = case["cache_len"].clamp(max=k.shape[1])
+    n = int(clen.sum())
+    nbytes = 2 * n * g * d * k.element_size() + 2 * q.numel() * es + b * 4
+    if "tables" in case:
+        nbytes += case["tables"].numel() * 4
+    if case.get("k_scale") is not None:
+        pages = int((clen + case["page_block"] - 1).div(
+            case["page_block"], rounding_mode="floor").sum())
+        nbytes += 2 * pages * g * 4
     flops = 4 * n * g * r * d
     return bound(nbytes, flops, q.dtype, hw)
+
+
+def gather_bound(case, hw):
+    """Every page of the table read once and the view written once (the
+    int8 gather also reads each page's scales)."""
+    cache, out_es = case["cache"], case["out_bytes"]
+    nbytes = cache.numel() * (cache.element_size() + out_es) \
+        + case["tables"].numel() * 4
+    if "scale" in case:
+        nbytes += case["scale"].numel() * 4
+    return bound(nbytes, 0, torch.float32, hw)
+
+
+def int8_pool(case, gen):
+    """The case's caches as int8 codes with random positive per-(page,
+    group) scales."""
+    k, pb = case["k_cache"], case["page_block"]
+    b, t, g, d = k.shape
+    dev = k.device
+
+    def codes():
+        return torch.randint(-127, 128, (b, t, g, d), generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def scales():
+        return (torch.rand((b, t // pb, g), generator=gen) * 0.05
+                + 1e-3).to(dev)
+
+    return dict(case, k_cache=codes(), v_cache=codes(), k_scale=scales(),
+                v_scale=scales())
+
+
+def contiguous_case(cfg, block_s, device, dtype):
+    """The decode tick's shapes on the contiguous pool (and on a gathered
+    view): decode_case's rows, lengths and caches, no tables."""
+    c = decode_case(cfg, block_s, device, dtype)
+    return dict(q=c["q"], k_cache=c["k_cache"], v_cache=c["v_cache"],
+                cache_len=c["cache_len"], block_s=block_s)
+
+
+def gather_case(cfg, device, dtype, quant):
+    """One cache of decode_case's pool and its tables (the int8 gather:
+    codes and scales, out in ``dtype``)."""
+    c = decode_case(cfg, 16, device, dtype)
+    if quant:
+        c = int8_pool(c, torch.Generator().manual_seed(SEED + 3))
+        return dict(cache=c["k_cache"], scale=c["k_scale"],
+                    tables=c["tables"], block_size=16, out_dtype=dtype,
+                    out_bytes=torch.empty((), dtype=dtype).element_size())
+    return dict(cache=c["k_cache"], tables=c["tables"], block_size=16,
+                out_bytes=c["k_cache"].element_size())
 
 
 def flash_bound(case, hw):
@@ -226,37 +310,91 @@ def sdpa_call(case):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
 
+def sdpa_decode_call(case):
+    """One PyTorch call computing the contiguous decode's function: SDPA
+    with GQA over the (B, G, T, D) caches and a boolean cache_len mask.
+    Timed as a yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+
+    q, k, v, clen = (case["q"], case["k_cache"], case["v_cache"],
+                     case["cache_len"])
+    b, g, r, d = q.shape
+    t = k.shape[1]
+    qh = q.reshape(b, g * r, 1, d)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < clen[:, None].long())[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def index_select_call(case):
+    """One PyTorch call computing the gather: ``index_select`` of the
+    flattened pool at precomputed flat positions (a yardstick only)."""
+    from repro_torch.kernels.paged_gather import paged_flat_indices
+
+    cache, tables, pb = case["cache"], case["tables"], case["block_size"]
+    b, t = cache.shape[:2]
+    idx = paged_flat_indices(tables[:, :t // pb], b, t, pb).reshape(-1)
+    flat = cache.reshape(b * t, *cache.shape[2:])
+    return lambda: flat.index_select(0, idx).view(cache.shape)
+
+
 def kernels_phase(cfg, hw, timer, device):
     from repro_torch import kernels
-    from repro_torch.core.mapper import plan_attention_blocks, plan_paged_block
+    from repro_torch.core.mapper import (plan_attention_blocks,
+                                         plan_cache_block, plan_paged_block)
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
+    from repro_torch.kernels.paged_gather import (paged_dequant_gather,
+                                                  paged_gather)
 
     block_s = plan_paged_block(1024, cfg.head_dim, 16, hw,
                                heads_per_group=cfg.heads_per_group)
+    cache_block = plan_cache_block(1024, cfg.head_dim, hw,
+                                   heads_per_group=cfg.heads_per_group)
     p512 = plan_attention_blocks(512, 512, cfg.head_dim, hw)
     tiles = (p512.block_q, p512.block_k)
     results = {}
 
-    def measure(name, fn, case, bound_fn, library):
+    def measure(name, fn, case, bound_fn, library, exact=False,
+                head_start=False):
+        """Kernel vs plain in f32 and bf16 (``exact``: bit for bit), then
+        bf16 times (``head_start`` for microsecond kernels, see
+        ``Timer.ms``); ``case(dtype)`` builds the inputs, its ``*_bytes``
+        keys are bookkeeping, not arguments."""
         entry = {"max_abs_err": {}}
         for dtype in (torch.float32, torch.bfloat16):
             c = dict(case(dtype))
-            got = fn(**c)
+            args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
+            got = fn(**args)
             with kernels.force("plain"):
-                want = fn(**c)
+                want = fn(**args)
             torch.cuda.synchronize()
-            entry["max_abs_err"][str(dtype).split(".")[1]] = check_close(
-                got, want, dtype, f"{name} {dtype}")
+            key = str(dtype).split(".")[1]
+            if exact:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} {dtype}: the kernel is not "
+                                         f"bit-exact against its plain "
+                                         f"version")
+                entry["max_abs_err"][key] = 0.0
+            else:
+                entry["max_abs_err"][key] = check_close(got, want, dtype,
+                                                        f"{name} {dtype}")
         c = case(torch.bfloat16)               # the serving dtype
-        entry["kernel_ms"] = timer.ms(lambda: fn(**c))
+        args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
+        entry["kernel_ms"] = timer.ms(lambda: fn(**args),
+                                      head_start=head_start)
+        entry["host_ms"] = host_ms(lambda: fn(**args))
 
         def plain():
             with kernels.force("plain"):
-                fn(**c)
-        entry["plain_ms"] = timer.ms(plain)
-        entry["library_ms"] = timer.ms(library(c)) if library else None
+                fn(**args)
+        entry["plain_ms"] = timer.ms(plain, head_start=head_start)
+        entry["library_ms"] = (timer.ms(library(c), head_start=head_start)
+                               if library else None)
         entry["bound_ms"], entry["bound_by"] = bound_fn(c, hw)
         return entry
 
@@ -281,6 +419,30 @@ def kernels_phase(cfg, hw, timer, device):
                            device, dt),
                        flash_bound, sdpa_call)),
     ]
+    results["paged_decode_attention_int8"] = [dict(
+        shape=f"slots 8, pool 1024, block_s {block_s}, int8 codes, q/out "
+              f"in the dtype",
+        **measure("paged_decode_attention_int8", paged_decode_attention,
+                  lambda dt: int8_pool(
+                      decode_case(cfg, block_s, device, dt),
+                      torch.Generator().manual_seed(SEED + 2)),
+                  decode_bound, None))]
+    results["decode_attention"] = [dict(
+        shape=f"slots 8, contiguous rows of 1024, block_s {cache_block}",
+        **measure("decode_attention", decode_attention,
+                  lambda dt: contiguous_case(cfg, cache_block, device, dt),
+                  decode_bound, sdpa_decode_call))]
+    results["paged_gather"] = [dict(
+        shape="one cache of the pool (8, 1024, 3, 64), page 16",
+        **measure("paged_gather", paged_gather,
+                  lambda dt: gather_case(cfg, device, dt, False),
+                  gather_bound, index_select_call, exact=True,
+                  head_start=True))]
+    results["paged_dequant_gather"] = [dict(
+        shape="int8 codes (8, 1024, 3, 64), page 16, out in the dtype",
+        **measure("paged_dequant_gather", paged_dequant_gather,
+                  lambda dt: gather_case(cfg, device, dt, True),
+                  gather_bound, None, exact=True, head_start=True))]
     return results
 
 
@@ -749,38 +911,73 @@ def serve(engine, reqs):
     return report, outs
 
 
-def engine_phase(device):
-    from repro_torch.configs import get_config
+#: engine runs: label -> (engine options, prefill chunk, the kernels the
+#: path must launch); every other kernel of the serving paths must be
+#: launched 0 times in that run
+ENGINE_RUNS = {
+    "chunked": ({}, "auto", {"paged_decode_attention", "flash_attention"}),
+    "whole_prompt": ({}, None, {"paged_decode_attention",
+                                "flash_attention"}),
+    "contiguous": (dict(paged=False), "auto",
+                   {"decode_attention", "flash_attention"}),
+    "gather": (dict(fused_decode=False), "auto",
+               {"paged_gather", "decode_attention", "flash_attention"}),
+    "int8": (dict(kv_dtype="int8"), "auto",
+             {"paged_decode_attention_int8", "flash_attention"}),
+    "int8_gather": (dict(kv_dtype="int8", fused_decode=False), "auto",
+                    {"paged_dequant_gather", "decode_attention",
+                     "flash_attention"}),
+}
+
+
+def launch_counters():
+    """kernel name -> (wrapper, attribute) of its launch count."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_gather as pg
+
+    return {"paged_decode_attention": (pda.paged_decode_attention,
+                                       "launches"),
+            "paged_decode_attention_int8": (pda.paged_decode_attention,
+                                            "int8_launches"),
+            "flash_attention": (fa.flash_attention, "launches"),
+            "decode_attention": (da.decode_attention, "launches"),
+            "paged_gather": (pg.paged_gather, "launches"),
+            "paged_dequant_gather": (pg.paged_dequant_gather, "launches")}
+
+
+def engine_phase(device):
+    from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine
 
-    counters = {"paged_decode_attention": pda.paged_decode_attention,
-                "flash_attention": fa.flash_attention}
+    counters = launch_counters()
     vocab = get_config("smollm-135m").vocab_size
     reqs = requests(12, 16, 600, 32, vocab, SEED)
     runs = {}
     params = None
-    for label, chunk in (("chunked", "auto"), ("whole_prompt", None)):
+    for label, (opts, chunk, expected) in ENGINE_RUNS.items():
         eng = ServeEngine("smollm-135m", reduced=False, slots=8,
                           max_len=1024, prefill_chunk=chunk, params=params,
-                          seed=SEED, device=device)
+                          seed=SEED, device=device, **opts)
         params = eng.params
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         t0 = time.perf_counter()
         report, _ = serve(eng, reqs)
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in
+                    counters.items()}
         s = report.summary
         runs[label] = dict(
-            completed=s.n_completed, output_tokens=s.output_tokens,
-            tokens_per_s=s.tokens_per_s, wall_s=wall,
-            ttft_p50_ms=s.ttft_p50_s * 1e3,
+            options=opts, completed=s.n_completed,
+            output_tokens=s.output_tokens, tokens_per_s=s.tokens_per_s,
+            wall_s=wall, ttft_p50_ms=s.ttft_p50_s * 1e3,
             decode_tick_p50_ms=s.decode_tick_p50_s * 1e3,
             decode_ticks=s.decode_steps, prefill_s=s.prefill_s,
             decode_s=s.decode_s,
             paged_decode_block=report.paged_decode_blocks,
+            decode_block=report.decode_blocks,
             prefill_tiles={k: list(v) for k, v in
                            report.prefill_tiles.items()},
             launches=launches)
@@ -789,85 +986,128 @@ def engine_phase(device):
             raise AssertionError(f"{label}: {s.n_completed}/{len(reqs)} "
                                  f"completed")
         for k, n in launches.items():
-            if n <= 0:
+            if k in expected and n <= 0:
                 raise AssertionError(f"{label}: {k} was never launched on "
-                                     f"the main path")
+                                     f"its path")
+            if k not in expected and n != 0:
+                raise AssertionError(f"{label}: {k} launched {n} times on "
+                                     f"a path that must not use it")
     return runs, params, reqs
 
 
+PROFILE_RUNS = {"chunked": {}, "int8": dict(kv_dtype="int8")}
+
+
 def profile_phase(device, params, reqs):
-    """Where the device time of the chunked path goes: the first requests
-    of the mix served once unprofiled (wall time) and once under
-    torch.profiler tracing the device only (a full trace of the whole mix
-    takes minutes to parse), self device time summed per kernel name."""
+    """Where the device time of the chunked path goes, with the fp and
+    the int8 pool: the first requests of the mix served once unprofiled
+    (wall time) and once under torch.profiler tracing the device only (a
+    full trace of the whole mix takes minutes to parse), self device
+    time summed per kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeEngine
 
-    def engine():
+    def engine(opts):
         return ServeEngine("smollm-135m", reduced=False, slots=8,
                            max_len=1024, params=params, seed=SEED,
-                           device=device)
+                           device=device, **opts)
 
     reqs = reqs[:4]
-    eng = engine()
-    t0 = time.perf_counter()
-    serve(eng, reqs)
-    wall = time.perf_counter() - t0
-    eng = engine()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        serve(eng, reqs)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    emit("profile", requests=len(reqs), wall_s=wall, device_busy_ms=busy_ms,
-         idle_share=1.0 - busy_ms / 1e3 / wall,
-         top=[{"kernel": k[:80], "ms": ms, "count": n,
-               "share": ms / busy_ms if busy_ms else 0.0}
-              for k, ms, n in rows[:10]])
+    for label, opts in PROFILE_RUNS.items():
+        eng = engine(opts)
+        t0 = time.perf_counter()
+        report, _ = serve(eng, reqs)
+        wall = time.perf_counter() - t0
+        eng = engine(opts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve(eng, reqs)
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        emit("profile", run=label, options=opts, requests=len(reqs),
+             wall_s=wall, device_busy_ms=busy_ms,
+             idle_share=1.0 - busy_ms / 1e3 / wall,
+             decode_ticks=report.summary.decode_steps,
+             decode_tick_p50_ms=report.summary.decode_tick_p50_s * 1e3,
+             kernel_launches=sum(n for _, _, n in rows),
+             top=[{"kernel": k[:80], "ms": ms, "count": n,
+                   "share": ms / busy_ms if busy_ms else 0.0}
+                  for k, ms, n in rows[:12]])
 
 
 def parity_phase(device):
-    """Full width in float32: kernels vs plain on the same requests."""
+    """Full width in float32, for the default path and each of the other
+    decode paths: kernels vs plain on the same requests."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine
 
     cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
     reqs = requests(6, 16, 200, 16, cfg.vocab_size, SEED + 1)
-    streams, first = {}, {}
     params = None
-    for mode in ("kernel", "plain"):
-        eng = ServeEngine(cfg, slots=8, max_len=1024, params=params,
-                          seed=SEED, device=device)
-        params = eng.params
-        step = eng.model.decode_step
+    for label, (opts, _, _) in ENGINE_RUNS.items():
+        if label == "whole_prompt":
+            continue
+        streams, first = {}, {}
+        for mode in ("kernel", "plain"):
+            eng = ServeEngine(cfg, slots=8, max_len=1024, params=params,
+                              seed=SEED, device=device, **opts)
+            params = eng.params
+            step = eng.model.decode_step
 
-        def spy(*a, _step=step, _mode=mode, **kw):
-            out = _step(*a, **kw)
-            first.setdefault(_mode, out[0].detach().clone())
-            return out
+            def spy(*a, _step=step, _mode=mode, **kw):
+                out = _step(*a, **kw)
+                first.setdefault(_mode, out[0].detach().clone())
+                return out
 
-        eng.model.decode_step = spy
-        with kernels.force(mode):
-            _, streams[mode] = serve(eng, reqs)
-    same = streams["kernel"] == streams["plain"]
-    err = float((first["kernel"] - first["plain"]).abs().max())
-    emit("parity", token_streams_identical=same,
-         first_decode_logits_max_abs_err=err,
-         tokens=sum(len(s) for s in streams["kernel"]))
-    if not same:
-        raise AssertionError("fp32 token streams differ between the "
-                             "kernels and their plain versions")
-    if err > 1e-3:
-        raise AssertionError(f"first decode-step logits differ by {err}")
+            eng.model.decode_step = spy
+            t0 = time.perf_counter()
+            with kernels.force(mode):
+                _, streams[mode] = serve(eng, reqs)
+            if mode == "plain":
+                plain_s = time.perf_counter() - t0
+        same = streams["kernel"] == streams["plain"]
+        err = float((first["kernel"] - first["plain"]).abs().max())
+        emit("parity", run=label, options=opts,
+             token_streams_identical=same,
+             first_decode_logits_max_abs_err=err, plain_wall_s=plain_s,
+             tokens=sum(len(s) for s in streams["kernel"]))
+        if not same:
+            raise AssertionError(f"{label}: fp32 token streams differ "
+                                 f"between the kernels and their plain "
+                                 f"versions")
+        if err > 1e-3:
+            raise AssertionError(f"{label}: first decode-step logits "
+                                 f"differ by {err}")
 
 
 # --------------------------------------------------------------------------- #
+
+#: serving kernel -> (its source in csrc/, the TPU kernel it replaces, the
+#: engine run whose launches it reports)
+SERVING_KERNELS = {
+    "paged_decode_attention": (
+        "paged_decode_attention",
+        "src/repro/kernels/paged_decode_attention.py:221", "chunked"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:31", "chunked"),
+    "paged_decode_attention_int8": (
+        "paged_decode_attention",
+        "src/repro/kernels/paged_decode_attention.py:230", "int8"),
+    "decode_attention": ("decode_attention",
+                         "src/repro/kernels/decode_attention.py:41",
+                         "contiguous"),
+    "paged_gather": ("paged_gather", "src/repro/kernels/paged_gather.py:81",
+                     "gather"),
+    "paged_dequant_gather": ("paged_gather",
+                             "src/repro/kernels/paged_gather.py:168",
+                             "int8_gather"),
+}
 
 
 def main() -> int:
@@ -903,26 +1143,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = Timer(device)
+    phase_s = {}
+    t0 = time.perf_counter()
     kres = kernels_phase(cfg, hw, timer, device)
     emit("kernels", card=smi, results=kres)
+    phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sres, suite_launches = suite_phase(hw, timer, device)
+    phase_s["suite"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     runs, params, reqs = engine_phase(device)
+    phase_s["engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     profile_phase(device, params, reqs)
     del params
+    phase_s["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     parity_phase(device)
+    phase_s["parity"] = time.perf_counter() - t0
+    emit("timing", seconds=phase_s)
 
-    replaces = {
-        "paged_decode_attention":
-            "src/repro/kernels/paged_decode_attention.py:221",
-        "flash_attention": "src/repro/kernels/flash_attention.py:31"}
     summary = []
     for name, cases in kres.items():
         main_case = cases[0]
+        src, replaces, run = SERVING_KERNELS[name]
         summary.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": runs["chunked"]["launches"][name],
+            "source": f"src/repro_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": runs[run]["launches"][name],
             "max_abs_err": main_case["max_abs_err"]["bfloat16"],
             "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

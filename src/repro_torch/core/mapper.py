@@ -88,7 +88,9 @@ cache) comes with the tuner slice and raises here.
   * flash ``block_q`` and ``block_k`` are multiples of 16; ``block_q``
     is at least one warp of rows (the kernel maps one query row to one
     thread) and at most 128;
-  * the paged sweep's ``block_s`` is a whole number of pages;
+  * the paged sweep's ``block_s`` is a whole number of pages, the
+    contiguous sweep's a multiple of 16 (``plan_cache_block`` also
+    takes NAIVE and FIXED, for ``kernels.ops.decode_attention``);
   * each kernel's staged tiles fit the block's opt-in shared memory
     (227 KB on an H100).
 """
@@ -112,7 +114,8 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
            "plan_attention_blocks",
            "attention_plan_for_blocks", "flash_smem_bytes",
-           "paged_smem_bytes", "plan_paged_block"]
+           "decode_smem_bytes", "decode_block_for", "plan_cache_block",
+           "plan_paged_block"]
 
 MAX_BLOCK_Q = 128         # one query row per thread, 128 threads at most
 MAX_BLOCK_K = 128
@@ -610,16 +613,75 @@ def attention_plan_for_blocks(seq_q: int, seq_k: int, head_dim: int,
 
 
 # --------------------------------------------------------------------------- #
-# Paged decode staging chunk
+# Decode staging chunks (contiguous and paged)
 # --------------------------------------------------------------------------- #
 
+CACHE_BLOCK_QUANTUM = 16  # decode block_s: a multiple of mma's quantum
+NAIVE_CACHE_BLOCK = 16    # one quantum per staged chunk
+FIXED_CACHE_BLOCK = 512   # the JAX package's fixed cache block
 
-def paged_smem_bytes(block_s: int, head_dim: int, heads_per_group: int) -> int:
-    """Dynamic shared memory of ``csrc/paged_decode_attention.cu``: the
-    staged f32 K and V rows (padded by one word against bank conflicts),
-    the group's scaled queries and one score row per query head."""
+
+def decode_smem_bytes(block_s: int, head_dim: int,
+                      heads_per_group: int) -> int:
+    """Dynamic shared memory of both decode kernels
+    (``csrc/decode_sweep.cuh``, shared by ``csrc/decode_attention.cu``
+    and ``csrc/paged_decode_attention.cu``): the staged f32 K and V rows
+    (padded by one word against bank conflicts), the group's scaled
+    queries and one score row per query head.  The wrappers check a
+    launch against it before they launch."""
     return 4 * (2 * block_s * (head_dim + 1) + heads_per_group * head_dim
                 + heads_per_group * block_s)
+
+
+def decode_block_for(s: int, d: int, hw: GpuParams, block: int,
+                     heads_per_group: int = 1,
+                     quantum: int = CACHE_BLOCK_QUANTUM) -> int:
+    """Legalise a decode ``block_s`` decision onto Hopper's rules:
+    rounded up to a multiple of ``quantum`` (16 for the contiguous
+    sweep, the page for the paged one), at most the cache length rounded
+    up to it, shrunk by one quantum while the staged tiles overflow the
+    block's shared memory.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> decode_block_for(1024, 64, GPU_REGISTRY["h100_sxm"], 512, 3)
+        432
+    """
+    q = int(quantum)
+    bs = min(round_up(max(1, int(block)), q), round_up(max(1, s), q))
+    while decode_smem_bytes(bs, d, heads_per_group) > hw.smem_per_block \
+            and bs > q:
+        bs -= q
+    if decode_smem_bytes(bs, d, heads_per_group) > hw.smem_per_block:
+        raise ValueError(f"no legal decode block for head_dim={d}, "
+                         f"heads_per_group={heads_per_group}")
+    return bs
+
+
+def plan_cache_block(s: int, d: int, hw: GpuParams,
+                     policy: MappingPolicy = MappingPolicy.AUTO,
+                     heads_per_group: int = 1) -> int:
+    """The contiguous decode sweep's ``block_s`` (cache positions staged
+    per iteration; the Hopper translation of the JAX package's
+    ``kernels/decode_attention.py::plan_cache_block``): NAIVE 16
+    positions, FIXED 512, AUTO Eq. 1 over the cache length and the SMs
+    (positions per SM), each legalised by ``decode_block_for``.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> plan_cache_block(4096, 64, GPU_REGISTRY["h100_sxm"])
+        32
+    """
+    policy = MappingPolicy(policy)
+    if policy is MappingPolicy.NAIVE:
+        block = NAIVE_CACHE_BLOCK
+    elif policy is MappingPolicy.FIXED:
+        block = FIXED_CACHE_BLOCK
+    else:
+        block = resolve_lws(s, hw.sm_count)
+    return decode_block_for(s, d, hw, block, heads_per_group)
 
 
 def plan_paged_block(s: int, d: int, page_block: int, hw: GpuParams,
@@ -635,9 +697,5 @@ def plan_paged_block(s: int, d: int, page_block: int, hw: GpuParams,
         >>> plan_paged_block(1024, 64, 16, GPU_REGISTRY["h100_sxm"]) % 16
         0
     """
-    bs = round_up(resolve_lws(s, hw.sm_count), page_block)
-    bs = min(bs, round_up(s, page_block))
-    while paged_smem_bytes(bs, d, heads_per_group) > hw.smem_per_block \
-            and bs > page_block:
-        bs -= page_block
-    return bs
+    return decode_block_for(s, d, hw, resolve_lws(s, hw.sm_count),
+                            heads_per_group, quantum=page_block)

@@ -10,8 +10,10 @@ use by ``nvcc`` into its own shared library, loaded with ``ctypes``:
 Build directory: ``build/repro_torch/`` at the repository root (listed
 in ``.gitignore``), or ``$REPRO_TORCH_BUILD_DIR`` when set.  Rebuild
 rule: the library's file name carries the first 16 hex digits of the
-source's SHA-256, so a library is rebuilt exactly when its source
-changed, and a stale one is never loaded.  ``nvcc``'s ``-Xptxas -v``
+SHA-256 of its source and of every header in ``csrc/`` (``*.cuh``,
+e.g. the decode sweep both decode kernels include), so a library is
+rebuilt exactly when its source or a header changed, and a stale one is
+never loaded.  ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library as
 ``<name>-<hash>.log``.  A failed build raises with the compiler's output;
 nothing here catches it.
@@ -36,7 +38,8 @@ __all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "load", "check"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("paged_decode_attention", "flash_attention", "vecadd", "saxpy",
-           "rmsnorm", "matmul", "stencil", "nn_search", "gcn_agg")
+           "rmsnorm", "matmul", "stencil", "nn_search", "gcn_agg",
+           "decode_attention", "paged_gather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,8 +62,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 

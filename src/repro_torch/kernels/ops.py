@@ -1,5 +1,9 @@
 """Public kernel API of the paper's suite, with the mapping policy.
 
+``decode_attention`` is the suite's entry point to the contiguous decode
+kernel the engine's unpaged and gather-then-sweep paths run; its
+``block_s`` comes from ``plan_cache_block`` under the policy.
+
 Each op resolves its launch at call time from the hardware parameters
 (``hw`` defaults to ``detect()`` of the inputs' device: the paper's
 runtime technique) and the mapping policy, then runs its kernel wrapper:
@@ -26,9 +30,11 @@ import torch
 
 from repro_torch.core import workload
 from repro_torch.core.hw import GpuParams, detect
-from repro_torch.core.mapper import (MappingPolicy, plan_gcn,
-                                     plan_matmul_blocks, plan_nn, plan_rows,
-                                     plan_stencil, plan_vector_blocks)
+from repro_torch.core.mapper import (MappingPolicy, plan_cache_block,
+                                     plan_gcn, plan_matmul_blocks, plan_nn,
+                                     plan_rows, plan_stencil,
+                                     plan_vector_blocks)
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import gcn_agg as _gcn_agg
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import nn_search as _nn_search
@@ -38,7 +44,8 @@ from repro_torch.kernels import stencil as _stencil
 from repro_torch.kernels import vecadd as _vecadd
 
 __all__ = ["vecadd", "saxpy", "matmul", "rmsnorm", "gaussian_blur",
-           "nn_search", "gcn_aggregate", "set_default_policy", "policy"]
+           "nn_search", "gcn_aggregate", "decode_attention",
+           "set_default_policy", "policy"]
 
 _DEFAULT_POLICY: MappingPolicy = MappingPolicy.AUTO
 
@@ -117,3 +124,26 @@ def gcn_aggregate(adj_norm, feats, *, policy=None,
     plan = plan_gcn(feats.shape[0], feats.shape[1], _hw(feats, hw),
                     _resolve(policy))
     return _gcn_agg.gcn_aggregate(adj_norm, feats, plan=plan)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
+                     policy=None, hw: Optional[GpuParams] = None):
+    """q (..., d), caches (..., S, d), ``cache_len`` broadcastable to the
+    leading dims (default S) -> (..., d): single-token attention of each
+    query over its own cache, masked past its length (the JAX package's
+    layout).  The leading dims run as the kernel's rows, one query head
+    and one KV group each; one ``block_s`` serves them all."""
+    lead = q.shape[:-1]
+    s, d = k_cache.shape[-2:]
+    rows = q.reshape(-1, 1, 1, d).contiguous()
+    kc = k_cache.reshape(-1, s, 1, d).contiguous()
+    vc = v_cache.reshape(-1, s, 1, d).contiguous()
+    if cache_len is None:
+        cache_len = s
+    clen = torch.broadcast_to(torch.as_tensor(cache_len, dtype=torch.int32,
+                                              device=q.device), lead)
+    block = plan_cache_block(s, d, _hw(q, hw), _resolve(policy))
+    out = _decode.decode_attention(rows, kc, vc,
+                                   clen.reshape(-1).contiguous(),
+                                   block_s=block, scale=scale)
+    return out.reshape(q.shape)

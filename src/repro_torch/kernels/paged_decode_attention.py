@@ -7,11 +7,17 @@ What bounds it on the H100 is bytes — the K/V rows of every row's live
 prefix — and its design reads each of those bytes once: one CTA per
 (row, KV group) walks its own block table, stages ``block_s`` positions
 of pages at a time in shared memory for all R query heads of the group,
-and stops at ``cache_len``.
+and stops at ``cache_len``.  With ``k_scale``/``v_scale`` the caches
+hold the int8 pool's codes and a second instantiation of the kernel
+(``paged_decode_attention_int8`` in the same source; it replaces
+``_paged_decode_kernel_int8``) dequantises each page by its per-group
+scale as it stages it; its launches count in
+``paged_decode_attention.int8_launches``.
 
 ``paged_decode_attention_plain`` is the plain PyTorch version: the JAX
 reference's blocked schedule (``block_s`` windows, each gathering only
-its own pages through ``paged_flat_indices``, an online softmax across
+its own pages — and, for int8 codes, their scales by the same flat
+block — through ``paged_flat_indices``, an online softmax across
 windows).  The wrapper takes it for CPU tensors and under
 ``kernels.force("plain")``; for CUDA tensors it launches the kernel or
 raises.
@@ -34,16 +40,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_R, _MAX_D = 8, 128
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_INT8_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, tables, cache_len, *,
-                                 page_block: int, block_s: int,
-                                 scale=None) -> torch.Tensor:
+                                 page_block: int, block_s: int, scale=None,
+                                 k_scale=None, v_scale=None) -> torch.Tensor:
     """Plain version: q (B, G, R, D); caches (B, T, G, D) on the physical
     grid; tables (B, nb) int (-1 = unmapped); cache_len (B,) int.  The
     sweep covers the windows up to the longest live row (later windows
-    are fully masked and change nothing).  Returns (B, G, R, D) in q's
-    dtype, accumulated in float32."""
+    are fully masked and change nothing).  With ``k_scale``/``v_scale``
+    (B, T / page_block, G) f32 the caches hold int8 codes, dequantised
+    per window (``code * scale`` in float32).  Returns (B, G, R, D) in
+    q's dtype, accumulated in float32."""
     b, t = k_cache.shape[:2]
     g, r, d = q.shape[1:]
     scale = d ** -0.5 if scale is None else scale
@@ -56,6 +66,10 @@ def paged_decode_attention_plain(q, k_cache, v_cache, tables, cache_len, *,
         idx = torch.nn.functional.pad(idx, (0, tp - t))
     kf = k_cache.float().reshape(b * t, g, d)
     vf = v_cache.float().reshape(b * t, g, d)
+    quant = k_scale is not None
+    if quant:
+        ksf = k_scale.reshape(-1, g)
+        vsf = v_scale.reshape(-1, g)
     qf = q.float() * scale
     clen = cache_len.to(q.device).long().reshape(b, 1)
     n = ceil_div(min(int(clen.max()), t), block_s) if b else 0
@@ -66,6 +80,12 @@ def paged_decode_attention_plain(q, k_cache, v_cache, tables, cache_len, *,
         ix = idx[:, ci * block_s:(ci + 1) * block_s].reshape(-1)
         kb = kf[ix].reshape(b, block_s, g, d)
         vb = vf[ix].reshape(b, block_s, g, d)
+        if quant:
+            # flat_token // pb == flat block: codes and scales resolve
+            # through one layout invariant
+            bix = ix // pb
+            kb = kb * ksf[bix].reshape(b, block_s, g, 1)
+            vb = vb * vsf[bix].reshape(b, block_s, g, 1)
         s = torch.einsum("bgrd,bcgd->bgrc", qf, kb)
         pos = ci * block_s + torch.arange(block_s, device=q.device)
         ok = pos[None, :] < clen                                 # (B, bs)
@@ -81,7 +101,8 @@ def paged_decode_attention_plain(q, k_cache, v_cache, tables, cache_len, *,
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, tables, cache_len, pb, block_s):
+def _check(q, k_cache, v_cache, tables, cache_len, pb, block_s,
+           k_scale=None, v_scale=None):
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged_decode_attention takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -92,8 +113,22 @@ def _check(q, k_cache, v_cache, tables, cache_len, pb, block_s):
     if k_cache.shape != (b, t, g, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"cache shapes {tuple(k_cache.shape)}/"
                          f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError("q and the caches must share one dtype")
+    if k_scale is None:
+        if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+            raise TypeError("q and the caches must share one dtype")
+    else:
+        # the int8 pool: codes, with f32 scales per (physical page, group)
+        if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+            raise TypeError("with scales the caches must hold int8 codes")
+        for sc in (k_scale, v_scale):
+            if sc is None or sc.dtype != torch.float32:
+                raise TypeError("k_scale and v_scale must both be float32")
+            if sc.shape != (b, t // pb, g):
+                raise ValueError(f"scales {tuple(sc.shape)} are not "
+                                 f"(B, T / page, G) = {(b, t // pb, g)}")
+            if sc.device != q.device or not sc.is_contiguous():
+                raise ValueError("the scales must be contiguous on q's "
+                                 "device")
     if tables.dtype != torch.int32 or cache_len.dtype != torch.int32:
         raise TypeError("tables and cache_len must be int32")
     if tables.dim() != 2 or tables.shape[0] != b or cache_len.shape != (b,):
@@ -113,20 +148,23 @@ def _check(q, k_cache, v_cache, tables, cache_len, pb, block_s):
 
 def paged_decode_attention(q, k_cache, v_cache, tables, cache_len, *,
                            page_block: int, block_s: int, scale=None,
-                           window=None) -> torch.Tensor:
+                           window=None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """Fused paged decode.  CPU tensors (or ``kernels.force("plain")``)
     run the plain version; CUDA tensors launch the kernel, whose launch
-    count is ``paged_decode_attention.launches``.  Sliding windows are
-    not supported by the kernel and raise."""
+    count is ``paged_decode_attention.launches`` (int8 codes with
+    ``k_scale``/``v_scale``: ``paged_decode_attention.int8_launches``).
+    Sliding windows are not supported by the kernel and raise."""
     if window is not None:
         raise NotImplementedError("paged_decode_attention: sliding windows "
                                   "are not ported (smollm has none)")
     if kernels.use_plain(q):
         return paged_decode_attention_plain(
             q, k_cache, v_cache, tables, cache_len, page_block=page_block,
-            block_s=block_s, scale=scale)
+            block_s=block_s, scale=scale, k_scale=k_scale, v_scale=v_scale)
     pb = int(page_block)
-    _check(q, k_cache, v_cache, tables, cache_len, pb, int(block_s))
+    _check(q, k_cache, v_cache, tables, cache_len, pb, int(block_s),
+           k_scale, v_scale)
     b, g, r, d = q.shape
     t = k_cache.shape[1]
     block_s = min(int(block_s), t)
@@ -134,15 +172,28 @@ def paged_decode_attention(q, k_cache, v_cache, tables, cache_len, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    fn = _build.load("paged_decode_attention").paged_decode_attention
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-            b, t, g, r, d, tables.shape[1], pb, block_s, float(scale),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    lib = _build.load("paged_decode_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    shape = (b, t, g, r, d, tables.shape[1], pb, block_s, float(scale),
+             _DTYPES[q.dtype], stream)
+    if k_scale is None:
+        fn = lib.paged_decode_attention
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+                *shape)
+        _build.check(rc, "paged_decode_attention")
+        paged_decode_attention.launches += 1
+    else:
+        fn = lib.paged_decode_attention_int8
+        fn.argtypes, fn.restype = _INT8_ARGTYPES, ctypes.c_int
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+                cache_len.data_ptr(), out.data_ptr(), *shape)
+        _build.check(rc, "paged_decode_attention_int8")
+        paged_decode_attention.int8_launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

@@ -37,6 +37,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--mode", choices=("open", "closed"), default="open")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="serve from contiguous cache rows instead of the "
+                         "paged pool (contiguous decode kernel)")
+    ap.add_argument("--kv-dtype", choices=("fp32", "int8"), default="fp32",
+                    help="KV pool storage: fp32 keeps the model's dtype, "
+                         "int8 stores symmetric per-(block, head) codes + "
+                         "scales, dequantised inside the decode read; "
+                         "requires the paged pool")
     ap.add_argument("--prefill-chunk", metavar="N|auto|none", default="auto",
                     help="prefill in N-token chunks between decode ticks; "
                          "'auto' uses the bucket's flash block_q, 'none' "
@@ -62,7 +70,8 @@ def main(argv=None) -> dict:
         seed=int(rng.integers(1 << 30)))
     engine = ServeEngine(
         args.arch, slots=args.slots, max_len=max_len,
-        reduced=not args.full,
+        reduced=not args.full, paged=not args.no_paged,
+        kv_dtype=args.kv_dtype,
         prefill_chunk=parse_chunk(args.prefill_chunk), seed=args.seed,
         device=args.device, verbose=True)
     report = drive(engine, traffic)

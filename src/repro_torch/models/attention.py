@@ -1,10 +1,21 @@
-"""Grouped-query attention, dense subset: prefill and paged decode.
+"""Grouped-query attention, dense subset: prefill and every decode path.
 
 GQA stays grouped — q (B, S, G, R, D) against k/v (B, T, G, D) — so the
 KV heads are never repeated.  Prefill runs the flash kernel at the
-router's tiles (``kernels.flash_attention``); decode writes the new
-token's K/V through the block tables and runs the fused paged kernel
-(``kernels.paged_decode_attention``).
+router's tiles (``kernels.flash_attention``).  Decode writes the new
+token's K/V into the pool (torch ops) and reads it through one of the
+decode kernels, chosen as the JAX package's ``attention_decode`` chooses:
+
+  pool, read                 kernels
+  paged, fused               paged_decode_attention (walks the tables)
+  paged, not fused           paged_gather, then decode_attention
+  contiguous rows            decode_attention
+  int8 paged, fused          paged_decode_attention with the scales
+  int8 paged, not fused      paged_dequant_gather, then decode_attention
+
+With no plan (``decode_block`` None on a non-fused read) the contiguous
+sweep's ``block_s`` is planned here (``plan_cache_block`` under AUTO for
+the tensors' device), so every read goes through a kernel wrapper.
 
 The KV pool is updated IN PLACE (``index_put_`` on flat views, slice
 assignment on row caches) where the JAX package rebuilds it
@@ -13,16 +24,24 @@ functionally; every such write says so.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hw import detect
+from repro_torch.core.mapper import plan_cache_block
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-from repro_torch.kernels.paged_gather import flat_position
+from repro_torch.kernels.paged_gather import (flat_position,
+                                              paged_dequant_gather,
+                                              paged_gather)
 from repro_torch.models.layers import apply_rope
 
 __all__ = ["project_qkv", "attention_block", "paged_write_index",
-           "cache_write", "chunk_cache_write", "attention_decode", "out_proj"]
+           "row_write_index", "cache_write", "paged_quant_write",
+           "chunk_cache_write", "attention_decode", "out_proj"]
 
 
 def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin):
@@ -77,13 +96,67 @@ def paged_write_index(pos: torch.Tensor, page_tables: torch.Tensor,
     return rows, flat
 
 
+def row_write_index(pos: torch.Tensor, kv_len: int):
+    """The contiguous pool's write index: (rows, flat) for the rows whose
+    position lies inside the row (``pos < kv_len``) at flat position
+    ``row * kv_len + pos``.  Rows at or past the end write NOTHING (the
+    JAX package's one-hot write never fires for them), so a retired
+    slot whose position keeps advancing is inert; they are dropped, not
+    clamped."""
+    pos = pos.long()
+    rows = (pos < kv_len).nonzero().flatten()
+    return rows, rows * kv_len + pos[rows]
+
+
 def cache_write(cache: torch.Tensor, new: torch.Tensor, index) -> None:
-    """Scatter one decode token's (B, G, D) K or V rows into the paged
-    (B, T, G, D) cache at ``index = paged_write_index(...)``, IN PLACE."""
+    """Scatter one decode token's (B, G, D) K or V rows into the
+    (B, T, G, D) cache at ``index`` (``paged_write_index`` or
+    ``row_write_index``), IN PLACE."""
     rows, flat = index
     b, t = cache.shape[:2]
     cache.view(b * t, *cache.shape[2:]).index_put_(
         (flat,), new[rows].to(cache.dtype))
+
+
+def paged_quant_write(cache: torch.Tensor, scale: torch.Tensor,
+                      new: torch.Tensor, index, page_block: int) -> None:
+    """Write one decode token's (B, G, D) K or V rows into the int8 paged
+    pool at ``index = paged_write_index(...)``, maintaining the
+    per-(physical block, KV group) symmetric scales, IN PLACE — the JAX
+    package's ``_paged_quant_write``.
+
+    A block's scale only grows: ``new = max(old, amax|token| / 127)``,
+    and when it grows the block's codes are requantised by ``old / new``.
+    A scale of 0 is the dead sentinel (a fresh or recycled block): the
+    ratio is then 0, which wipes the previous tenant's codes.  The whole
+    block is read before anything is written, and rows the index drops
+    (retired, unmapped, overrun) write neither codes nor scale."""
+    rows, flat = index
+    b, t = cache.shape[:2]
+    g, d = cache.shape[2:]
+    bs = int(page_block)
+    n = rows.numel()
+    if n == 0:
+        return
+    blk = flat // bs                 # flat physical block = its scale row
+    sflat = scale.view(b * (t // bs), g)
+    old = sflat[blk]                                             # (n, G)
+    tok = new[rows].float()                                      # (n, G, D)
+    amax = tok.abs().amax(-1)
+    new_scale = torch.maximum(old, amax / 127.0)
+    safe = torch.where(new_scale > 0, new_scale, 1.0)
+    ratio = torch.where(new_scale > 0, old / safe, 0.0)          # 0 wipes
+    idx = (blk * bs)[:, None] + torch.arange(bs, device=flat.device)
+    cflat = cache.view(b * t, g, d)
+    codes = cflat[idx.reshape(-1)].reshape(n, bs, g, d)
+    codes = torch.round(codes.float() * ratio[:, None, :, None])
+    hot = (torch.arange(bs, device=flat.device)[None, :]
+           == (flat % bs)[:, None])                              # (n, bs)
+    codes = torch.where(hot[..., None, None],
+                        torch.round(tok / safe[..., None])[:, None], codes)
+    codes = codes.clamp(-127, 127).to(cache.dtype)
+    cflat.index_put_((idx.reshape(-1),), codes.reshape(n * bs, g, d))
+    sflat.index_put_((blk,), new_scale)
 
 
 def chunk_cache_write(cache: torch.Tensor, new: torch.Tensor,
@@ -99,16 +172,48 @@ def chunk_cache_write(cache: torch.Tensor, new: torch.Tensor,
 def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: torch.Tensor, *, cos, sin, write_index,
-                     page_tables: torch.Tensor, page_block: int,
-                     paged_decode_block: int) -> torch.Tensor:
-    """One-token decode over the paged pool: write the new K/V (in
-    place), then the fused paged kernel reads the pages through the
-    tables.  ``pos`` (B,) is each row's position; returns (B, 1, D)."""
+                     decode_block: Optional[int] = None,
+                     page_tables: Optional[torch.Tensor] = None,
+                     page_block: Optional[int] = None,
+                     paged_decode_block: Optional[int] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token decode: write the new K/V into the pool (in place), then
+    read it through the path the arguments select (module docstring).
+    ``pos`` (B,) is each row's position; ``write_index`` is the step's
+    ``paged_write_index`` (with ``page_tables``) or ``row_write_index``.
+    ``k_scale``/``v_scale`` mark the int8 paged pool.  Returns
+    (B, 1, d_model)."""
     q, k, v = project_qkv(params, x, cfg, cos, sin)
-    cache_write(k_cache, k[:, 0], write_index)
-    cache_write(v_cache, v[:, 0], write_index)
+    q = q[:, 0]
+    if k_scale is not None:
+        if page_tables is None:
+            raise ValueError("kv scales require the paged pool")
+        paged_quant_write(k_cache, k_scale, k[:, 0], write_index, page_block)
+        paged_quant_write(v_cache, v_scale, v[:, 0], write_index, page_block)
+    else:
+        cache_write(k_cache, k[:, 0], write_index)
+        cache_write(v_cache, v[:, 0], write_index)
     clen = (pos + 1).to(torch.int32)
-    o = paged_decode_attention(q[:, 0], k_cache, v_cache, page_tables, clen,
-                               page_block=int(page_block),
-                               block_s=int(paged_decode_block))
+    if page_tables is not None and paged_decode_block is not None:
+        # fused: the sweep reads the pages through the tables
+        o = paged_decode_attention(q, k_cache, v_cache, page_tables, clen,
+                                   page_block=int(page_block),
+                                   block_s=int(paged_decode_block),
+                                   k_scale=k_scale, v_scale=v_scale)
+        return out_proj(params, o[:, None], cfg)
+    kr, vr = k_cache, v_cache
+    if k_scale is not None:
+        kr = paged_dequant_gather(k_cache, k_scale, page_tables,
+                                  int(page_block), out_dtype=x.dtype)
+        vr = paged_dequant_gather(v_cache, v_scale, page_tables,
+                                  int(page_block), out_dtype=x.dtype)
+    elif page_tables is not None:
+        kr = paged_gather(k_cache, page_tables, int(page_block))
+        vr = paged_gather(v_cache, page_tables, int(page_block))
+    if decode_block is None:
+        decode_block = plan_cache_block(kr.shape[1], q.shape[-1],
+                                        detect(q.device),
+                                        heads_per_group=q.shape[2])
+    o = decode_attention(q, kr, vr, clen, block_s=int(decode_block))
     return out_proj(params, o[:, None], cfg)

@@ -8,6 +8,7 @@
     logits, cache = m.prefill_chunk(params, cache, chunk_tokens, n_valid,
                                     prefill_tiles=tiles)
     logits, cache = m.decode_step(params, pool_cache, tokens,
+                                  decode_block=...,
                                   page_tables=..., page_block=16,
                                   paged_decode_block=...)
 """
@@ -43,9 +44,12 @@ class Model:
         gen = torch.Generator().manual_seed(seed)
         return init_params(self.cfg, gen, self.dtype, self.device)
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return tf_mod.init_cache(self.cfg, batch, max_len, self.dtype,
-                                 self.device)
+    def init_cache(self, batch: int, max_len: int,
+                   cache_dtype: Optional[torch.dtype] = None) -> dict:
+        """Zeroed K/V caches in ``cache_dtype`` (default: the model's
+        dtype; the int8 pool passes ``torch.int8``)."""
+        return tf_mod.init_cache(self.cfg, batch, max_len,
+                                 cache_dtype or self.dtype, self.device)
 
     def prefill(self, params: dict, tokens: torch.Tensor, max_len: int, *,
                 prefill_tiles: tuple, last_pos=None):
@@ -77,19 +81,21 @@ class Model:
                                          prefill_tiles=prefill_tiles)
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, *,
-                    page_tables=None, page_block: Optional[int] = None,
+                    decode_block: Optional[int] = None, page_tables=None,
+                    page_block: Optional[int] = None,
                     paged_decode_block: Optional[int] = None):
-        """One decode step over the paged pool, the attention read fused
-        with the block tables.  The contiguous and gather-then-sweep
-        decode paths are not ported yet."""
-        if page_tables is None or paged_decode_block is None:
-            raise NotImplementedError(
-                "only the paged, fused decode is ported; contiguous and "
-                "gather-then-sweep decode are queued for a later slice")
-        return tf_mod.decode_step(params, cache, tokens, self.cfg,
-                                  page_tables=page_tables,
-                                  page_block=int(page_block),
-                                  paged_decode_block=int(paged_decode_block))
+        """One decode step.  ``page_tables`` (B, nb) + ``page_block``
+        make the pool paged; ``paged_decode_block`` (the router's paged
+        ``block_s``) then fuses the read with the block tables, and
+        without it the read gathers a logical view first.
+        ``decode_block`` (the router's contiguous ``block_s``) is the
+        sweep of the contiguous pool and of the gathered view; ``None``
+        plans it (``plan_cache_block``, AUTO) for the cache's length."""
+        return tf_mod.decode_step(
+            params, cache, tokens, self.cfg, decode_block=decode_block,
+            page_tables=page_tables,
+            page_block=None if page_block is None else int(page_block),
+            paged_decode_block=paged_decode_block)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:

@@ -1,4 +1,4 @@
-"""Decoder-only dense transformer: prefill, chunked prefill, paged decode.
+"""Decoder-only dense transformer: prefill, chunked prefill, decode.
 
 A plain Python loop over layers (the JAX package scans them); the layer
 params are views into the stacked tensors.
@@ -12,7 +12,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (attention_block, attention_decode,
                                           chunk_cache_write, out_proj,
-                                          paged_write_index, project_qkv)
+                                          paged_write_index, project_qkv,
+                                          row_write_index)
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_tables,
                                        unembed)
 
@@ -95,24 +96,39 @@ def chunk_prefill_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                cfg: ModelConfig, *, page_tables: torch.Tensor,
-                page_block: int, paged_decode_block: int):
-    """One greedy decode step over the paged pool: ``cache["pos"]`` is a
-    (B,) tensor of per-row positions (ragged rows).  Writes each row's
-    new K/V in place and returns (logits (B, 1, V), the cache with
-    ``pos`` advanced by one)."""
+                cfg: ModelConfig, *, decode_block=None, page_tables=None,
+                page_block=None, paged_decode_block=None):
+    """One greedy decode step over the pool: ``cache["pos"]`` is a (B,)
+    tensor of per-row positions (ragged rows).  Writes each row's new K/V
+    in place and returns (logits (B, 1, V), the cache with ``pos``
+    advanced by one).
+
+    ``page_tables`` (B, nb) + ``page_block`` make the pool paged (writes
+    through the block tables); ``paged_decode_block`` then fuses the read
+    into the paged sweep, and without it the read gathers the logical
+    view first.  ``decode_block`` is the contiguous sweep's ``block_s``
+    (the contiguous pool and the gathered view); ``None`` plans it
+    (``plan_cache_block``, AUTO) for the cache's length.  A cache with ``k_scale``/``v_scale`` is the int8 paged
+    pool.  The branches are ``attention.attention_decode``'s."""
     pos = cache["pos"]
     x = embed(params["embed"], tokens)
     cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
     kv_len = cache["k"].shape[2]
-    index = paged_write_index(pos, page_tables, page_block, kv_len)
+    if page_tables is not None:
+        index = paged_write_index(pos, page_tables, page_block, kv_len)
+    else:
+        index = row_write_index(pos, kv_len)
+    quant = "k_scale" in cache
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         x = x + attention_decode(
             lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,
-            cos=cos, sin=sin, write_index=index, page_tables=page_tables,
-            page_block=page_block, paged_decode_block=paged_decode_block)
+            cos=cos, sin=sin, write_index=index, decode_block=decode_block,
+            page_tables=page_tables, page_block=page_block,
+            paged_decode_block=paged_decode_block,
+            k_scale=cache["k_scale"][i] if quant else None,
+            v_scale=cache["v_scale"][i] if quant else None)
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params["embed"], x), dict(cache, pos=pos + 1)

@@ -2,20 +2,23 @@
 
 ``BucketSpec`` and ``Bucket`` are copies of the JAX package's lattice:
 live serving geometry rounds UP onto a bounded set of lengths.
-``BucketRouter`` resolves each bucket's kernel mappings — the fused
-paged-decode ``block_s`` and the prefill flash tiles — from the port's
-Eq. 1 mapper over the runtime ``GpuParams`` and memoises them per bucket
-(the tuner cache and measured refinement are not ported yet, so a cold
-bucket is one planner call, a warm one a dict hit).
+``BucketRouter`` resolves each bucket's kernel mappings — the
+contiguous decode ``block_s``, the fused paged-decode ``block_s`` and
+the prefill flash tiles — from the port's Eq. 1 mapper (AUTO) over the
+runtime ``GpuParams`` and memoises them per bucket (the tuner cache and
+measured refinement are not ported yet, so a cold bucket is one planner
+call, a warm one a dict hit).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hw import GpuParams
-from repro_torch.core.mapper import plan_attention_blocks, plan_paged_block
+from repro_torch.core.mapper import (plan_attention_blocks, plan_cache_block,
+                                     plan_paged_block)
 
 __all__ = ["BucketSpec", "Bucket", "BucketPlan", "RouterStats",
            "BucketRouter"]
@@ -116,13 +119,16 @@ class Bucket:
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
-    """A bucket's resolved decode mapping.  ``paged_decode_block`` is
-    threaded into the executed decode step, so the bucket decision sets
-    the paged kernel's staging chunk (the prefill tiles are resolved per
-    prompt bucket by ``BucketRouter.prefill_tiles``)."""
+    """A bucket's resolved decode mappings, threaded into the executed
+    decode step: ``decode_block`` is the contiguous sweep's staging chunk
+    (the contiguous pool and the gather-then-sweep read),
+    ``paged_decode_block`` the fused paged sweep's (``None`` for an
+    unpaged engine).  The prefill tiles are resolved per prompt bucket
+    by ``BucketRouter.prefill_tiles``."""
 
     bucket: Bucket
-    paged_decode_block: int
+    decode_block: int
+    paged_decode_block: Optional[int]
 
 
 @dataclasses.dataclass
@@ -148,15 +154,19 @@ class BucketRouter:
                               hw=detect("cuda"), page_block=16)
         plan = router.resolve(router.bucket(need_len))
         tiles = router.prefill_tiles(router.quantize_prompt(plen))
+
+    ``page_block=None`` is an unpaged engine (no paged plan).  The int8
+    pool resolves the same blocks as the fp32 one: both decode kernels
+    stage f32 tiles in shared memory whatever the pool stores.
     """
 
     def __init__(self, cfg: ModelConfig, spec: BucketSpec, *, slots: int,
-                 hw: GpuParams, page_block: int = 16):
+                 hw: GpuParams, page_block: Optional[int] = 16):
         self.cfg = cfg
         self.spec = spec
         self.slots = slots
         self.hw = hw
-        self.page_block = int(page_block)
+        self.page_block = None if page_block is None else int(page_block)
         self.stats = RouterStats()
         self._plans: dict[int, BucketPlan] = {}
         self._prefill_tiles: dict[int, tuple[int, int]] = {}
@@ -176,11 +186,14 @@ class BucketRouter:
             self.stats.warm += 1
             return hit
         self.stats.cold += 1
+        d, r = self.cfg.head_dim, self.cfg.heads_per_group
+        paged = None if self.page_block is None else plan_paged_block(
+            bucket.kv_len, d, self.page_block, self.hw, heads_per_group=r)
         plan = BucketPlan(
             bucket=bucket,
-            paged_decode_block=plan_paged_block(
-                bucket.kv_len, self.cfg.head_dim, self.page_block, self.hw,
-                heads_per_group=self.cfg.heads_per_group))
+            decode_block=plan_cache_block(bucket.kv_len, d, self.hw,
+                                          heads_per_group=r),
+            paged_decode_block=paged)
         self._plans[bucket.kv_len] = plan
         return plan
 

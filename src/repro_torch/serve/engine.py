@@ -6,9 +6,14 @@ package's ``serve/engine.py`` on PyTorch.
     default, chunk by chunk between decode ticks (``prefill_chunk``);
     the finished row's K/V scatter into the request's leased blocks;
   * the whole pool decodes one token per tick through one step whose
-    rows are ragged — every row carries its own position — and whose
-    attention reads the paged pool through the block tables in the fused
-    kernel, at the router's per-bucket ``block_s``;
+    rows are ragged — every row carries its own position.  By default the
+    pool is paged and the attention reads it through the block tables in
+    the fused kernel, at the router's per-bucket ``block_s``;
+    ``fused_decode=False`` gathers each row's logical view first and
+    sweeps it with the contiguous kernel, ``paged=False`` keeps one
+    contiguous cache row per slot, and ``kv_dtype="int8"`` stores the
+    paged pool as int8 codes with per-(block, KV group) scales, which
+    the read dequantises in-kernel;
   * finished requests retire mid-decode and their slot + blocks recycle
     to the queue head; greedy argmax picks every token.
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core.dtypes import kv_dtype_spec
 from repro_torch.core.hw import detect, resolve_device
 from repro_torch.kernels.paged_gather import flat_position
 from repro_torch.models import build_model
@@ -70,9 +76,12 @@ class ServeReport:
     rejected: list[Request]
     router_stats: dict
     pool_growths: int
-    #: the bucket plans that executed: kv_len -> paged block_s, and
-    #: prompt bucket -> flash (block_q, block_k)
+    #: the bucket plans that executed: kv_len -> the fused paged sweep's
+    #: block_s (fused reads), kv_len -> the contiguous sweep's block_s
+    #: (contiguous pool or gather-then-sweep), and prompt bucket -> flash
+    #: (block_q, block_k)
     paged_decode_blocks: dict = dataclasses.field(default_factory=dict)
+    decode_blocks: dict = dataclasses.field(default_factory=dict)
     prefill_tiles: dict = dataclasses.field(default_factory=dict)
 
 
@@ -85,7 +94,11 @@ class ServeEngine:
     versions.  ``params`` (the model's param dict) defaults to random
     weights from ``seed``.  ``prefill_chunk``: "auto" (the default)
     chunks prefill at the bucket's flash ``block_q``, an int fixes the
-    width, ``None`` prefills whole prompts.
+    width, ``None`` prefills whole prompts.  ``paged`` (default True)
+    keeps the KV pool in leased blocks, ``fused_decode`` (default True)
+    reads them inside the paged sweep instead of gathering first, and
+    ``kv_dtype`` ("fp32", the model's dtype, or "int8", which needs the
+    paged pool) is what the pool stores.
 
     Example::
 
@@ -102,6 +115,7 @@ class ServeEngine:
                  seed: int = 0,
                  block_size: int = 16,
                  paged: bool = True,
+                 kv_dtype: str = "fp32",
                  fused_decode: bool = True,
                  prefill_chunk: int | str | None = "auto",
                  eos_id: Optional[int] = None,
@@ -109,14 +123,11 @@ class ServeEngine:
                  device="cuda",
                  verbose: bool = False):
         self.device = resolve_device(device)
-        if not paged:
-            raise NotImplementedError(
-                "paged=False (contiguous KV rows) is queued for a later "
-                "slice of the port")
-        if not fused_decode:
-            raise NotImplementedError(
-                "fused_decode=False (gather-then-sweep decode) is queued for "
-                "a later slice of the port")
+        self.kv_spec = kv_dtype_spec(kv_dtype)
+        if self.kv_spec.quantized and not paged:
+            raise ValueError(
+                f"kv_dtype={self.kv_spec.name!r} requires paged=True: "
+                "quantization scales are per physical block")
         if prefill_chunk is not None and not isinstance(prefill_chunk, int) \
                 and prefill_chunk != "auto":
             raise ValueError(f"prefill_chunk must be None, an int, or "
@@ -128,7 +139,7 @@ class ServeEngine:
         self.cfg = cfg
         self.slots = slots
         self.spec = BucketSpec(max_len=max_len, min_len=min(32, max_len))
-        for n in self.spec.lattice():
+        for n in self.spec.lattice() if paged else ():
             if n % block_size:
                 raise ValueError(f"the paged pool needs lattice lengths "
                                  f"divisible by block_size={block_size}, "
@@ -141,7 +152,9 @@ class ServeEngine:
         self.params = params if params is not None else self.model.init(seed)
         self.hw = detect(self.device)
         self.router = BucketRouter(cfg, self.spec, slots=slots, hw=self.hw,
-                                   page_block=block_size)
+                                   page_block=block_size if paged else None)
+        self.paged = paged
+        self.fused_decode = fused_decode
         self._block_size = block_size
         self._chunk_cfg = prefill_chunk
         self._chunked = prefill_chunk is not None
@@ -155,7 +168,9 @@ class ServeEngine:
         self.scheduler = Scheduler(self.pool)
         self.metrics = ServeMetrics()
         self.outputs: dict[int, list[int]] = {}
-        self._cache = self.adapter.init_pool(self.model, self.slots, kv0)
+        self._cache = self.adapter.init_pool(
+            self.model, self.slots, kv0, kv_dtype=self.kv_spec.name,
+            block_size=self._block_size)
         self._tables = np.full((self.slots, self.pool.max_blocks_per_row),
                                -1, np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
@@ -165,6 +180,7 @@ class ServeEngine:
         self._chunk_tasks: list[_ChunkTask] = []
         self._prefilling: dict[int, _ChunkTask] = {}
         self.pool_growths = 0
+        self.executed_paged_blocks: dict[int, int] = {}
         self.executed_decode_blocks: dict[int, int] = {}
         self.executed_prefill_tiles: dict[int, tuple] = {}
         self._t0: Optional[float] = None
@@ -198,7 +214,7 @@ class ServeEngine:
         return self._bucket_plan
 
     def _grow_pool(self, new_len: int) -> None:
-        if new_len % self._block_size:
+        if self.paged and new_len % self._block_size:
             raise ValueError(f"paged pool length {new_len} not a multiple "
                              f"of block_size={self._block_size}")
         self._cache = self.adapter.grow(self._cache, new_len)
@@ -217,10 +233,33 @@ class ServeEngine:
             flat_position(pid, tok, self.slots, self.pool.kv_len, bs)
         ).to(self.device)
 
-    def _publish(self, req: Request) -> None:
-        """Publish the request's block-table row to the decode step."""
-        self._tables[req.slot] = self.pool.block_table(req.rid)
-        self._tables_dev = None
+    def _scale_map(self, blocks: list[int]) -> torch.Tensor:
+        """Flat scale-grid rows of one request's leased blocks: the scale
+        grid is the cache's physical block grid flattened to (slots *
+        blocks per row), so pid -> (pid % slots) * nb + pid // slots, the
+        identity the kernels resolve in their sweeps."""
+        nb = self.pool.kv_len // self._block_size
+        pid = np.asarray(blocks, np.int64)
+        return torch.from_numpy((pid % self.slots) * nb
+                                + pid // self.slots).to(self.device)
+
+    def _write_row(self, req: Request, row_cache: dict,
+                   blocks: list[int]) -> None:
+        """Land a prefilled row in the pool: through the request's page
+        map (and, on the int8 pool, its scale map) when paged, publishing
+        its block-table row to the decode step; into the slot's row
+        otherwise."""
+        pm = sm = None
+        if self.paged:
+            self._tables[req.slot] = self.pool.block_table(req.rid)
+            self._tables_dev = None
+            pm = self._page_map(blocks, req.prompt_len)
+            if self.kv_spec.quantized:
+                sm = self._scale_map(blocks)
+        self._cache = self.adapter.write_row(
+            self._cache, req.slot, row_cache, req.prompt_len,
+            self.pool.kv_len, page_map=pm, scale_map=sm,
+            page_block=self._block_size)
 
     # -- intake -----------------------------------------------------------
 
@@ -255,10 +294,7 @@ class ServeEngine:
             last_pos=[plen - 1], prefill_tiles=tiles)
         first = int(logits[0, -1].argmax())          # waits for the device
         self.metrics.add_prefill_time(time.perf_counter() - t0)
-        self._publish(req)
-        self._cache = self.adapter.write_row(
-            self._cache, req.slot, rcache, plen, self.pool.kv_len,
-            page_map=self._page_map(self.pool.lease(req.rid).blocks, plen))
+        self._write_row(req, rcache, self.pool.lease(req.rid).blocks)
         req.generated.append(first)
         self._tokens[req.slot, 0] = first
         self.metrics.on_admit(req.rid, now)
@@ -315,11 +351,7 @@ class ServeEngine:
 
     def _finish_chunked(self, task: _ChunkTask, first: int) -> None:
         req = task.req
-        self._publish(req)
-        self._cache = self.adapter.write_row(
-            self._cache, req.slot, task.cache, req.prompt_len,
-            self.pool.kv_len,
-            page_map=self._page_map(task.blocks, req.prompt_len))
+        self._write_row(req, task.cache, task.blocks)
         req.generated.append(first)
         self._tokens[req.slot, 0] = first
         self.metrics.on_first_token(req.rid, self._now())
@@ -330,17 +362,28 @@ class ServeEngine:
 
     def _decode_tick(self) -> None:
         plan = self._current_plan()
-        if self._tables_dev is None:
-            # tables change only at admit/retire: upload on change
-            self._tables_dev = torch.from_numpy(self._tables).to(self.device)
-        self.executed_decode_blocks[self.pool.kv_len] = \
-            plan.paged_decode_block
+        kw = {}
+        if self.paged:
+            if self._tables_dev is None:
+                # tables change only at admit/retire: upload on change
+                self._tables_dev = torch.from_numpy(self._tables).to(
+                    self.device)
+            # the router's fused block_s; None drops the read back to
+            # gather-then-sweep
+            kw = dict(page_tables=self._tables_dev,
+                      page_block=self._block_size,
+                      paged_decode_block=(plan.paged_decode_block
+                                          if self.fused_decode else None))
+        if kw.get("paged_decode_block") is not None:
+            self.executed_paged_blocks[self.pool.kv_len] = \
+                plan.paged_decode_block
+        else:
+            self.executed_decode_blocks[self.pool.kv_len] = plan.decode_block
         t0 = time.perf_counter()
         logits, self._cache = self.model.decode_step(
             self.params, self._cache,
             torch.from_numpy(self._tokens).to(self.device),
-            page_tables=self._tables_dev, page_block=self._block_size,
-            paged_decode_block=plan.paged_decode_block)
+            decode_block=plan.decode_block, **kw)
         nxt = logits[:, 0].argmax(-1).cpu().numpy()   # waits for the device
         self.metrics.add_decode_time(time.perf_counter() - t0)
         n_dec = 0
@@ -364,8 +407,9 @@ class ServeEngine:
             if req.done or eos:
                 slot = req.slot
                 self.scheduler.finish(req)
-                self._tables[slot] = -1          # unmap: blocks recycle
-                self._tables_dev = None
+                if self.paged:
+                    self._tables[slot] = -1      # unmap: blocks recycle
+                    self._tables_dev = None
                 self.outputs[req.rid] = list(req.prompt) + list(req.generated)
                 self.metrics.on_done(req.rid, now, len(req.generated))
                 if on_complete is not None:
@@ -423,6 +467,7 @@ class ServeEngine:
             rejected=list(self.scheduler.rejected),
             router_stats=dataclasses.asdict(self.router.stats),
             pool_growths=self.pool_growths,
-            paged_decode_blocks=dict(self.executed_decode_blocks),
+            paged_decode_blocks=dict(self.executed_paged_blocks),
+            decode_blocks=dict(self.executed_decode_blocks),
             prefill_tiles=dict(self.executed_prefill_tiles),
         )

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Hashable, Optional
 
+
 __all__ = ["BlockAllocator", "KVCachePool", "Lease"]
 
 

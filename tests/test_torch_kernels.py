@@ -25,11 +25,13 @@ from repro.models.attention import tiled_prefill_attention
 
 from repro_torch import kernels
 from repro_torch.core.hw import GPU_REGISTRY
-from repro_torch.core.mapper import (flash_smem_bytes, paged_smem_bytes,
+from repro_torch.core.mapper import (decode_smem_bytes, flash_smem_bytes,
                                      plan_attention_blocks, plan_paged_block)
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import paged_gather as pg
 from repro_torch.kernels.paged_gather import flat_position
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -117,19 +119,29 @@ def test_flash_plain_matches_tiled_prefill_with_offset(start, c, sk):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+def _counts():
+    return (pda.paged_decode_attention.launches,
+            pda.paged_decode_attention.int8_launches,
+            fa.flash_attention.launches, da.decode_attention.launches,
+            pg.paged_gather.launches, pg.paged_dequant_gather.launches)
+
+
 def test_cpu_tensors_take_plain_and_count_no_launch():
-    q, k, v, tables, clen = _paged_case(3)
-    before = (pda.paged_decode_attention.launches,
-              fa.flash_attention.launches)
-    pda.paged_decode_attention(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(tables), torch.from_numpy(clen), page_block=16,
-        block_s=16)
+    q, k, v, tables, clen = (torch.from_numpy(a) for a in _paged_case(3))
+    before = _counts()
+    pda.paged_decode_attention(q, k, v, tables, clen, page_block=16,
+                               block_s=16)
+    codes = torch.zeros(k.shape, dtype=torch.int8)
+    sc = torch.ones(k.shape[0], k.shape[1] // 16, k.shape[2])
+    pda.paged_decode_attention(q, codes, codes, tables, clen, page_block=16,
+                               block_s=16, k_scale=sc, v_scale=sc)
     x = torch.zeros(1, 4, 1, 1, 32)
     fa.flash_attention(x, x[:, :, :, 0], x[:, :, :, 0], block_q=16,
                        block_k=16)
-    assert (pda.paged_decode_attention.launches,
-            fa.flash_attention.launches) == before
+    da.decode_attention(q, k, v, clen, block_s=16)
+    pg.paged_gather(k, tables, 16)
+    pg.paged_dequant_gather(codes, sc, tables, 16)
+    assert _counts() == before
 
 
 def test_wrappers_raise_on_masks_they_do_not_take():
@@ -161,13 +173,18 @@ def test_force_is_scoped_and_validated():
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "tables", "pages",
-                                  "contiguous", "head_dim"])
+                                  "contiguous", "head_dim", "int8_codes",
+                                  "int8_scale_shape", "int8_scale_dtype",
+                                  "decode_block", "gather_pages",
+                                  "dequant_codes"])
 def test_kernel_input_checks_raise(case):
     """The checks run before a launch; they raise on what the kernels do
     not take."""
     q, k, v, tables, clen = (torch.from_numpy(a) for a in _paged_case(4))
     fq = torch.zeros(1, 8, 2, 2, 64)
     fk = torch.zeros(1, 8, 2, 64)
+    codes = torch.zeros(k.shape, dtype=torch.int8)
+    sc = torch.ones(k.shape[0], k.shape[1] // 16, k.shape[2])
     with pytest.raises((TypeError, ValueError)):
         if case == "dtype":
             pda._check(q.half(), k.half(), v.half(), tables, clen, 16, 16)
@@ -180,9 +197,24 @@ def test_kernel_input_checks_raise(case):
         elif case == "contiguous":
             fa._check(fq.transpose(1, 2).contiguous().transpose(1, 2), fk,
                       fk, 16, 16, 0)
-        else:
+        elif case == "head_dim":
             fa._check(torch.zeros(1, 8, 2, 2, 48), torch.zeros(1, 8, 2, 48),
                       torch.zeros(1, 8, 2, 48), 16, 16, 0)
+        elif case == "int8_codes":         # scales with non-int8 caches
+            pda._check(q, k, v, tables, clen, 16, 16, sc, sc)
+        elif case == "int8_scale_shape":
+            pda._check(q, codes, codes, tables, clen, 16, 16, sc[:, :1],
+                       sc[:, :1])
+        elif case == "int8_scale_dtype":
+            pda._check(q, codes, codes, tables, clen, 16, 16, sc.double(),
+                       sc.double())
+        elif case == "decode_block":       # not a multiple of 16
+            da._check(q, k, v, clen, 24)
+        elif case == "gather_pages":       # T not whole pages
+            pg._check_tables(k.shape[0], 40, tables, 16, "paged_gather")
+        else:
+            pg.paged_dequant_gather(k.to("meta"), sc.to("meta"),
+                                    tables.to("meta"), 16)
 
 
 @pytest.mark.parametrize("seq", [1, 17, 512, 1024, 4096])
@@ -195,7 +227,7 @@ def test_mapper_plans_are_hopper_legal(seq):
             <= hw.smem_per_block
         bs = plan_paged_block(seq, 64, 16, hw, heads_per_group=3)
         assert bs % 16 == 0 and 16 <= bs <= -(-seq // 16) * 16
-        assert paged_smem_bytes(bs, 64, 3) <= hw.smem_per_block
+        assert decode_smem_bytes(bs, 64, 3) <= hw.smem_per_block
 
 
 def test_eq1_reads_hp_from_the_sm_count():

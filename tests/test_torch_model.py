@@ -4,8 +4,9 @@ The JAX params (``build_model(cfg).init(jax.random.key(0))``) go through
 numpy into ``repro_torch.weights.params_from_jax``; both models then run
 the same numpy inputs at reduced width in float32.  Covered: whole
 prefill, chunked prefill starting at an unaligned offset (with a tail
-chunk overhanging the row cache), and paged decode over ragged rows with
--1 table entries (a retired row included).
+chunk overhanging the row cache), paged decode over ragged rows with
+-1 table entries (a retired row included), and decode over contiguous
+ragged rows with no plan.
 
 Tolerance: atol 1e-4 on logits and caches (float32; two frameworks'
 matmul and summation orders).
@@ -25,6 +26,7 @@ from repro.models import build_model as jax_build_model
 from repro.models import transformer as jax_tf
 
 from repro_torch.configs import get_config
+from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.layers import param_shapes
 from repro_torch.weights import params_from_jax
@@ -177,7 +179,32 @@ def test_paged_decode_matches(pair, block_s):
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
 
 
-def test_decode_paths_not_ported_raise(pair):
-    *_, model, tparams = pair
-    with pytest.raises(NotImplementedError):
-        model.decode_step(tparams, {}, torch.zeros(1, 1, dtype=torch.long))
+def test_decode_paths_not_ported_raise(pair, monkeypatch):
+    """Decode with no plan and no tables — contiguous ragged rows, read
+    through the ``decode_attention`` wrapper at the block it plans for
+    itself — against JAX's einsum path: a row past
+    the end of the cache writes nothing, the others write at their own
+    position."""
+    jcfg, _, jparams, tcfg, model, tparams = pair
+    k, v, _, _, toks = _pool_case(tcfg)
+    pos = np.array([37, 63, 70], np.int32)           # ragged, last, overrun
+    jc = {"k": jnp.asarray(k), "v": jnp.asarray(v), "pos": jnp.asarray(pos)}
+    tc = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy()),
+          "pos": torch.from_numpy(pos)}
+    blocks = []
+
+    def spy(*a, _fn=attn.decode_attention, **kw):
+        blocks.append(kw["block_s"])
+        return _fn(*a, **kw)
+    monkeypatch.setattr(attn, "decode_attention", spy)
+    for step in range(2):
+        jl, jc = jax_tf.decode_step(jparams, jc, jnp.asarray(toks, jnp.int32),
+                                    jcfg)
+        tl, tc = model.decode_step(tparams, tc, torch.from_numpy(toks))
+        _close(tl, jl, f"decode logits, step {step}")
+        toks = np.asarray(jnp.argmax(jl[:, 0], -1))[:, None]
+    _close(tc["k"], jc["k"], "rows k after writes")
+    _close(tc["v"], jc["v"], "rows v after writes")
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    assert len(blocks) == 2 * tcfg.num_layers
+    assert all(bs % 16 == 0 for bs in blocks)

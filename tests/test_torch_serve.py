@@ -86,12 +86,17 @@ def test_engine_auto_chunk_uses_the_planned_block_q(weights):
 
 
 def test_engine_options_of_later_slices_raise():
+    """The options the engine refuses, as the JAX engine does: an
+    unknown prefill chunk, an unknown kv_dtype, and int8 without the
+    paged pool (its scales are per physical block).  The decode paths
+    themselves are held against JAX in tests/test_torch_serve_paths.py."""
     cfg = get_config("smollm-135m").reduced()
-    for kw in (dict(paged=False), dict(fused_decode=False)):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, device="cpu", **kw)
     with pytest.raises(ValueError):
         ServeEngine(cfg, device="cpu", prefill_chunk="whole")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        ServeEngine(cfg, device="cpu", kv_dtype="fp8")
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(cfg, device="cpu", kv_dtype="int8", paged=False)
 
 
 def test_traffic_drive_open_and_closed():
