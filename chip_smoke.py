@@ -22,16 +22,20 @@ Phases, each printing one JSON line:
            bound, and the host's time to enqueue one call (``host_ms``);
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
-           gcn_aggregate) under each mapping policy (naive, fixed, auto)
-           at the cases of ``SUITE_CASES``: each op driven once per
-           policy with its launch counts reset just before and read just
-           after (all eight kernels' must be above 0); then per case and
-           policy the plan, the resident CTAs per SM that the CUDA
-           runtime reports beside the plan's full-residency assumption,
-           the error against the plain version (``SUITE_TOL``; for
-           nn_search ``NN_DIST_TOL`` and the near-ties counted),
+           gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
+           (naive, fixed, auto; for ssd the chunk
+           ``plan_ssd_chunk(L, hw, policy)``) at the cases of
+           ``SUITE_CASES``: each op driven once per policy with its
+           launch counts reset just before and read just after (all nine
+           kernels' must be above 0); then per case and policy the plan,
+           the launches of the case's own drive, the resident CTAs per SM
+           that the CUDA runtime reports beside the plan's full-residency
+           assumption, the error against the plain version
+           (``SUITE_TOL``; for nn_search ``NN_DIST_TOL`` and the
+           near-ties counted; for ssd ``TOL`` of the output's largest
+           magnitude),
            CUDA-event times of the op, its plain version and one PyTorch
-           call computing the same function (none for nn_search), and
+           call computing the same function (none for nn_search and ssd), and
            the roofline bound; for the blur each pass held and timed
            apart, for the aggregation the occupied share of the plan's
            tiles and the occupancy pass and kernel timed apart; then the
@@ -41,13 +45,18 @@ Phases, each printing one JSON line:
            (fused paged decode) with chunked and with whole-prompt
            prefill, then ``paged=False``, ``fused_decode=False``,
            ``kv_dtype="int8"`` and int8 with ``fused_decode=False``
-           (chunked); the kernels' launch counts are reset just before
-           each run and read just after: the path's own kernels must be
-           above 0, every other serving kernel 0;
-  profile  the chunked path, fp and int8 pools, on the mix's first 4
-           requests, unprofiled (wall time) and under torch.profiler
-           (device time by kernel, busy time, idle share; no check: a
-           reading);
+           (chunked); then ``ServeEngine("mamba2-1.3b", reduced=False)``
+           on the mix's first 4 requests, chunked and whole-prompt
+           (``MAMBA_RUNS``); the kernels' launch counts are reset just
+           before each run and read just after: the path's own kernels
+           must be above 0, every other kernel 0 (the ssm path runs none:
+           its prefill is the plain ``ssd_chunked``, as the reference's
+           is jnp);
+  profile  smollm's chunked path, fp and int8 pools, on the mix's first 4
+           requests, and mamba2's chunked path on its first request
+           (``PROFILE_RUNS``), unprofiled (wall time) and under
+           torch.profiler (device time by kernel from the raw device
+           events, busy time, idle share; no check: a reading);
   parity   the same engine in float32 on each path (chunked), once on the
            kernels and once under ``kernels.force("plain")``: identical
            token streams, first decode-step logits within atol 1e-3;
@@ -457,6 +466,11 @@ F32, BF16 = torch.float32, torch.bfloat16
 CORA = (2708, 1433, 5278)
 PUBMED = (19717, 500, 44324)
 COMMUNITY, LOCAL_P = 256, 0.9
+# SSD (L, H, P, G, N): one mamba2-1.3b layer over a 2,048-token prompt
+# (d_inner 4096 = 64 heads of 64, one group, state 128), and a ragged L
+# of 1,200 that no policy's chunk divides (the wrapper halves to 16)
+MAMBA2_LAYER = (2048, 64, 64, 1, 128)
+SSD_RAGGED = (1200, 64, 64, 1, 128)
 BLUR_SIGMA = 1.0
 # (op, shape, dtype): vectors under, at (hp, filled in at run time) and
 # over hp; smollm-135m's decode-row MLP projection (m, n, k) = (8 slots,
@@ -466,6 +480,7 @@ BLUR_SIGMA = 1.0
 # halo 2 and 3; nn_search (nq, nr, d) of SIFT-style 128-dim descriptors
 # (gws under hp) and at the workload's default 4 dims (gws ~1.9x hp);
 # GCN aggregation (nodes, features, edges) at Cora's and Pubmed's sizes.
+# Mamba-2's SSD at one mamba2-1.3b layer (f32 and bf16) and a ragged L.
 SUITE_CASES = (
     [(op, (n,), F32) for op in ("vecadd", "saxpy")
      for n in (1 << 16, "hp", 1 << 26)]
@@ -480,7 +495,9 @@ SUITE_CASES = (
     + [("nn_search", (4096, 65536, 128), dt) for dt in (F32, BF16)]
     + [("nn_search", (524288, 4096, 4), F32)]
     + [("gcn_aggregate", CORA, F32)]
-    + [("gcn_aggregate", PUBMED, dt) for dt in (F32, BF16)])
+    + [("gcn_aggregate", PUBMED, dt) for dt in (F32, BF16)]
+    + [("ssd", MAMBA2_LAYER, dt) for dt in (F32, BF16)]
+    + [("ssd", SSD_RAGGED, F32)])
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
 # tolerances against JAX (tests/test_torch_suite.py,
 # tests/test_torch_suite_atypical.py).  vecadd and saxpy round where
@@ -564,6 +581,12 @@ def suite_inputs(cases, device):
         elif op == "gcn_aggregate":
             n, f, edges = shape
             made[key] = planetoid_like(n, f, edges, dtype, gen, device)
+        elif op == "ssd":            # tests/test_kernels.py's scaling
+            length, h, p, g, n = shape
+            made[key] = (randn(length, h, p, dtype=dtype, scale=0.5),
+                         -randn(length, h, dtype=F32).abs() * 0.1,
+                         randn(length, g, n, dtype=dtype, scale=0.3),
+                         randn(length, g, n, dtype=dtype, scale=0.3))
         else:
             made[key] = (randn(*shape, dtype=dtype),
                          randn(shape[1], dtype=dtype))
@@ -589,6 +612,12 @@ def suite_call(op, ins, policy):
         return lambda: ops.nn_search(*ins, policy=policy)
     if op == "gcn_aggregate":
         return lambda: ops.gcn_aggregate(*ins, policy=policy)
+    if op == "ssd":
+        from repro_torch.core.hw import detect
+        from repro_torch.models.ssm import plan_ssd_chunk
+
+        chunk = plan_ssd_chunk(ins[0].shape[0], detect(ins[0].device), policy)
+        return lambda: ops.ssd(*ins, chunk=chunk, policy=policy)
     return lambda: ops.rmsnorm(*ins, eps=RMS_EPS, policy=policy)
 
 
@@ -618,10 +647,22 @@ def suite_library(op, ins):
         img, k = ins
         taps = gaussian_kernel_1d(k, BLUR_SIGMA)
         return blur_conv(img, torch.outer(taps, taps))
-    if op == "nn_search":
+    if op in ("nn_search", "ssd"):
         return None
     x, g = ins
     return lambda: F.rms_norm(x, (x.shape[1],), g, RMS_EPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdPlan:
+    """What ``ops.ssd`` runs under a policy: the planned chunk, the chunk
+    after the wrapper's halving, and the launch (one CTA per head)."""
+
+    chunk: int
+    legal_chunk: int
+    grid: int
+    threads: int
+    smem_bytes: int
 
 
 def suite_plan(op, shape, dtype, policy, hw):
@@ -642,6 +683,13 @@ def suite_plan(op, shape, dtype, policy, hw):
         return plan_nn(*shape, hw, policy)
     if op == "gcn_aggregate":
         return plan_gcn(shape[0], shape[1], hw, policy)
+    if op == "ssd":
+        from repro_torch.kernels import ssd
+        from repro_torch.models.ssm import plan_ssd_chunk
+
+        chunk = plan_ssd_chunk(shape[0], hw, policy)
+        legal = ssd.legal_chunk(shape[0], chunk)
+        return SsdPlan(chunk, legal, shape[1], 256, ssd.smem_bytes(legal))
     return plan_rows(shape[0], hw, policy)
 
 
@@ -669,13 +717,44 @@ def suite_bound(op, shape, dtype, hw, ins):
         n, f, _ = shape
         nnz = int(torch.count_nonzero(ins[0]))
         return bound((n * n + 2 * n * f) * es, 2 * nnz * f, dtype, hw)
+    if op == "ssd":
+        return ssd_bound(shape, dtype, hw)
     t, d = shape
     return bound((2 * t * d + d) * es, 4 * t * d, dtype, hw)
 
 
+def ssd_bound(shape, dtype, hw):
+    """x read and y written in the dtype, a (f32) read, b and c read.
+    Operations: the least count over the chunks the wrapper takes, so
+    the bound does not follow the plan.  At chunk c the function needs,
+    a step and a head, the causal half of the scores and their product
+    with x (s <= t only: (c + 1)(N + P)) and the state products (4NP);
+    the least is at c = 1, the recurrence: L H (2(N + P) + 4NP).  The
+    score product C_t . B_s (2N of these) has both operands in the
+    inputs' dtype, its products exact in f32, and is held to that
+    dtype's rate; every other product has an f32 operand (a decay or the
+    state) and is held to the f32 rate.  In bf16 the two run on
+    different units side by side, so they take the longer of the two
+    times."""
+    length, h, p, g, n = shape
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * length * h * p * es + length * h * 4 + 2 * length * g * n * es
+    f32_flops = length * h * (2 * p + 4 * n * p)
+    score_flops = length * h * 2 * n
+    f32_rate = hw.peak_flops(torch.float32)
+    if dtype == torch.float32:
+        t_ops = (f32_flops + score_flops) / f32_rate * 1e3
+    else:
+        t_ops = max(f32_flops / f32_rate,
+                    score_flops / hw.peak_flops(dtype)) * 1e3
+    t_bytes = nbytes / hw.mem_bw * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def suite_occupancy(op, plan, dtype, shape):
     from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
-                                     saxpy, stencil, vecadd)
+                                     saxpy, ssd, stencil, vecadd)
 
     if op == "matmul":
         return matmul.occupancy(plan, dtype)
@@ -685,6 +764,8 @@ def suite_occupancy(op, plan, dtype, shape):
         return nn_search.occupancy(plan, shape[2], dtype)
     if op == "gcn_aggregate":
         return gcn_agg.occupancy(plan, dtype)
+    if op == "ssd":
+        return ssd.occupancy(plan.legal_chunk, dtype)
     return {"vecadd": vecadd, "saxpy": saxpy,
             "rmsnorm": rmsnorm}[op].occupancy(dtype)
 
@@ -780,32 +861,43 @@ SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
                   "stencil_rows": "src/repro/kernels/stencil.py:40",
                   "stencil_cols": "src/repro/kernels/stencil.py:59",
                   "nn_search": "src/repro/kernels/nn_search.py:39",
-                  "gcn_agg": "src/repro/kernels/gcn_agg.py:38"}
+                  "gcn_agg": "src/repro/kernels/gcn_agg.py:38",
+                  "ssd": "src/repro/kernels/ssd.py:29"}
 
 
 def suite_phase(hw, timer, device):
     """The paper's kernel suite on the card under the three policies."""
     from repro_torch import kernels
     from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
-                                     saxpy, stencil, vecadd)
+                                     saxpy, ssd, stencil, vecadd)
 
     counters = {"vecadd": vecadd.vecadd, "saxpy": saxpy.saxpy,
                 "matmul": matmul.matmul, "rmsnorm": rmsnorm.rmsnorm,
                 "stencil_rows": stencil.stencil_rows,
                 "stencil_cols": stencil.stencil_cols,
-                "nn_search": nn_search.nn_search, "gcn_agg": gcn_agg.gcn_agg}
+                "nn_search": nn_search.nn_search, "gcn_agg": gcn_agg.gcn_agg,
+                "ssd": ssd.ssd}
     cases = [(op, (hw.hp(),) if shape == ("hp",) else shape, dtype)
              for op, shape, dtype in SUITE_CASES]
     inputs = suite_inputs(cases, device)
     t0 = time.perf_counter()
 
     # the main path: every op under every policy, counts read per policy
-    outs, launches = {}, {}
+    # (and per case: the launches of the case's own call)
+    outs, launches, case_launches = {}, {}, {}
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
     for policy in POLICIES:
         for fn in counters.values():
             fn.launches = 0
         for case in cases:
+            before = counts()
             outs[case, policy] = suite_call(case[0], inputs(*case), policy)()
+            case_launches[case, policy] = {
+                k: n - before[k] for k, n in counts().items()
+                if n != before[k]}
         torch.cuda.synchronize()
         launches[policy] = {k: fn.launches for k, fn in counters.items()}
         for k, n in launches[policy].items():
@@ -836,7 +928,10 @@ def suite_phase(hw, timer, device):
                     nn_compare(got, want, ins)
                 atol = rtol = None
             else:
-                atol, rtol = SUITE_TOL[op, dtype]
+                # ssd: TOL of the output's largest magnitude (the chunk's
+                # exponent sums reorder against the plain version's)
+                atol, rtol = SUITE_TOL[op, dtype] if op != "ssd" else (
+                    TOL[dtype] * float(want.float().abs().max()), 0.0)
                 err = float((got.float() - want.float()).abs().max())
                 ok = torch.allclose(got.float(), want.float(), atol=atol,
                                     rtol=rtol)
@@ -862,6 +957,7 @@ def suite_phase(hw, timer, device):
                 assumed_ctas_per_sm=hw.warps_per_sm * hw.warp_size
                 // plan.threads,
                 max_abs_err=err, atol=atol, rtol=rtol,
+                launches=case_launches[case, policy],
                 kernel_ms=timer.ms(call, head_start=True),
                 kernel_runs=timer.last_runs,
                 plain_ms=timer.ms(plain, head_start=True),
@@ -930,12 +1026,25 @@ ENGINE_RUNS = {
 }
 
 
+#: mamba2-1.3b runs on the mix's first requests: label -> prefill chunk.
+#: The ssm path launches no kernel of the port (its prefill is the plain
+#: ``ssd_chunked``, as the reference's is jnp), so every count stays 0
+MAMBA_RUNS = {"mamba2": "auto", "mamba2_whole": None}
+#: requests of the mix the mamba2 runs serve: on all 12 (3,262 prompt
+#: tokens; the chunked prefill is a 48-layer decode step a prompt
+#: token) the two runs took 238 s and the smoke 772 s; the first 4 hold
+#: 1,389 prompt tokens
+MAMBA_REQUESTS = 4
+
+
 def launch_counters():
-    """kernel name -> (wrapper, attribute) of its launch count."""
+    """kernel name -> (wrapper, attribute) of its launch count: the six
+    serving kernels and the ssd, which no engine path may launch."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_gather as pg
+    from repro_torch.kernels import ssd
 
     return {"paged_decode_attention": (pda.paged_decode_attention,
                                        "launches"),
@@ -944,93 +1053,131 @@ def launch_counters():
             "flash_attention": (fa.flash_attention, "launches"),
             "decode_attention": (da.decode_attention, "launches"),
             "paged_gather": (pg.paged_gather, "launches"),
-            "paged_dequant_gather": (pg.paged_dequant_gather, "launches")}
+            "paged_dequant_gather": (pg.paged_dequant_gather, "launches"),
+            "ssd": (ssd.ssd, "launches")}
+
+
+def engine_run(label, eng, reqs, opts, expected):
+    """Serve ``reqs`` with the counts reset just before and read just
+    after; the path's own kernels must be above 0, every other 0."""
+    counters = launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    report, _ = serve(eng, reqs)
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    s = report.summary
+    run = dict(
+        arch=eng.cfg.name, options=opts, completed=s.n_completed,
+        output_tokens=s.output_tokens, tokens_per_s=s.tokens_per_s,
+        wall_s=wall, ttft_p50_ms=s.ttft_p50_s * 1e3,
+        decode_tick_p50_ms=s.decode_tick_p50_s * 1e3,
+        decode_ticks=s.decode_steps, prefill_s=s.prefill_s,
+        decode_s=s.decode_s,
+        paged_decode_block=report.paged_decode_blocks,
+        decode_block=report.decode_blocks,
+        prefill_tiles={k: list(v) for k, v in report.prefill_tiles.items()},
+        launches=launches)
+    emit("engine", run=label, **run)
+    if s.n_completed != len(reqs):
+        raise AssertionError(f"{label}: {s.n_completed}/{len(reqs)} "
+                             f"completed")
+    for k, n in launches.items():
+        if k in expected and n <= 0:
+            raise AssertionError(f"{label}: {k} was never launched on its "
+                                 f"path")
+        if k not in expected and n != 0:
+            raise AssertionError(f"{label}: {k} launched {n} times on a "
+                                 f"path that must not use it")
+    return run
 
 
 def engine_phase(device):
+    """Returns the runs, the params of each arch (for the profile) and
+    the requests."""
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine
 
-    counters = launch_counters()
     vocab = get_config("smollm-135m").vocab_size
     reqs = requests(12, 16, 600, 32, vocab, SEED)
     runs = {}
-    params = None
+    params = {"smollm-135m": None, "mamba2-1.3b": None}
     for label, (opts, chunk, expected) in ENGINE_RUNS.items():
         eng = ServeEngine("smollm-135m", reduced=False, slots=8,
-                          max_len=1024, prefill_chunk=chunk, params=params,
-                          seed=SEED, device=device, **opts)
-        params = eng.params
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        t0 = time.perf_counter()
-        report, _ = serve(eng, reqs)
-        wall = time.perf_counter() - t0
-        launches = {k: getattr(fn, attr) for k, (fn, attr) in
-                    counters.items()}
-        s = report.summary
-        runs[label] = dict(
-            options=opts, completed=s.n_completed,
-            output_tokens=s.output_tokens, tokens_per_s=s.tokens_per_s,
-            wall_s=wall, ttft_p50_ms=s.ttft_p50_s * 1e3,
-            decode_tick_p50_ms=s.decode_tick_p50_s * 1e3,
-            decode_ticks=s.decode_steps, prefill_s=s.prefill_s,
-            decode_s=s.decode_s,
-            paged_decode_block=report.paged_decode_blocks,
-            decode_block=report.decode_blocks,
-            prefill_tiles={k: list(v) for k, v in
-                           report.prefill_tiles.items()},
-            launches=launches)
-        emit("engine", run=label, **runs[label])
-        if s.n_completed != len(reqs):
-            raise AssertionError(f"{label}: {s.n_completed}/{len(reqs)} "
-                                 f"completed")
-        for k, n in launches.items():
-            if k in expected and n <= 0:
-                raise AssertionError(f"{label}: {k} was never launched on "
-                                     f"its path")
-            if k not in expected and n != 0:
-                raise AssertionError(f"{label}: {k} launched {n} times on "
-                                     f"a path that must not use it")
+                          max_len=1024, prefill_chunk=chunk,
+                          params=params["smollm-135m"], seed=SEED,
+                          device=device, **opts)
+        params["smollm-135m"] = eng.params
+        runs[label] = engine_run(label, eng, reqs, opts, expected)
+    # the same token lists (drawn below smollm's vocabulary, so inside
+    # mamba2's 50,280)
+    for label, chunk in MAMBA_RUNS.items():
+        eng = ServeEngine("mamba2-1.3b", reduced=False, slots=8,
+                          max_len=1024, prefill_chunk=chunk,
+                          params=params["mamba2-1.3b"], seed=SEED,
+                          device=device)
+        params["mamba2-1.3b"] = eng.params
+        runs[label] = engine_run(label, eng, reqs[:MAMBA_REQUESTS],
+                                 {"prefill_chunk": chunk}, set())
     return runs, params, reqs
 
 
-PROFILE_RUNS = {"chunked": {}, "int8": dict(kv_dtype="int8")}
+#: profiled runs: label -> (arch, engine options, requests of the mix).
+#: mamba2 is cut to the mix's first request: on its 4 (1,389 prompt
+#: tokens, ~4.1M device kernels, each prompt token a 48-layer decode
+#: step) the phase took 329 s and the smoke 694 s
+PROFILE_RUNS = {"chunked": ("smollm-135m", {}, 4),
+                "int8": ("smollm-135m", dict(kv_dtype="int8"), 4),
+                "mamba2": ("mamba2-1.3b", {}, 1)}
+
+
+def device_kernels(prof):
+    """(name, device ms, count) per kernel name, largest first, summed
+    from the profiler's raw device events (``key_averages`` takes ~150
+    us an event to build, minutes for the mamba2 trace; on device
+    activities self time is the duration)."""
+    from torch.autograd import DeviceType
+
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        ms, n = agg.get(e.name(), (0.0, 0))
+        agg[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in agg.items() if ms > 0),
+                  key=lambda r: -r[1])
 
 
 def profile_phase(device, params, reqs):
-    """Where the device time of the chunked path goes, with the fp and
-    the int8 pool: the first requests of the mix served once unprofiled
-    (wall time) and once under torch.profiler tracing the device only (a
-    full trace of the whole mix takes minutes to parse), self device
-    time summed per kernel name."""
-    from torch.autograd import DeviceType
+    """Where the device time of the chunked path goes (smollm with the fp
+    and the int8 pool, and mamba2): the first requests of the mix served
+    once unprofiled (wall time) and once under torch.profiler tracing
+    the device only, device time summed per kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeEngine
 
-    def engine(opts):
-        return ServeEngine("smollm-135m", reduced=False, slots=8,
-                           max_len=1024, params=params, seed=SEED,
-                           device=device, **opts)
+    mix = reqs
+    for label, (arch, opts, n_reqs) in PROFILE_RUNS.items():
+        reqs = mix[:n_reqs]
 
-    reqs = reqs[:4]
-    for label, opts in PROFILE_RUNS.items():
-        eng = engine(opts)
+        def engine():
+            return ServeEngine(arch, reduced=False, slots=8, max_len=1024,
+                               params=params[arch], seed=SEED,
+                               device=device, **opts)
+
+        eng = engine()
         t0 = time.perf_counter()
         report, _ = serve(eng, reqs)
         wall = time.perf_counter() - t0
-        eng = engine(opts)
+        eng = engine()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             serve(eng, reqs)
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
+        rows = device_kernels(prof)
         busy_ms = sum(r[1] for r in rows)
-        emit("profile", run=label, options=opts, requests=len(reqs),
-             wall_s=wall, device_busy_ms=busy_ms,
+        emit("profile", run=label, arch=arch, options=opts,
+             requests=len(reqs), wall_s=wall, device_busy_ms=busy_ms,
              idle_share=1.0 - busy_ms / 1e3 / wall,
              decode_ticks=report.summary.decode_steps,
              decode_tick_p50_ms=report.summary.decode_tick_p50_s * 1e3,
@@ -1188,7 +1335,8 @@ def main() -> int:
             ("stencil_rows", "gaussian_blur", (4096, 4096, 5), "float32"),
             ("stencil_cols", "gaussian_blur", (4096, 4096, 5), "float32"),
             ("nn_search", "nn_search", (4096, 65536, 128), "float32"),
-            ("gcn_agg", "gcn_aggregate", PUBMED, "float32")):
+            ("gcn_agg", "gcn_aggregate", PUBMED, "float32"),
+            ("ssd", "ssd", MAMBA2_LAYER, "float32")):
         e = sres[op, shape, dt, "auto"]
         row = {"max_abs_err": e["max_abs_err"], "ms": e["kernel_ms"],
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
@@ -1203,6 +1351,8 @@ def main() -> int:
             row["shape"] += f", {p} pass"
         elif name == "gcn_agg":
             row["shape"] += ", the op: occupancy pass + kernel"
+        elif name == "ssd":
+            row["shape"] += f", chunk {e['plan']['legal_chunk']}"
         src = "stencil" if name.startswith("stencil_") else name
         summary.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{src}.cu",

@@ -1,7 +1,7 @@
 """Model configuration schema and the registry of served architectures.
 
 A trimmed copy of the JAX package's ``configs/base.py``: only the fields
-the dense serving path reads.  The port keeps its own copy so it imports
+the served families read (dense and, from the Mamba-2 slice, ssm).  The port keeps its own copy so it imports
 nothing of the JAX package.  ``reduced()`` yields the scaled-down variant
 the CPU tests run.
 """
@@ -17,7 +17,8 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "dense" is served by the port
+    family: str                      # dense | ssm served; moe, hybrid,
+                                     # encdec, vlm: ROADMAP queue 1 item 9
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,6 +28,14 @@ class ModelConfig:
     head_dim: Optional[int] = None   # default d_model // num_heads
     rope_theta: float = 10_000.0
     mlp_act: str = "swiglu"
+
+    # SSM (Mamba-2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_conv: int = 4
+
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
@@ -37,13 +46,27 @@ class ModelConfig:
                                self.d_model // max(self.num_heads, 1))
 
     @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def heads_per_group(self) -> int:
         """Query heads sharing one KV head (GQA's R)."""
         return self.num_heads // max(self.num_kv_heads, 1)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
-        same numbers as the JAX package's ``reduced()`` for dense)."""
+        same numbers as the JAX package's ``reduced()`` for dense and
+        ssm)."""
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
@@ -54,6 +77,8 @@ class ModelConfig:
             d_ff=256,
             vocab_size=512,
             head_dim=32,
+            ssm_state=min(self.ssm_state, 16),
+            ssm_head_dim=16,
         )
 
 

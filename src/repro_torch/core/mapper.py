@@ -7,7 +7,7 @@ multiprocessors x resident warps per SM x the 32 lanes of a warp
 tile and VMEM rules when a plan is legalised.
 
 **The paper's kernel suite** (vecadd, saxpy, matmul, rmsnorm, gaussian
-blur, nn_search, gcn_aggregate) runs under
+blur, nn_search, gcn_aggregate; and Mamba-2's ssd) runs under
 three mapping policies, which decide two counts: how many work items each
 hardware thread loops over (``lws``) and how many threads are launched.
 
@@ -76,6 +76,17 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     lane holds ``fpl`` accumulators (a power of two up to 16), a feature
     tile is ``32 fpl`` wide and ``grid`` is (node blocks, feature
     tiles): at F = 1,433 (Cora) three tiles of 512.
+  * ssd (Mamba-2's chunked scan, ``models.ssm.plan_ssd_chunk``): a
+    work item is one time step, ``gws = L``; the JAX planner's ``cores x
+    64 pipeline slots`` is, on a GPU, SMs x resident warps per SM (the
+    row planners' ``hp``, 8,448 on an H100; ``hw=None`` counts one
+    core, 64, as the JAX model calls it).  ``lws`` sets the chunk: the
+    power of two ``2^bit_length(lws)``, in [64, 512], halved while it
+    does not divide L.  NAIVE plans 64 and FIXED 256; AUTO plans 64 for
+    any L up to 63 x 8,448 = 532,224 steps on an H100, the same as
+    NAIVE, and 128 from there.  The kernel's grid is one CTA per head
+    whatever the chunk (64 at mamba2-1.3b): the chunk only trades the
+    c x c quadratic work against the sequential chunk count.
 
 ``rounds`` counts waves of CTAs at full residency (``warps_per_sm / 8``
 CTAs of 8 warps on each SM); the matmul micro-tile's registers may

@@ -2,7 +2,10 @@
 
 ``decode_attention`` is the suite's entry point to the contiguous decode
 kernel the engine's unpaged and gather-then-sweep paths run; its
-``block_s`` comes from ``plan_cache_block`` under the policy.
+``block_s`` comes from ``plan_cache_block`` under the policy.  ``ssd``
+(Mamba-2's chunked scan) takes its chunk from ``chunk=`` or
+``models.ssm.plan_ssd_chunk(L, hw)`` and ignores ``policy=``, as the JAX
+package's ``ops.ssd`` does.
 
 Each op resolves its launch at call time from the hardware parameters
 (``hw`` defaults to ``detect()`` of the inputs' device: the paper's
@@ -40,11 +43,12 @@ from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import nn_search as _nn_search
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import saxpy as _saxpy
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import stencil as _stencil
 from repro_torch.kernels import vecadd as _vecadd
 
 __all__ = ["vecadd", "saxpy", "matmul", "rmsnorm", "gaussian_blur",
-           "nn_search", "gcn_aggregate", "decode_attention",
+           "nn_search", "gcn_aggregate", "decode_attention", "ssd",
            "set_default_policy", "policy"]
 
 _DEFAULT_POLICY: MappingPolicy = MappingPolicy.AUTO
@@ -147,3 +151,15 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
                                    clen.reshape(-1).contiguous(),
                                    block_s=block, scale=scale)
     return out.reshape(q.shape)
+
+
+def ssd(x, a, b, c, *, chunk=None, policy=None,
+        hw: Optional[GpuParams] = None):
+    """Mamba-2 SSD: x (L, H, P), a (L, H), b/c (L, G, N) -> (L, H, P).
+    ``policy`` is ignored: the chunk is ``chunk`` or planned by
+    ``plan_ssd_chunk(L, hw)`` (the mapper's AUTO), then capped at L and
+    halved until it divides L.  (On a platform without its kernel the
+    JAX ``ops.ssd`` calls ``ref.ssd_chunked(chunk=chunk or 128)`` with no
+    halving; this follows its kernel path's rules.)"""
+    del policy
+    return _ssd.ssd(x, a, b, c, chunk=chunk, hw=_hw(x, hw))

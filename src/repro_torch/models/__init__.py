@@ -1,4 +1,4 @@
-"""Dense decoder-only model over the hand-written kernels."""
+"""The served models (dense decoder, Mamba-2) over the hand-written kernels."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -9,6 +9,10 @@ stacked on a leading axis):
     blocks.mlp.{w_gate, w_up (L, D, F), w_down (L, F, D)}
     ln_f (D,)
 
+and for the ssm family (Mamba-2) ``blocks.ln (L, D)`` and ``blocks.ssm``
+(``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``,
+``out_norm``, ``out_proj``, each with a leading layer axis),
+
 so ``weights.params_from_jax`` is a plain conversion and the tests hold
 the port against the reference on the same weights.
 """
@@ -26,14 +30,20 @@ __all__ = ["param_shapes", "init_params", "rmsnorm", "embed", "unembed",
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The param tree as {name: (shape, init, scale)}; ``init`` is
-    "normal" or "zeros", ``scale`` None means min(0.02, fan_in^-0.5)."""
+    "normal", "zeros" or "ones", ``scale`` None means min(0.02,
+    fan_in^-0.5)."""
     d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     n, f = cfg.num_layers, cfg.d_ff
-    if cfg.family != "dense" or cfg.mlp_act != "swiglu" \
-            or not cfg.tie_embeddings:
+    served = cfg.tie_embeddings and (
+        cfg.family == "ssm"
+        or (cfg.family == "dense" and cfg.mlp_act == "swiglu"))
+    if not served:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense swiglu family with tied "
-            f"embeddings only; other families are queued for later slices")
+            f"{cfg.name}: the port serves the dense swiglu and the ssm "
+            f"families with tied embeddings; moe, hybrid, encdec and vlm "
+            f"come with ROADMAP queue 1 item 9")
+    if cfg.family == "ssm":
+        return _ssm_shapes(cfg)
     return {
         "embed": {"tok": ((cfg.vocab_size, d), "normal", 0.02)},
         "blocks": {
@@ -51,19 +61,44 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
 
 
+def _ssm_shapes(cfg: ModelConfig) -> dict:
+    """The stacked Mamba-2 tree (the JAX ``ssm_model_specs``)."""
+    d, di, L = cfg.d_model, cfg.d_inner, cfg.num_layers
+    g, n, hh = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * g * n
+    return {
+        "embed": {"tok": ((cfg.vocab_size, d), "normal", 0.02)},
+        "blocks": {
+            "ln": ((L, d), "zeros", None),
+            "ssm": {
+                "in_proj": ((L, d, 2 * di + 2 * g * n + hh), "normal", None),
+                "conv_w": ((L, cfg.ssm_conv, conv_ch), "normal", None),
+                "conv_b": ((L, conv_ch), "zeros", None),
+                "a_log": ((L, hh), "zeros", None),
+                "d_skip": ((L, hh), "ones", None),
+                "dt_bias": ((L, hh), "zeros", None),
+                "out_norm": ((L, di), "zeros", None),
+                "out_proj": ((L, di, d), "normal", None),
+            },
+        },
+        "ln_f": ((d,), "zeros", None),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype, device) -> dict:
     """Random params from ``generator`` with the JAX package's spec
     shapes and scales: ``normal x min(0.02, fan_in^-0.5)`` with fan_in
-    the second-to-last dim of the stacked shape, ``tok`` at 0.02, norms
-    zero.  Drawn in float32 on the CPU (the same numbers on every
-    device), then cast and moved."""
+    the second-to-last dim of the stacked shape, ``tok`` at 0.02, the
+    ``zeros`` and ``ones`` kinds constant.  Drawn in float32 on the CPU
+    (the same numbers on every device), then cast and moved."""
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
         shape, init, scale = spec
-        if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
+        if init in ("zeros", "ones"):
+            fill = torch.zeros if init == "zeros" else torch.ones
+            return fill(shape, dtype=dtype, device=device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = scale if scale is not None else min(0.02, fan_in ** -0.5)
         w = torch.randn(shape, generator=generator, dtype=torch.float32)

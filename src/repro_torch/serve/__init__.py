@@ -1,4 +1,4 @@
-"""Continuous-batching serving over the paged KV pool (dense path)."""
+"""Continuous-batching serving over the paged KV pool (dense and ssm)."""
 from repro_torch.serve.adapters import FamilyCacheAdapter, get_adapter
 from repro_torch.serve.buckets import (Bucket, BucketPlan, BucketRouter,
                                        BucketSpec)

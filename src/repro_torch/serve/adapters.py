@@ -1,10 +1,16 @@
-"""CacheAdapter — the dense family's face of the ragged decode pool.
+"""CacheAdapter — each served family's face of the ragged decode pool.
 
-The dense subset of the JAX package's ``serve/adapters.py`` (no other
-families, no radix-resumed writes).  The engine keeps one cache dict for
-the pool — K/V (L, slots, T, G, hd) plus a per-row ``pos`` vector, and
-for the int8 pool per-(physical block, KV group) scales — and needs four
-operations on it:
+The dense and ssm subset of the JAX package's ``serve/adapters.py`` (no
+radix-resumed writes).  One generic ``FamilyCacheAdapter`` serves both,
+because the families differ only in which cache keys carry a time axis
+(``length_keys``) and whether prompt padding is safe
+(``prefill_buckets``): dense keeps K/V (L, slots, T, G, hd) — for the
+int8 pool with per-(physical block, KV group) scales — and a padded
+prompt is masked by each row's ``pos``; ssm keeps a length-free
+recurrent state and conv window, which padding would corrupt, so its
+prompts prefill at their exact length.  moe, hybrid, encdec and vlm come
+with ROADMAP queue 1 item 9.  The engine keeps one cache dict for the
+pool plus a per-row ``pos`` vector, and needs four operations on it:
 
   ``init_pool``    build the pool cache with a per-row ``pos`` vector
   ``prefill_len``  how long to pad a prompt before prefill
@@ -12,8 +18,8 @@ operations on it:
   ``grow``         pad the pool's time axis to a longer bucket
 
 Unlike the JAX package, ``write_row`` updates the pool IN PLACE
-(``index_put_`` on the flat view, slice assignment on a contiguous row)
-and ``grow`` allocates the longer arrays once and copies the old rows in.
+(``index_put_`` on the flat view, slice assignment on a row) and
+``grow`` allocates the longer arrays once and copies the old rows in.
 """
 
 from __future__ import annotations
@@ -31,16 +37,25 @@ __all__ = ["FamilyCacheAdapter", "ADAPTERS", "get_adapter"]
 
 @dataclasses.dataclass(frozen=True)
 class FamilyCacheAdapter:
-    """``CacheAdapter`` over dict-of-(L, batch, T, ...) caches.
+    """``CacheAdapter`` over dict-of-(L, batch, ...) caches.
 
     Example::
 
         adapter = get_adapter("dense")
         cache = adapter.init_pool(model, slots=4, kv_len=64)
+        ssm = FamilyCacheAdapter("ssm", length_keys=(),
+                                 prefill_buckets=False)
     """
 
     family: str
     length_keys: tuple[str, ...] = ("k", "v")
+    prefill_buckets: bool = True
+
+    @property
+    def grows_with_len(self) -> bool:
+        """False for length-free (recurrent) caches: growth is block
+        accounting only."""
+        return bool(self.length_keys)
 
     def init_pool(self, model, slots: int, kv_len: int, *,
                   kv_dtype: str = "fp32", block_size: int = 16) -> dict:
@@ -48,11 +63,13 @@ class FamilyCacheAdapter:
         ``kv_dtype="int8"`` allocates the K/V as int8 codes and adds
         ``k_scale``/``v_scale`` (L, slots, kv_len / block_size, G) f32,
         all at the ZERO dead-block sentinel: no block carries a scale
-        until a tenant writes one."""
-        spec = kv_dtype_spec(kv_dtype)
+        until a tenant writes one.  A family with no length keys
+        quantises nothing."""
+        quantize = kv_dtype_spec(kv_dtype).quantized and bool(
+            self.length_keys)
         cache = model.init_cache(
-            slots, kv_len, cache_dtype=torch.int8 if spec.quantized else None)
-        if spec.quantized:
+            slots, kv_len, cache_dtype=torch.int8 if quantize else None)
+        if quantize:
             for key in self.length_keys:
                 arr = cache[key]                    # (L, B, T, G, hd)
                 cache[key + "_scale"] = torch.zeros(
@@ -64,8 +81,9 @@ class FamilyCacheAdapter:
 
     def prefill_len(self, prompt_len: int,
                     quantize: Callable[[int], int]) -> int:
-        """Prompt bucket: per-row length masks make padding safe."""
-        return quantize(prompt_len)
+        """Prompt bucket when per-row length masks make padding safe,
+        else the exact length."""
+        return quantize(prompt_len) if self.prefill_buckets else prompt_len
 
     def write_row(self, cache: dict, slot: int, row_cache: dict,
                   prompt_len: int, kv_len: int,
@@ -84,7 +102,12 @@ class FamilyCacheAdapter:
         On the int8 pool (``k_scale``/``v_scale`` present) ``scale_map``
         (the lease's flat physical blocks, logical order) and
         ``page_block`` drive the quantising write (``_quantize_prompt``).
-        The row's ``pos`` becomes the true prompt length."""
+        Keys with no time axis (the ssm state and conv window) land
+        shape-exact in the slot.  The row's ``pos`` becomes the true
+        prompt length."""
+        for key, arr in row_cache.items():
+            if key != "pos" and key not in self.length_keys:
+                cache[key][:, slot] = arr[:, 0].to(cache[key].dtype)
         for key in self.length_keys:
             arr = cache[key]                        # (L, B, T, G, hd)
             n, b = arr.shape[:2]
@@ -154,6 +177,7 @@ class FamilyCacheAdapter:
 
 ADAPTERS: dict[str, FamilyCacheAdapter] = {
     "dense": FamilyCacheAdapter("dense"),
+    "ssm": FamilyCacheAdapter("ssm", length_keys=(), prefill_buckets=False),
 }
 
 
@@ -165,4 +189,5 @@ def get_adapter(family: str) -> FamilyCacheAdapter:
     except KeyError:
         raise NotImplementedError(
             f"no CacheAdapter for family {family!r}; the port serves "
-            f"{tuple(sorted(ADAPTERS))}") from None
+            f"{tuple(sorted(ADAPTERS))}, and moe, hybrid, encdec and vlm "
+            f"come with ROADMAP queue 1 item 9") from None

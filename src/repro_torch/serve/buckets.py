@@ -7,7 +7,9 @@ contiguous decode ``block_s``, the fused paged-decode ``block_s`` and
 the prefill flash tiles — from the port's Eq. 1 mapper (AUTO) over the
 runtime ``GpuParams`` and memoises them per bucket (the tuner cache and
 measured refinement are not ported yet, so a cold bucket is one planner
-call, a warm one a dict hit).
+call, a warm one a dict hit).  An attention-free config (ssm) plans
+none of the three: its plans are ``None`` — mamba2's ``head_dim`` would
+be ``d_model`` = 2048, which no attention kernel takes.
 """
 
 from __future__ import annotations
@@ -127,8 +129,8 @@ class BucketPlan:
     by ``BucketRouter.prefill_tiles``."""
 
     bucket: Bucket
-    decode_block: int
-    paged_decode_block: Optional[int]
+    decode_block: Optional[int]          # None: attention-free
+    paged_decode_block: Optional[int]    # None: unpaged or attention-free
 
 
 @dataclasses.dataclass
@@ -186,24 +188,31 @@ class BucketRouter:
             self.stats.warm += 1
             return hit
         self.stats.cold += 1
-        d, r = self.cfg.head_dim, self.cfg.heads_per_group
-        paged = None if self.page_block is None else plan_paged_block(
-            bucket.kv_len, d, self.page_block, self.hw, heads_per_group=r)
-        plan = BucketPlan(
-            bucket=bucket,
-            decode_block=plan_cache_block(bucket.kv_len, d, self.hw,
-                                          heads_per_group=r),
-            paged_decode_block=paged)
+        if self.cfg.is_attention_free:
+            plan = BucketPlan(bucket, None, None)
+        else:
+            d, r = self.cfg.head_dim, self.cfg.heads_per_group
+            paged = None if self.page_block is None else plan_paged_block(
+                bucket.kv_len, d, self.page_block, self.hw,
+                heads_per_group=r)
+            plan = BucketPlan(
+                bucket=bucket,
+                decode_block=plan_cache_block(bucket.kv_len, d, self.hw,
+                                              heads_per_group=r),
+                paged_decode_block=paged)
         self._plans[bucket.kv_len] = plan
         return plan
 
-    def prefill_tiles(self, prompt_bucket: int) -> tuple[int, int]:
+    def prefill_tiles(self, prompt_bucket: int) -> Optional[tuple[int, int]]:
         """The EXECUTED prefill mapping for one prompt bucket, resolved
-        at the bucket's own (seq, seq) geometry and memoised per length."""
+        at the bucket's own (seq, seq) geometry and memoised per length;
+        ``None`` for attention-free families (no flash sweep to map)."""
         hit = self._prefill_tiles.get(prompt_bucket)
         if hit is not None:
             self.stats.warm += 1
             return hit
+        if self.cfg.is_attention_free:
+            return None
         self.stats.cold += 1
         plan = plan_attention_blocks(prompt_bucket, prompt_bucket,
                                      self.cfg.head_dim, self.hw)

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine — the dense path of the JAX
-package's ``serve/engine.py`` on PyTorch.
+"""Continuous-batching serving engine — the dense and ssm paths of the
+JAX package's ``serve/engine.py`` on PyTorch.
 
   * admitted requests prefill either whole (prompt padded to its bucket,
     true-last-token logits via ``Model.prefill(last_pos=...)``) or, by
@@ -15,7 +15,11 @@ package's ``serve/engine.py`` on PyTorch.
     paged pool as int8 codes with per-(block, KV group) scales, which
     the read dequantises in-kernel;
   * finished requests retire mid-decode and their slot + blocks recycle
-    to the queue head; greedy argmax picks every token.
+    to the queue head; greedy argmax picks every token;
+  * an attention-free family (ssm, Mamba-2) keeps a length-free state
+    per slot: its prompts prefill at their exact length, its chunked
+    prefill keeps the configured width ("auto" is 32: there are no
+    flash tiles), and the pool's growth is block accounting only.
 
 The engine's clock is injectable; when the pool is idle it fast-forwards
 to the next synthetic arrival, so open-loop traffic never sleeps.
@@ -93,8 +97,9 @@ class ServeEngine:
     no CUDA device is present; ``device="cpu"`` runs the kernels' plain
     versions.  ``params`` (the model's param dict) defaults to random
     weights from ``seed``.  ``prefill_chunk``: "auto" (the default)
-    chunks prefill at the bucket's flash ``block_q``, an int fixes the
-    width, ``None`` prefills whole prompts.  ``paged`` (default True)
+    chunks prefill at the bucket's flash ``block_q`` (32 tokens for an
+    attention-free family), an int fixes the width, ``None`` prefills
+    whole prompts.  ``paged`` (default True)
     keeps the KV pool in leased blocks, ``fused_decode`` (default True)
     reads them inside the paged sweep instead of gathering first, and
     ``kv_dtype`` ("fp32", the model's dtype, or "int8", which needs the
@@ -217,7 +222,8 @@ class ServeEngine:
         if self.paged and new_len % self._block_size:
             raise ValueError(f"paged pool length {new_len} not a multiple "
                              f"of block_size={self._block_size}")
-        self._cache = self.adapter.grow(self._cache, new_len)
+        if self.adapter.grows_with_len:
+            self._cache = self.adapter.grow(self._cache, new_len)
         self.pool.grow(new_len)
         self.pool_growths += 1
         if self.verbose:
@@ -248,9 +254,10 @@ class ServeEngine:
         """Land a prefilled row in the pool: through the request's page
         map (and, on the int8 pool, its scale map) when paged, publishing
         its block-table row to the decode step; into the slot's row
-        otherwise."""
+        otherwise (and always for a length-free cache, which has no
+        blocks to map)."""
         pm = sm = None
-        if self.paged:
+        if self.paged and self.adapter.grows_with_len:
             self._tables[req.slot] = self.pool.block_table(req.rid)
             self._tables_dev = None
             pm = self._page_map(blocks, req.prompt_len)
@@ -286,8 +293,7 @@ class ServeEngine:
         pb = self.adapter.prefill_len(plen, self.router.quantize_prompt)
         toks = np.zeros((1, pb), np.int64)
         toks[0, :plen] = req.prompt
-        tiles = self.router.prefill_tiles(pb)
-        self.executed_prefill_tiles[pb] = tiles
+        tiles = self._prefill_tiles(pb)
         t0 = time.perf_counter()
         logits, rcache = self.model.prefill(
             self.params, torch.from_numpy(toks).to(self.device), pb,
@@ -300,26 +306,40 @@ class ServeEngine:
         self.metrics.on_admit(req.rid, now)
         self.metrics.on_first_token(req.rid, self._now())
 
-    def _chunk_size(self, tiles: tuple) -> int:
+    def _prefill_tiles(self, pb: int) -> Optional[tuple]:
+        """The prompt bucket's flash tiles (None for attention-free
+        families), recorded as executed."""
+        tiles = self.router.prefill_tiles(pb)
+        if tiles is not None:
+            self.executed_prefill_tiles[pb] = tiles
+        return tiles
+
+    def _chunk_size(self, tiles: Optional[tuple]) -> int:
         if isinstance(self._chunk_cfg, int):
             return max(1, self._chunk_cfg)
         # "auto": the bucket's flash block_q — the quantum the planner
-        # decided a prefill sweep advances in
-        return int(tiles[0])
+        # decided a prefill sweep advances in (32 for attention-free
+        # families, which have no tiles)
+        return int(tiles[0]) if tiles else 32
 
     def _admit_chunked(self, req: Request, now: float) -> None:
         """Seat the request (slot + blocks leased) but run its prefill
         chunk by chunk between decode ticks.  Its block-table row is NOT
         published until the row lands (``_finish_chunked``): a recycled
         slot's stale ``pos`` keeps advancing each tick, and an unpublished
-        (-1) row writes nothing."""
+        (-1) row writes nothing.
+
+        A length-free row cache (ssm) keeps the configured chunk width;
+        a length-bound one clamps it to the row."""
         pb = self.adapter.prefill_len(req.prompt_len,
                                       self.router.quantize_prompt)
-        tiles = self.router.prefill_tiles(pb)
-        self.executed_prefill_tiles[pb] = tiles
+        tiles = self._prefill_tiles(pb)
+        chunk = self._chunk_size(tiles)
+        if self.adapter.grows_with_len:
+            chunk = min(chunk, pb)
         task = _ChunkTask(req=req, cache=self.model.init_cache(1, pb),
                           toks=np.asarray(req.prompt, np.int64), pb=pb,
-                          tiles=tiles, chunk=min(self._chunk_size(tiles), pb),
+                          tiles=tiles, chunk=chunk,
                           blocks=self.pool.lease(req.rid).blocks)
         self._chunk_tasks.append(task)
         self._prefilling[req.rid] = task
@@ -363,7 +383,7 @@ class ServeEngine:
     def _decode_tick(self) -> None:
         plan = self._current_plan()
         kw = {}
-        if self.paged:
+        if self.paged and self.adapter.grows_with_len:
             if self._tables_dev is None:
                 # tables change only at admit/retire: upload on change
                 self._tables_dev = torch.from_numpy(self._tables).to(
@@ -377,7 +397,7 @@ class ServeEngine:
         if kw.get("paged_decode_block") is not None:
             self.executed_paged_blocks[self.pool.kv_len] = \
                 plan.paged_decode_block
-        else:
+        elif plan.decode_block is not None:
             self.executed_decode_blocks[self.pool.kv_len] = plan.decode_block
         t0 = time.perf_counter()
         logits, self._cache = self.model.decode_step(
