@@ -7,10 +7,14 @@ Phases, each printing one JSON line:
   env      torch/CUDA/nvcc versions, the card's name and power limit, the
            GpuParams ``detect()`` read and Eq. 1's ``hp``;
   build    nvcc seconds for every kernel in ``src/repro_torch/csrc``
-           (all compiled in parallel) and each one's ptxas report;
+           (all compiled in parallel) and, per source, each kernel
+           entry function's registers and spills from ptxas;
   kernels  each serving kernel against its plain PyTorch version on the
            same inputs at smollm-135m's serving shapes (8 rows, a pool of
-           1024, the ragged lengths of ``decode_case``), in float32 (atol
+           1024, the ragged lengths of ``decode_case``; flash at a 512
+           prompt causal and non-causal, a 64-row chunk at q_offset 448,
+           and a 512 prompt at qwen3-8b's heads, head_dim 128, bf16
+           only), in float32 (atol
            = rtol = 2e-5: summation order only) and bfloat16 (atol = rtol
            = 1.6e-2: two bf16 ulps near 1); the two gathers bit for bit;
            the int8 decode and dequant gather over int8 codes with random
@@ -26,8 +30,13 @@ Phases, each printing one JSON line:
            (naive, fixed, auto; for ssd the chunk
            ``plan_ssd_chunk(L, hw, policy)``) at the cases of
            ``SUITE_CASES``: each op driven once per policy with its
-           launch counts reset just before and read just after (all nine
-           kernels' must be above 0); then per case and policy the plan,
+           launch counts reset just before and read just after (all ten
+           counts must be above 0; the matmul's two routes count apart:
+           every bf16 case that TMA can take must launch the tensor-core
+           kernel once, and every f32 case and the bf16 case of N = 1532
+           the CUDA-core kernel once); then per case and
+           policy the plan (for matmul its route, both counts and the
+           host's time to enqueue a call),
            the launches of the case's own drive, the resident CTAs per SM
            that the CUDA runtime reports beside the plan's full-residency
            assumption, the error against the plain version
@@ -198,9 +207,12 @@ def decode_case(cfg, plan_block, device, dtype):
                 page_block=pb, block_s=plan_block)
 
 
-def flash_case(cfg, sq, sk, q_offset, tiles, device, dtype):
+def flash_case(cfg, sq, sk, q_offset, tiles, device, dtype, causal=True,
+               heads=None):
+    """``heads`` (G, R, D) overrides the config's (a head_dim it does not
+    have)."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + sq)
-    g, r, d = cfg.num_kv_heads, cfg.heads_per_group, cfg.head_dim
+    g, r, d = heads or (cfg.num_kv_heads, cfg.heads_per_group, cfg.head_dim)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen).to(device=device,
@@ -208,7 +220,7 @@ def flash_case(cfg, sq, sk, q_offset, tiles, device, dtype):
 
     return dict(q=rand(1, sq, g, r, d), k=rand(1, sk, g, d),
                 v=rand(1, sk, g, d), block_q=tiles[0], block_k=tiles[1],
-                q_offset=q_offset)
+                q_offset=q_offset, causal=causal)
 
 
 def decode_bound(case, hw):
@@ -285,7 +297,8 @@ def flash_bound(case, hw):
     q, k = case["q"], case["k"]
     b, sq, g, r, d = q.shape
     sk, off = k.shape[1], case["q_offset"]
-    pairs = sum(min(sk, i + off + 1) for i in range(sq))
+    pairs = sum(min(sk, i + off + 1) for i in range(sq)) \
+        if case["causal"] else sq * sk
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * es
     flops = 4 * pairs * b * g * r * d
@@ -311,6 +324,8 @@ def sdpa_call(case):
     qh = q.reshape(b, sq, g * r, d).transpose(1, 2)
     kh = k.repeat_interleave(r, dim=2).transpose(1, 2)
     vh = v.repeat_interleave(r, dim=2).transpose(1, 2)
+    if not case["causal"]:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh)
     if off == 0 and sq == sk:
         return lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                       is_causal=True)
@@ -366,16 +381,18 @@ def kernels_phase(cfg, hw, timer, device):
                                    heads_per_group=cfg.heads_per_group)
     p512 = plan_attention_blocks(512, 512, cfg.head_dim, hw)
     tiles = (p512.block_q, p512.block_k)
+    p128 = plan_attention_blocks(512, 512, 128, hw)
+    tiles128 = (p128.block_q, p128.block_k)
     results = {}
 
     def measure(name, fn, case, bound_fn, library, exact=False,
-                head_start=False):
-        """Kernel vs plain in f32 and bf16 (``exact``: bit for bit), then
-        bf16 times (``head_start`` for microsecond kernels, see
+                head_start=False, dtypes=(torch.float32, torch.bfloat16)):
+        """Kernel vs plain in each of ``dtypes`` (``exact``: bit for bit),
+        then bf16 times (``head_start`` for microsecond kernels, see
         ``Timer.ms``); ``case(dtype)`` builds the inputs, its ``*_bytes``
         keys are bookkeeping, not arguments."""
         entry = {"max_abs_err": {}}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             c = dict(case(dtype))
             args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
             got = fn(**args)
@@ -427,6 +444,18 @@ def kernels_phase(cfg, hw, timer, device):
                            (chunk_tiles.block_q, chunk_tiles.block_k),
                            device, dt),
                        flash_bound, sdpa_call)),
+        dict(shape=f"prompt 512, non-causal, tiles {tiles}",
+             **measure("flash_attention", flash_attention,
+                       lambda dt: flash_case(cfg, 512, 512, 0, tiles, device,
+                                             dt, causal=False),
+                       flash_bound, sdpa_call)),
+        # qwen3-8b's attention heads (8 KV groups x 4, head_dim 128); the
+        # f32 kernel is built for head_dim 64 only, so bf16 alone
+        dict(shape=f"prompt 512, G 8, R 4, head_dim 128, tiles {tiles128}",
+             **measure("flash_attention", flash_attention,
+                       lambda dt: flash_case(cfg, 512, 512, 0, tiles128,
+                                             device, dt, heads=(8, 4, 128)),
+                       flash_bound, sdpa_call, dtypes=(torch.bfloat16,))),
     ]
     results["paged_decode_attention_int8"] = [dict(
         shape=f"slots 8, pool 1024, block_s {block_s}, int8 codes, q/out "
@@ -475,7 +504,8 @@ BLUR_SIGMA = 1.0
 # (op, shape, dtype): vectors under, at (hp, filled in at run time) and
 # over hp; smollm-135m's decode-row MLP projection (m, n, k) = (8 slots,
 # d_ff, d_model) and its decode rows (8, d_model); the paper's sgemm
-# size and a long-prompt norm.  The atypical kernels: the blur (h, w,
+# size and a long-prompt norm; a bf16 projection of 1532 columns (N not a
+# multiple of 8: TMA cannot take it, so bf16 runs the CUDA-core route).  The atypical kernels: the blur (h, w,
 # ksize) of 256^2 (under hp) and of a 16-megapixel frame (62x hp) with
 # halo 2 and 3; nn_search (nq, nr, d) of SIFT-style 128-dim descriptors
 # (gws under hp) and at the workload's default 4 dims (gws ~1.9x hp);
@@ -487,6 +517,7 @@ SUITE_CASES = (
     + [(op, (1 << 26,), BF16) for op in ("vecadd", "saxpy")]
     + [("matmul", s, dt) for s in ((8, 1536, 576), (4096, 4096, 4096))
        for dt in (F32, BF16)]
+    + [("matmul", (8, 1532, 576), BF16)]
     + [("rmsnorm", s, dt) for s in ((8, 576), (16384, 4096))
        for dt in (F32, BF16)]
     + [("gaussian_blur", (256, 256, 5), F32)]
@@ -665,18 +696,19 @@ class SsdPlan:
     smem_bytes: int
 
 
-def suite_plan(op, shape, dtype, policy, hw):
+def suite_plan(op, shape, dtype, policy, hw, ins):
     from repro_torch.core import workload
-    from repro_torch.core.mapper import (plan_gcn, plan_matmul_blocks,
-                                         plan_nn, plan_rows, plan_stencil,
-                                         plan_vector_blocks)
+    from repro_torch.core.mapper import (plan_gcn, plan_nn, plan_rows,
+                                         plan_stencil, plan_vector_blocks)
 
     es = torch.empty((), dtype=dtype).element_size()
     if op in ("vecadd", "saxpy"):
         return plan_vector_blocks(getattr(workload, op)(shape[0], es), hw,
                                   policy)
-    if op == "matmul":
-        return plan_matmul_blocks(*shape, hw, policy)
+    if op == "matmul":              # the plan ops.matmul takes for the inputs
+        from repro_torch.kernels.matmul import plan_for
+
+        return plan_for(*ins, hw, policy)
     if op == "gaussian_blur":
         return plan_stencil(*shape, hw, policy)
     if op == "nn_search":
@@ -857,6 +889,7 @@ def gcn_parts(ins, plan, timer):
 SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
                   "saxpy": "src/repro/kernels/saxpy.py:15",
                   "matmul": "src/repro/kernels/matmul.py:24",
+                  "matmul_tc": "src/repro/kernels/matmul.py:24",
                   "rmsnorm": "src/repro/kernels/rmsnorm.py:19",
                   "stencil_rows": "src/repro/kernels/stencil.py:40",
                   "stencil_cols": "src/repro/kernels/stencil.py:59",
@@ -871,12 +904,18 @@ def suite_phase(hw, timer, device):
     from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
                                      saxpy, ssd, stencil, vecadd)
 
-    counters = {"vecadd": vecadd.vecadd, "saxpy": saxpy.saxpy,
-                "matmul": matmul.matmul, "rmsnorm": rmsnorm.rmsnorm,
-                "stencil_rows": stencil.stencil_rows,
-                "stencil_cols": stencil.stencil_cols,
-                "nn_search": nn_search.nn_search, "gcn_agg": gcn_agg.gcn_agg,
-                "ssd": ssd.ssd}
+    # kernel name -> (wrapper, attribute of its launch count); the two
+    # matmul routes count apart
+    counters = {"vecadd": (vecadd.vecadd, "launches"),
+                "saxpy": (saxpy.saxpy, "launches"),
+                "matmul": (matmul.matmul, "launches"),
+                "matmul_tc": (matmul.matmul, "tc_launches"),
+                "rmsnorm": (rmsnorm.rmsnorm, "launches"),
+                "stencil_rows": (stencil.stencil_rows, "launches"),
+                "stencil_cols": (stencil.stencil_cols, "launches"),
+                "nn_search": (nn_search.nn_search, "launches"),
+                "gcn_agg": (gcn_agg.gcn_agg, "launches"),
+                "ssd": (ssd.ssd, "launches")}
     cases = [(op, (hw.hp(),) if shape == ("hp",) else shape, dtype)
              for op, shape, dtype in SUITE_CASES]
     inputs = suite_inputs(cases, device)
@@ -887,19 +926,28 @@ def suite_phase(hw, timer, device):
     outs, launches, case_launches = {}, {}, {}
 
     def counts():
-        return {k: fn.launches for k, fn in counters.items()}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
     for policy in POLICIES:
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         for case in cases:
             before = counts()
             outs[case, policy] = suite_call(case[0], inputs(*case), policy)()
             case_launches[case, policy] = {
                 k: n - before[k] for k, n in counts().items()
                 if n != before[k]}
+            if case[0] == "matmul":   # bf16 that TMA takes: tensor cores
+                _, n, k = case[1]
+                route = "matmul_tc" if case[2] == BF16 and n % 8 == 0 \
+                    and k % 8 == 0 else "matmul"
+                if case_launches[case, policy] != {route: 1}:
+                    raise AssertionError(
+                        f"suite: matmul {case[1]} {case[2]} {policy} "
+                        f"launched {case_launches[case, policy]}, not one "
+                        f"{route}")
         torch.cuda.synchronize()
-        launches[policy] = {k: fn.launches for k, fn in counters.items()}
+        launches[policy] = counts()
         for k, n in launches[policy].items():
             if n <= 0:
                 raise AssertionError(f"suite: {k} was never launched under "
@@ -917,7 +965,7 @@ def suite_phase(hw, timer, device):
         per_case = blur_pass_yardsticks(ins, timer) \
             if op == "gaussian_blur" else {}
         for policy in POLICIES:
-            plan = suite_plan(op, shape, dtype, policy, hw)
+            plan = suite_plan(op, shape, dtype, policy, hw, ins)
             call = suite_call(op, ins, policy)
             with kernels.force("plain"):
                 want = call()
@@ -945,6 +993,12 @@ def suite_phase(hw, timer, device):
                 extra.update(blur_passes(ins, plan, timer))
             elif op == "gcn_aggregate":
                 extra.update(gcn_parts(ins, plan, timer))
+            elif op == "matmul":
+                launched = case_launches[case, policy]
+                extra.update(route=plan.kernel,
+                             matmul_launches=launched.get("matmul", 0),
+                             matmul_tc_launches=launched.get("matmul_tc", 0),
+                             host_ms=host_ms(call))
 
             def plain():
                 with kernels.force("plain"):
@@ -1282,7 +1336,8 @@ def main() -> int:
     secs = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, per_source=secs,
          ptxas={n: [ln for ln in _build.ptxas_report(n).splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
                 for n in _build.SOURCES})
 
     cfg = get_config("smollm-135m")
@@ -1331,6 +1386,7 @@ def main() -> int:
             ("vecadd", "vecadd", (1 << 26,), "float32"),
             ("saxpy", "saxpy", (1 << 26,), "float32"),
             ("matmul", "matmul", (4096, 4096, 4096), "float32"),
+            ("matmul_tc", "matmul", (4096, 4096, 4096), "bfloat16"),
             ("rmsnorm", "rmsnorm", (16384, 4096), "bfloat16"),
             ("stencil_rows", "gaussian_blur", (4096, 4096, 5), "float32"),
             ("stencil_cols", "gaussian_blur", (4096, 4096, 5), "float32"),
@@ -1353,6 +1409,8 @@ def main() -> int:
             row["shape"] += ", the op: occupancy pass + kernel"
         elif name == "ssd":
             row["shape"] += f", chunk {e['plan']['legal_chunk']}"
+        elif name.startswith("matmul"):
+            row["shape"] += f", {e['route']} route"
         src = "stencil" if name.startswith("stencil_") else name
         summary.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{src}.cu",

@@ -39,6 +39,22 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     4096^2) so AUTO still takes one round; a tile dimension is halved
     while half of it still covers the matrix.  ``bk`` (the K step staged
     per ``__syncthreads``) is 32 for every policy, cut to 16 for K <= 16.
+    That is the CUDA-core plan (``csrc/matmul.cu``: float32, and
+    bfloat16 that TMA cannot take).  With ``kernel="tensor_core"`` the
+    planner plans the tensor-core kernel (``csrc/matmul_tc.cu``:
+    bfloat16, TMA into shared-memory stages, ``wgmma``).
+    ``kernels.matmul.plan_for`` picks the kernel from the operands.
+    ``lws`` is still the outputs one thread owns: a thread of a
+    ``wgmma.m64nBN`` warpgroup holds 64 BN / 128 = BN / 2 f32
+    accumulators (2 rows x BN / 4 columns: ``tm = 2``, ``tn = BN / 4``),
+    so ``BN = 2 lws`` with ``lws`` rounded up to a power of two in [4,
+    128] (BN 8 ... 256).  BM is 128 (two consumer warpgroups, 256
+    threads) or 64 (one, 128 threads) when 64 rows cover M; BN is halved
+    while half still covers N.  ``bk`` is 64 (128 bytes of bf16, one
+    128-byte swizzle row) and ``stages`` as many as fit, from 2 (the
+    least the prefetch ring runs with) up to 4.  At
+    4096^3 AUTO's 63 -> 64 gives a 128 x 128 tile (the same tile as the
+    float32 plan), FIXED's 32 128 x 64 and NAIVE's 1 -> 4 128 x 8.
 
   * gaussian blur (two passes, one plan): a work item is one output
     pixel, ``gws = h w``, ``hp = GpuParams.hp()``; ``lws`` = pixels per
@@ -97,8 +113,9 @@ cache) comes with the tuner slice and raises here.
 **The serving kernels** keep the AUTO seed as their only plan:
 
   * flash ``block_q`` and ``block_k`` are multiples of 16; ``block_q``
-    is at least one warp of rows (the kernel maps one query row to one
-    thread) and at most 128;
+    is 32 to 128 rows (the bf16 kernel gives a warp 16 rows, the f32
+    kernel a thread one row); the staged tiles fit the larger of the two
+    kernels' shared memory, so the plan does not depend on the dtype;
   * the paged sweep's ``block_s`` is a whole number of pages, the
     contiguous sweep's a multiple of 16 (``plan_cache_block`` also
     takes NAIVE and FIXED, for ``kernels.ops.decode_attention``);
@@ -119,8 +136,8 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "BlockPlan", "plan_vector_blocks", "vector_plan_for_block",
            "plan_rows", "row_plan_for_block", "MatmulPlan",
            "plan_matmul_blocks", "matmul_plan_for_blocks",
-           "matmul_smem_bytes", "StencilPlan", "plan_stencil",
-           "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
+           "matmul_smem_bytes", "matmul_tc_smem_bytes", "StencilPlan",
+           "plan_stencil", "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
            "plan_nn", "nn_plan_for_block", "nn_block_r", "nn_smem_bytes",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
            "plan_attention_blocks",
@@ -128,7 +145,7 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "decode_smem_bytes", "decode_block_for", "plan_cache_block",
            "plan_paged_block"]
 
-MAX_BLOCK_Q = 128         # one query row per thread, 128 threads at most
+MAX_BLOCK_Q = 128         # 16 rows a warp (bf16), a row a thread (f32)
 MAX_BLOCK_K = 128
 TILE_QUANTUM = 16         # mma's row/column quantum on Hopper
 
@@ -138,6 +155,9 @@ CTA_THREADS = 256         # every suite kernel's CTA: 8 warps
 MM_THREAD_GRID = 16       # matmul CTA: 16 x 16 threads
 MM_MAX_TILE = 8           # micro-tile side: 8 x 8 = 64 accumulators
 MM_BK = 32
+MM_TC_BK = 64             # tensor-core matmul: 128 bytes of bf16 a K step
+MM_TC_MAX_STAGES = 4
+MM_TC_LWS = (4, 128)      # BN = 2 lws from 8 to 256
 STENCIL_TILE_W = 256      # blur CTA: 256 columns, one per thread
 MAX_KSIZE = 63            # blur taps passed by value (csrc/stencil.cu)
 NN_BLOCK_R = 512          # the JAX default ref block, cut to fit on Hopper
@@ -279,9 +299,12 @@ def row_plan_for_block(tokens: int, hw: GpuParams, lws: int,
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
-    """A CTA of 16 x 16 threads owns a ``bm x bn = (16 tm) x (16 tn)``
-    output tile and sweeps K in ``bk`` steps staged in shared memory;
-    ``grid`` is (n tiles, m tiles)."""
+    """``kernel`` "cuda_core": a CTA of 16 x 16 threads owns a ``bm x bn
+    = (16 tm) x (16 tn)`` output tile and sweeps K in ``bk`` steps staged
+    in shared memory.  ``kernel`` "tensor_core": ``bm / 64`` warpgroups
+    own a ``bm x bn`` tile, a thread ``tm x tn = 2 x bn / 4`` outputs, K
+    swept in ``bk`` = 64 steps through ``stages`` TMA stages.  ``grid``
+    is (n tiles, m tiles)."""
 
     policy: MappingPolicy
     lws: int
@@ -295,6 +318,8 @@ class MatmulPlan:
     rounds: int
     regime: Regime
     smem_bytes: int
+    kernel: str = "cuda_core"
+    stages: int = 0
 
 
 def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
@@ -304,11 +329,21 @@ def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
     return 4 * bk * ((bm + 1) + bn)
 
 
+def matmul_tc_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of ``csrc/matmul_tc.cu``: ``stages`` bf16 A
+    (bm x 64) and B (64 x bn) tiles, two mbarriers a stage (room for 4),
+    and 1024 bytes to align the tiles on the swizzle atom."""
+    return stages * (bm + bn) * MM_TC_BK * 2 + 2 * MM_TC_MAX_STAGES * 8 \
+        + 1024
+
+
 def plan_matmul_blocks(m: int, n: int, k: int, hw: GpuParams,
-                       policy: MappingPolicy = MappingPolicy.AUTO
-                       ) -> MatmulPlan:
+                       policy: MappingPolicy = MappingPolicy.AUTO,
+                       kernel: str = "cuda_core") -> MatmulPlan:
     """Map ``C[m,n] = A[m,k] @ B[k,n]`` onto the card: ``lws`` outputs
-    per thread from the policy, legalised to a micro-tile.
+    per thread from the policy, legalised to a micro-tile of the
+    CUDA-core kernel (``kernel="cuda_core"``) or to a warpgroup tile of
+    the tensor-core kernel (``kernel="tensor_core"``).
 
     Example::
 
@@ -316,20 +351,30 @@ def plan_matmul_blocks(m: int, n: int, k: int, hw: GpuParams,
         >>> p = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"])
         >>> p.lws, (p.bm, p.bn), p.grid, p.rounds
         (64, (128, 128), (32, 32), 1)
+        >>> t = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"],
+        ...                        "naive", kernel="tensor_core")
+        >>> t.kernel, (t.bm, t.bn), t.bk, t.stages
+        ('tensor_core', (128, 8), 64, 4)
     """
     lws = _policy_lws(policy, m * n, hw.hp())
-    return matmul_plan_for_blocks(m, n, k, hw, lws, MM_BK, policy)
+    return matmul_plan_for_blocks(m, n, k, hw, lws, MM_BK, policy, kernel)
 
 
 def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
-                           bk: int, policy: MappingPolicy = MappingPolicy.AUTO
-                           ) -> MatmulPlan:
-    """Legalise an (``lws``, ``bk``) decision onto the kernel's rules:
-    ``lws`` rounded up to a power of two and capped at 64 (the register
-    budget), split as ``tm x tn`` with ``tn >= tm``; each tile side
-    halved while half still covers the matrix; ``bk`` a multiple of 16,
-    at most K rounded up to 16, shrunk while the staged tiles overflow
-    shared memory."""
+                           bk: int, policy: MappingPolicy = MappingPolicy.AUTO,
+                           kernel: str = "cuda_core") -> MatmulPlan:
+    """Legalise an (``lws``, ``bk``) decision onto the kernel's rules.
+    "cuda_core": ``lws`` rounded up to a power of two and capped at 64 (the
+    register budget), split as ``tm x tn`` with ``tn >= tm``; each tile
+    side halved while half still covers the matrix; ``bk`` a multiple of
+    16, at most K rounded up to 16, shrunk while the staged tiles
+    overflow shared memory.  "tensor_core": the warpgroup tile of the
+    module docstring (``bk`` is always 64)."""
+    if kernel == "tensor_core":
+        return _matmul_tc_plan(m, n, hw, lws, policy)
+    if kernel != "cuda_core":
+        raise ValueError(f"no matmul kernel {kernel!r}: cuda_core or "
+                         f"tensor_core")
     t = MM_THREAD_GRID
     lws = min(max(1, int(lws)), MM_MAX_TILE * MM_MAX_TILE)
     e = (lws - 1).bit_length()                      # 2**e >= lws
@@ -351,6 +396,30 @@ def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
                       rounds=_rounds(grid[0] * grid[1], hw),
                       regime=classify_regime(tm * tn, m * n, hw.hp()),
                       smem_bytes=smem)
+
+
+def _matmul_tc_plan(m: int, n: int, hw: GpuParams, lws: int,
+                    policy: MappingPolicy) -> MatmulPlan:
+    lo, hi = MM_TC_LWS
+    lws = 1 << (min(max(lo, int(lws)), hi) - 1).bit_length()
+    bn = 2 * lws
+    while bn > 2 * lo and bn // 2 >= n:
+        bn //= 2
+    bm = 64 if m <= 64 else 128
+    stages = MM_TC_MAX_STAGES
+    while stages > 2 and matmul_tc_smem_bytes(bm, bn, stages) \
+            > hw.smem_per_block:
+        stages -= 1
+    smem = matmul_tc_smem_bytes(bm, bn, stages)
+    if smem > hw.smem_per_block:
+        raise ValueError(f"no legal tensor-core matmul tile: {smem} B of "
+                         f"shared memory")
+    grid = (ceil_div(n, bn), ceil_div(m, bm))
+    return MatmulPlan(policy=MappingPolicy(policy), lws=bn // 2, tm=2,
+                      tn=bn // 4, bm=bm, bn=bn, bk=MM_TC_BK, threads=2 * bm,
+                      grid=grid, rounds=_rounds(grid[0] * grid[1], hw),
+                      regime=classify_regime(bn // 2, m * n, hw.hp()),
+                      smem_bytes=smem, kernel="tensor_core", stages=stages)
 
 
 # --------------------------------------------------------------------------- #
@@ -590,10 +659,15 @@ class AttentionPlan:
 
 
 def flash_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
-    """Dynamic shared memory of ``csrc/flash_attention.cu``: the f32 K
-    and V tiles plus one padded score row per thread."""
+    """Dynamic shared memory of ``csrc/flash_attention.cu`` at these
+    tiles, the larger of its two kernels', so a plan is legal whatever
+    the dtype: the f32 kernel's K and V tiles plus one padded score row
+    per thread; the bf16 kernel's double-buffered K and V tiles, rows
+    padded by 8 values."""
     threads = round_up(block_q, 32)
-    return 4 * (2 * block_k * head_dim + threads * (block_k + 1))
+    f32 = 4 * (2 * block_k * head_dim + threads * (block_k + 1))
+    bf16 = 2 * 2 * 2 * block_k * (head_dim + 8)
+    return max(f32, bf16)
 
 
 def plan_attention_blocks(seq_q: int, seq_k: int, head_dim: int,

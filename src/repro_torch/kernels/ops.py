@@ -1,7 +1,11 @@
 """Public kernel API of the paper's suite, with the mapping policy.
 
-``decode_attention`` is the suite's entry point to the contiguous decode
-kernel the engine's unpaged and gather-then-sweep paths run; its
+``flash_attention`` is single-head attention over leading dims, the
+JAX package's ``ops.flash_attention``; its tiles come from
+``plan_attention_blocks`` and it ignores ``policy`` until the tuner (as
+the serving kernels do).  ``decode_attention`` is the suite's entry
+point to the contiguous decode kernel the engine's unpaged and
+gather-then-sweep paths run; its
 ``block_s`` comes from ``plan_cache_block`` under the policy.  ``ssd``
 (Mamba-2's chunked scan) takes its chunk from ``chunk=`` or
 ``models.ssm.plan_ssd_chunk(L, hw)`` and ignores ``policy=``, as the JAX
@@ -33,11 +37,12 @@ import torch
 
 from repro_torch.core import workload
 from repro_torch.core.hw import GpuParams, detect
-from repro_torch.core.mapper import (MappingPolicy, plan_cache_block,
-                                     plan_gcn, plan_matmul_blocks, plan_nn,
+from repro_torch.core.mapper import (MappingPolicy, plan_attention_blocks,
+                                     plan_cache_block, plan_gcn, plan_nn,
                                      plan_rows, plan_stencil,
                                      plan_vector_blocks)
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn_agg
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import nn_search as _nn_search
@@ -48,7 +53,8 @@ from repro_torch.kernels import stencil as _stencil
 from repro_torch.kernels import vecadd as _vecadd
 
 __all__ = ["vecadd", "saxpy", "matmul", "rmsnorm", "gaussian_blur",
-           "nn_search", "gcn_aggregate", "decode_attention", "ssd",
+           "nn_search", "gcn_aggregate", "flash_attention",
+           "decode_attention", "ssd",
            "set_default_policy", "policy"]
 
 _DEFAULT_POLICY: MappingPolicy = MappingPolicy.AUTO
@@ -93,8 +99,10 @@ def saxpy(a, x, y, *, policy=None, hw: Optional[GpuParams] = None):
 
 def matmul(a, b, *, policy=None, out_dtype=None,
            hw: Optional[GpuParams] = None):
-    plan = plan_matmul_blocks(a.shape[0], b.shape[1], a.shape[1],
-                              _hw(a, hw), _resolve(policy))
+    """``a @ b``, planned for the kernel of the operands' route
+    (``kernels.matmul.route``): bfloat16 that TMA can take on the tensor
+    cores, everything else on the CUDA cores."""
+    plan = _matmul.plan_for(a, b, _hw(a, hw), _resolve(policy))
     return _matmul.matmul(a, b, plan=plan, out_dtype=out_dtype)
 
 
@@ -128,6 +136,31 @@ def gcn_aggregate(adj_norm, feats, *, policy=None,
     plan = plan_gcn(feats.shape[0], feats.shape[1], _hw(feats, hw),
                     _resolve(policy))
     return _gcn_agg.gcn_aggregate(adj_norm, feats, plan=plan)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None,
+                    policy=None, hw: Optional[GpuParams] = None):
+    """q (..., sq, d), k/v (..., skv, d) -> (..., sq, d): attention of
+    each leading index's queries over its own keys (the JAX package's
+    layout; the leading dims run as the kernel's batch, one query head
+    and one KV group each).  Causal queries sit at the end of the keys
+    (``q_offset = skv - sq``), as the JAX kernel aligns them; causal
+    needs ``sq <= skv``.  ``policy`` is ignored until the tuner (ROADMAP
+    queue 1, item 4)."""
+    del policy
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    if causal and sq > skv:
+        raise ValueError(f"causal flash_attention needs sq <= skv, got "
+                         f"{sq} > {skv}")
+    plan = plan_attention_blocks(sq, skv, d, _hw(q, hw))
+    out = _flash.flash_attention(
+        q.reshape(-1, sq, 1, 1, d).contiguous(),
+        k.reshape(-1, skv, 1, d).contiguous(),
+        v.reshape(-1, skv, 1, d).contiguous(), block_q=plan.block_q,
+        block_k=plan.block_k, q_offset=skv - sq if causal else 0,
+        scale=scale, causal=causal)
+    return out.reshape(q.shape)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
