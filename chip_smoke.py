@@ -11,7 +11,12 @@ Phases, each printing one JSON line:
            entry function's registers and spills from ptxas;
   kernels  each serving kernel against its plain PyTorch version on the
            same inputs at smollm-135m's serving shapes (8 rows, a pool of
-           1024, the ragged lengths of ``decode_case``; flash at a 512
+           1024, the ragged lengths of ``decode_case`` and, for the three
+           decode kernels, a single live row of 1024, each with its plan:
+           ``block_s``, the split W and the grid the wrapper launched
+           (``last_grid``; its CTAs asserted above B x G at the ragged
+           shape), and the ragged case timed at each width of
+           ``SPLIT_SWEEP``; flash at a 512
            prompt causal and non-causal, a 64-row chunk at q_offset 448,
            and a 512 prompt at qwen3-8b's heads, head_dim 128, bf16
            only), in float32 (atol
@@ -19,11 +24,17 @@ Phases, each printing one JSON line:
            = 1.6e-2: two bf16 ulps near 1); the two gathers bit for bit;
            the int8 decode and dequant gather over int8 codes with random
            positive scales; with CUDA-event times (median of 25 runs
-           after warm-up, L2 flushed before each) of the kernel, the plain
+           after warm-up, L2 flushed before each; the decode kernels and
+           the gathers with the head start) of the kernel, the plain
            version and, where one exists, one PyTorch library call
            computing the same function (SDPA for flash and the contiguous
            decode, ``index_select`` for the gather), beside the roofline
            bound, and the host's time to enqueue one call (``host_ms``);
+           and a ``decode_shapes`` line: the three decode kernels against
+           plain at ``DECODE_SHAPES`` (odd head_dims, R 8, pages of 8 and
+           32, 128 splits of one row, one split of 512), each fp launch
+           just after the same kernel left NaN in every SM's shared
+           memory, the merge tickets back at 0 after;
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
@@ -56,7 +67,9 @@ Phases, each printing one JSON line:
            ``kv_dtype="int8"`` and int8 with ``fused_decode=False``
            (chunked); then ``ServeEngine("mamba2-1.3b", reduced=False)``
            on the mix's first 4 requests, chunked and whole-prompt
-           (``MAMBA_RUNS``); the kernels' launch counts are reset just
+           (``MAMBA_RUNS``); each run prints the decode plans that ran
+           (``block_s`` and split per pool length); the kernels' launch
+           counts are reset just
            before each run and read just after: the path's own kernels
            must be above 0, every other kernel 0 (the ssm path runs none:
            its prefill is the plain ``ssd_chunked``, as the reference's
@@ -82,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -181,13 +195,20 @@ def check_close(got, want, dtype, what: str) -> float:
 # --------------------------------------------------------------------------- #
 
 
-def decode_case(cfg, plan_block, device, dtype):
+#: the decode tick's cache lengths: ragged (1 included), and a single
+#: live row of 1024 (the others retired at 0)
+RAGGED = (1, 17, 128, 300, 512, 700, 1000, 1024)
+ONE_ROW = (1024, 0, 0, 0, 0, 0, 0, 0)
+
+
+def decode_case(cfg, plan_block, device, dtype, split=None, lens=RAGGED):
     """The decode tick's shapes at full width: 8 slots, a 1024-long pool,
-    ragged cache lengths (1 included) over permuted pages, -1 tails."""
+    cache lengths ``lens`` over permuted pages, -1 tails; ``split`` the
+    sweep's planned width."""
     rng = np.random.default_rng(SEED)
     b, t, pb = 8, 1024, 16
     g, r, d = cfg.num_kv_heads, cfg.heads_per_group, cfg.head_dim
-    clen = np.array([1, 17, 128, 300, 512, 700, 1000, 1024], np.int32)
+    clen = np.array(lens, np.int32)
     tw = t // pb
     perm = list(rng.permutation(b * tw))
     tables = np.full((b, tw), -1, np.int32)
@@ -204,7 +225,7 @@ def decode_case(cfg, plan_block, device, dtype):
                 v_cache=rand(b, t, g, d),
                 tables=torch.from_numpy(tables).to(device),
                 cache_len=torch.from_numpy(clen).to(device),
-                page_block=pb, block_s=plan_block)
+                page_block=pb, block_s=plan_block, split=split)
 
 
 def flash_case(cfg, sq, sk, q_offset, tiles, device, dtype, causal=True,
@@ -272,12 +293,12 @@ def int8_pool(case, gen):
                 v_scale=scales())
 
 
-def contiguous_case(cfg, block_s, device, dtype):
+def contiguous_case(cfg, block_s, device, dtype, split=None, lens=RAGGED):
     """The decode tick's shapes on the contiguous pool (and on a gathered
     view): decode_case's rows, lengths and caches, no tables."""
-    c = decode_case(cfg, block_s, device, dtype)
+    c = decode_case(cfg, block_s, device, dtype, split, lens)
     return dict(q=c["q"], k_cache=c["k_cache"], v_cache=c["v_cache"],
-                cache_len=c["cache_len"], block_s=block_s)
+                cache_len=c["cache_len"], block_s=block_s, split=split)
 
 
 def gather_case(cfg, device, dtype, quant):
@@ -364,10 +385,120 @@ def index_select_call(case):
     return lambda: flat.index_select(0, idx).view(cache.shape)
 
 
+#: split widths each decode kernel is timed at, beside AUTO's
+SPLIT_SWEEP = (16, 32, 64, 128, 256, 512, 1024)
+
+#: shapes the decode wrappers take beyond the serving one: (B, T, G, R,
+#: D, page, block_s, split, cache lengths).  Many splits with an empty
+#: row and one past T; R 8 at D 128; D 6 (one value a copy, rows padded
+#: to 8); D 100 (bf16 rows of 200 B: one value a copy; f32 16-byte);
+#: D 96 with a first chunk of 3 positions (at D 96 and 100 a lane group
+#: is 32 lanes over 128 values, so lanes 24/25-31 hold no column);
+#: 128 splits of one row merged; one split of 512 (32 chunks through the
+#: 4-stage ring); pages of 8 and 32 and a split planned by AUTO (None)
+DECODE_SHAPES = (
+    (3, 80, 2, 2, 16, 16, 16, 16, (0, 17, 85)),
+    (2, 96, 1, 8, 128, 32, 32, 64, (96, 33)),
+    (4, 48, 3, 1, 6, 8, 16, 16, (1, 48, 20, 0)),
+    (2, 128, 2, 5, 100, 16, 32, None, (128, 77)),
+    (2, 64, 1, 3, 96, 16, 16, 16, (3, 35)),
+    (1, 2048, 1, 3, 64, 16, 16, 16, (2000,)),
+    (2, 512, 3, 3, 64, 16, 16, 512, (512, 300)),
+)
+
+
+def poison_decode_smem(call, g, r, d, pb, dtype, device):
+    """Leave NaN in the shared memory of every SM that ``call``'s
+    kernel (a decode wrapper with the fp caches' signature of
+    ``paged_decode_attention``) lays out at (G, R, D, page, dtype): the
+    same kernel over NaN caches, 1,024 rows of 128 positions, one split
+    each (more CTAs than an H100 holds resident, each through the whole
+    ring).  A later launch of that kernel that read a staged row past
+    its end would then read NaN and fail its check."""
+    b, t = 1024, 128
+    nan = torch.full((b, t, g, d), float("nan"), dtype=dtype, device=device)
+    q = torch.ones((b, g, r, d), dtype=dtype, device=device)
+    tables = torch.arange(b * (t // pb), dtype=torch.int32,
+                          device=device).reshape(b, t // pb)
+    clen = torch.full((b,), t, dtype=torch.int32, device=device)
+    call(q, nan, nan, tables, clen, page_block=pb, block_s=t, split=t)
+
+
+def decode_shapes_check(device, hw):
+    """Each decode kernel (contiguous, paged, paged int8) against its
+    plain version at ``DECODE_SHAPES`` in float32 and bfloat16, each fp
+    launch right after ``poison_decode_smem``; then the merge tickets
+    must all be back at 0."""
+    from repro_torch import kernels
+    from repro_torch.core.mapper import plan_decode_split
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+
+    def contiguous(q, k, v, tables, clen, *, page_block, **kw):
+        return da.decode_attention(q, k, v, clen, **kw)
+
+    rows = []
+    for b, t, g, r, d, pb, bs, w, lens in DECODE_SHAPES:
+        if w is None:
+            w = plan_decode_split(t, b * g, bs, d, hw, heads_per_group=r,
+                                  page_block=pb)
+        rng = np.random.default_rng(SEED + t + d)
+        nb = t // pb
+        perm = list(rng.permutation(b * nb))
+        tables = np.full((b, nb + 1), -1, np.int32)
+        for i in range(b):
+            for j in range(-(-min(lens[i], t) // pb)):
+                tables[i, j] = perm.pop()
+        clen = torch.tensor(lens, dtype=torch.int32, device=device)
+        tab = torch.from_numpy(tables).to(device)
+        gen = torch.Generator().manual_seed(SEED + d)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen).to(device, dtype)
+                       for shape in ((b, g, r, d), (b, t, g, d),
+                                     (b, t, g, d)))
+            codes = [torch.randint(-127, 128, (b, t, g, d), generator=gen,
+                                   dtype=torch.int8).to(device)
+                     for _ in range(2)]
+            scales = [(torch.rand((b, nb, g), generator=gen) * 0.05
+                       + 1e-3).to(device) for _ in range(2)]
+            calls = {
+                "decode_attention": (contiguous, lambda: da.decode_attention(
+                    q, k, v, clen, block_s=max(16, bs), split=max(16, w))),
+                "paged_decode_attention": (
+                    paged_decode_attention, lambda: paged_decode_attention(
+                        q, k, v, tab, clen, page_block=pb, block_s=bs,
+                        split=w)),
+                "paged_decode_attention_int8": (
+                    None, lambda: paged_decode_attention(
+                        q, *codes, tab, clen, page_block=pb, block_s=bs,
+                        split=w, k_scale=scales[0], v_scale=scales[1])),
+            }
+            for name, (fp, call) in calls.items():
+                if fp is not None:   # int8 codes are finite whatever they hold
+                    poison_decode_smem(fp, g, r, d, pb, dtype, device)
+                got = call()
+                with kernels.force("plain"):
+                    want = call()
+                torch.cuda.synchronize()
+                rows.append(dict(
+                    kernel=name, dtype=str(dtype).split(".")[1],
+                    shape=dict(B=b, T=t, G=g, R=r, D=d, page=pb, block_s=bs,
+                               split=w, lens=list(lens)),
+                    max_abs_err=check_close(
+                        got, want, dtype,
+                        f"{name} {dtype} at B {b} T {t} G {g} R {r} D {d}")))
+    for tickets, _ in da._SCRATCH.values():
+        if int(tickets.abs().sum()) != 0:
+            raise AssertionError("a decode launch left a merge ticket set")
+    return rows
+
+
 def kernels_phase(cfg, hw, timer, device):
     from repro_torch import kernels
     from repro_torch.core.mapper import (plan_attention_blocks,
-                                         plan_cache_block, plan_paged_block)
+                                         plan_cache_block, plan_decode_split,
+                                         plan_paged_block)
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
@@ -375,10 +506,14 @@ def kernels_phase(cfg, hw, timer, device):
     from repro_torch.kernels.paged_gather import (paged_dequant_gather,
                                                   paged_gather)
 
-    block_s = plan_paged_block(1024, cfg.head_dim, 16, hw,
-                               heads_per_group=cfg.heads_per_group)
-    cache_block = plan_cache_block(1024, cfg.head_dim, hw,
-                                   heads_per_group=cfg.heads_per_group)
+    g, r, d = cfg.num_kv_heads, cfg.heads_per_group, cfg.head_dim
+    block_s = plan_paged_block(1024, d, 16, hw, heads_per_group=r)
+    cache_block = plan_cache_block(1024, d, hw, heads_per_group=r)
+    # the split width W: Eq. 1 over the resident CTA slots (AUTO)
+    split = plan_decode_split(1024, 8 * g, block_s, d, hw,
+                              heads_per_group=r, page_block=16)
+    cache_split = plan_decode_split(1024, 8 * g, cache_block, d, hw,
+                                    heads_per_group=r)
     p512 = plan_attention_blocks(512, 512, cfg.head_dim, hw)
     tiles = (p512.block_q, p512.block_k)
     p128 = plan_attention_blocks(512, 512, 128, hw)
@@ -424,11 +559,40 @@ def kernels_phase(cfg, hw, timer, device):
         entry["bound_ms"], entry["bound_by"] = bound_fn(c, hw)
         return entry
 
-    results["paged_decode_attention"] = [dict(
-        shape=f"slots 8, pool 1024, block_s {block_s}",
-        **measure("paged_decode_attention", paged_decode_attention,
-                  lambda dt: decode_case(cfg, block_s, device, dt),
-                  decode_bound, None))]
+    def decode_entries(name, fn, case, plan_block, w, library, what):
+        """The serving shape (ragged lengths) and a single live row of
+        1024, each with its plan: block_s, the split W and the grid the
+        wrapper launched (``fn.last_grid``, B x G x n_split)."""
+        out = []
+        for label, lens in (("ragged lengths", RAGGED),
+                            ("a single live row of 1024", ONE_ROW)):
+            fn.last_grid = None
+            entry = measure(name, fn, lambda dt, lens=lens: case(dt, lens),
+                            decode_bound, library, head_start=True)
+            grid = fn.last_grid
+            out.append(dict(shape=f"slots 8, {what}, {label}",
+                            plan=dict(block_s=plan_block, split=w,
+                                      grid=list(grid),
+                                      ctas=math.prod(grid)),
+                            **entry))
+        if out[0]["plan"]["ctas"] <= 8 * g:
+            raise AssertionError(f"{name}: AUTO's split launched "
+                                 f"{out[0]['plan']['grid']}, not more than "
+                                 f"B x G = {8 * g} CTAs")
+        # the same call at other split widths (bf16, ragged): NAIVE's one
+        # split is 1024, FIXED's 512
+        args = {k: x for k, x in case(torch.bfloat16, RAGGED).items()
+                if not k.endswith("_bytes")}
+        out[0]["split_sweep_ms"] = {
+            width: timer.ms(lambda: fn(**dict(args, split=width)),
+                            head_start=True)
+            for width in SPLIT_SWEEP}
+        return out
+
+    results["paged_decode_attention"] = decode_entries(
+        "paged_decode_attention", paged_decode_attention,
+        lambda dt, lens: decode_case(cfg, block_s, device, dt, split, lens),
+        block_s, split, None, "pool 1024")
     chunk_tiles = plan_attention_blocks(64, 512, cfg.head_dim, hw)
     results["flash_attention"] = [
         dict(shape=f"prompt 512, q_offset 0, tiles {tiles}",
@@ -457,19 +621,18 @@ def kernels_phase(cfg, hw, timer, device):
                                              device, dt, heads=(8, 4, 128)),
                        flash_bound, sdpa_call, dtypes=(torch.bfloat16,))),
     ]
-    results["paged_decode_attention_int8"] = [dict(
-        shape=f"slots 8, pool 1024, block_s {block_s}, int8 codes, q/out "
-              f"in the dtype",
-        **measure("paged_decode_attention_int8", paged_decode_attention,
-                  lambda dt: int8_pool(
-                      decode_case(cfg, block_s, device, dt),
-                      torch.Generator().manual_seed(SEED + 2)),
-                  decode_bound, None))]
-    results["decode_attention"] = [dict(
-        shape=f"slots 8, contiguous rows of 1024, block_s {cache_block}",
-        **measure("decode_attention", decode_attention,
-                  lambda dt: contiguous_case(cfg, cache_block, device, dt),
-                  decode_bound, sdpa_decode_call))]
+    results["paged_decode_attention_int8"] = decode_entries(
+        "paged_decode_attention_int8", paged_decode_attention,
+        lambda dt, lens: int8_pool(
+            decode_case(cfg, block_s, device, dt, split, lens),
+            torch.Generator().manual_seed(SEED + 2)),
+        block_s, split, None, "pool 1024, int8 codes, q/out in the dtype")
+    results["decode_attention"] = decode_entries(
+        "decode_attention", decode_attention,
+        lambda dt, lens: contiguous_case(cfg, cache_block, device, dt,
+                                         cache_split, lens),
+        cache_block, cache_split, sdpa_decode_call, "contiguous rows of 1024")
+    emit("decode_shapes", cases=decode_shapes_check(device, hw))
     results["paged_gather"] = [dict(
         shape="one cache of the pool (8, 1024, 3, 64), page 16",
         **measure("paged_gather", paged_gather,
@@ -1131,6 +1294,8 @@ def engine_run(label, eng, reqs, opts, expected):
         decode_s=s.decode_s,
         paged_decode_block=report.paged_decode_blocks,
         decode_block=report.decode_blocks,
+        paged_decode_split=report.paged_decode_splits,
+        decode_split=report.decode_splits,
         prefill_tiles={k: list(v) for k, v in report.prefill_tiles.items()},
         launches=launches)
     emit("engine", run=label, **run)

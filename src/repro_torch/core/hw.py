@@ -24,7 +24,9 @@ class GpuParams:
     """Micro-architecture parameters of one GPU.
 
     Bandwidth is bytes/s, compute FLOP/s.  ``smem_per_block`` is the
-    opt-in dynamic shared memory one block may claim.
+    opt-in dynamic shared memory one block may claim, ``smem_per_sm``
+    what an SM shares among its resident blocks (each also keeps 1 KB
+    for the runtime).
     """
 
     name: str
@@ -32,6 +34,7 @@ class GpuParams:
     warps_per_sm: int                # resident warps per SM ("warps")
     warp_size: int = 32              # lanes per warp ("threads")
     smem_per_block: int = 232_448    # 227 KB opt-in on Hopper
+    smem_per_sm: int = 233_472       # 228 KB on Hopper
     l2_bytes: int = 50 * 1024**2
     mem_bytes: int = 80 * 1024**3
     mem_bw: float = 3.35e12
@@ -92,6 +95,7 @@ def detect(device="cuda") -> GpuParams:
         warps_per_sm=props.max_threads_per_multi_processor // props.warp_size,
         warp_size=props.warp_size,
         smem_per_block=int(smem),
+        smem_per_sm=int(props.shared_memory_per_multiprocessor),
         l2_bytes=props.L2_cache_size,
         mem_bytes=props.total_memory,
     )

@@ -119,6 +119,16 @@ cache) comes with the tuner slice and raises here.
   * the paged sweep's ``block_s`` is a whole number of pages, the
     contiguous sweep's a multiple of 16 (``plan_cache_block`` also
     takes NAIVE and FIXED, for ``kernels.ops.decode_attention``);
+  * both decode sweeps split each row over CTAs: the grid is
+    (B, G, ceil(T / W)) and the split width W (``plan_decode_split``)
+    is a whole number of ``block_s``.  AUTO is Eq. 1 over the split: a
+    work item is one (row, KV group, position), ``gws = B G T``, and
+    ``hp`` the resident CTA slots, SMs x ``decode_ctas_per_sm`` (the
+    least of the thread limit, the sweep's shared memory and the
+    kernels' register bound of 4 CTAs), so ``lws = W`` positions a CTA
+    and one round of CTAs covers the pool (W 48, 528 CTAs, at
+    smollm-135m's 8 slots x 3 groups over a 1024 pool on an H100).  NAIVE is one split (the row swept whole, B G CTAs), FIXED
+    the JAX package's 512-position block;
   * each kernel's staged tiles fit the block's opt-in shared memory
     (227 KB on an H100).
 """
@@ -127,6 +137,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
+from typing import Optional
 
 from repro_torch.core.hw import GpuParams, ceil_div, round_up
 from repro_torch.core.workload import (Workload, gaussian_blur, gcn_aggregate,
@@ -143,7 +155,8 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "plan_attention_blocks",
            "attention_plan_for_blocks", "flash_smem_bytes",
            "decode_smem_bytes", "decode_block_for", "plan_cache_block",
-           "plan_paged_block"]
+           "plan_paged_block", "decode_chunk", "decode_ctas_per_sm",
+           "plan_decode_split", "decode_splits"]
 
 MAX_BLOCK_Q = 128         # 16 rows a warp (bf16), a row a thread (f32)
 MAX_BLOCK_K = 128
@@ -698,24 +711,85 @@ def attention_plan_for_blocks(seq_q: int, seq_k: int, head_dim: int,
 
 
 # --------------------------------------------------------------------------- #
-# Decode staging chunks (contiguous and paged)
+# Decode: the split sweep's block_s and split width (contiguous and paged)
 # --------------------------------------------------------------------------- #
 
 CACHE_BLOCK_QUANTUM = 16  # decode block_s: a multiple of mma's quantum
 NAIVE_CACHE_BLOCK = 16    # one quantum per staged chunk
 FIXED_CACHE_BLOCK = 512   # the JAX package's fixed cache block
+DECODE_THREADS = 128      # both decode kernels' CTA: 4 warps
+# the sweep's shared-memory layout (csrc/decode_sweep.cuh)
+DECODE_STAGES = 4         # cp.async ring depth
+DECODE_STAGE_BYTES = 4096 # K bytes one stage holds, at most
+DECODE_MAX_CHUNK = 32     # positions one stage holds, at most
+DECODE_EPL = 4            # head_dim values a lane holds
+SMEM_RESERVED = 1024      # shared memory the runtime keeps per resident CTA
+DECODE_MIN_CTAS = 4       # the kernels' __launch_bounds__ minimum: ptxas
+                          # keeps them within 128 registers, 4 CTAs an SM
 
 
-def decode_smem_bytes(block_s: int, head_dim: int,
-                      heads_per_group: int) -> int:
+@functools.lru_cache(maxsize=None)
+def decode_chunk(head_dim: int, cache_bytes: int = 4) -> int:
+    """Positions the decode sweep stages per ring stage: a power of two,
+    at most 32 and at most what keeps a stage's K within 4 KB
+    (``csrc/decode_sweep.cuh::chunk_rows``)."""
+    cap = DECODE_STAGE_BYTES // (round_up(head_dim, DECODE_EPL) * cache_bytes)
+    rows = 1
+    while rows * 2 <= min(cap, DECODE_MAX_CHUNK):
+        rows *= 2
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def decode_smem_bytes(head_dim: int, heads_per_group: int,
+                      page_block: Optional[int] = None,
+                      cache_bytes: Optional[int] = None) -> int:
     """Dynamic shared memory of both decode kernels
-    (``csrc/decode_sweep.cuh``, shared by ``csrc/decode_attention.cu``
-    and ``csrc/paged_decode_attention.cu``): the staged f32 K and V rows
-    (padded by one word against bank conflicts), the group's scaled
-    queries and one score row per query head.  The wrappers check a
-    launch against it before they launch."""
-    return 4 * (2 * block_s * (head_dim + 1) + heads_per_group * head_dim
-                + heads_per_group * block_s)
+    (``csrc/decode_sweep.cuh::smem_bytes``, shared by
+    ``csrc/decode_attention.cu`` and ``csrc/paged_decode_attention.cu``):
+    the larger of the staging (a ring of 4 stages of ``decode_chunk``
+    K and V rows in the cache's dtype, ``cache_bytes`` a value, rows
+    padded to 4 values; on the paged path 5 page slots of (flat block,
+    two scales) and two scales beside each staged row) and the
+    end-of-sweep merge area (each lane group's (m, l, acc) of the R
+    heads).  It does not depend on ``block_s`` and stays under 48 KB for
+    any head_dim up to 128.  ``cache_bytes=None`` (what the planner
+    counts) takes the most over f32, bf16 and int8 caches; the wrappers
+    check each launch at its own dtype.
+
+    Example::
+
+        >>> decode_smem_bytes(64, 3, page_block=16)
+        33972
+    """
+    if cache_bytes is None:
+        return max(decode_smem_bytes(head_dim, heads_per_group, page_block,
+                                     es) for es in (1, 2, 4))
+    c = decode_chunk(head_dim, cache_bytes)
+    ring = DECODE_STAGES * 2 * round_up(
+        c * round_up(head_dim, DECODE_EPL) * cache_bytes, 16)
+    pages = 0
+    if page_block is not None:
+        ppc = min(c, (c + page_block - 2) // page_block + 1)
+        pages = (DECODE_STAGES + 1) * ppc * 12 + DECODE_STAGES * c * 8
+    lanes = 1
+    while lanes * DECODE_EPL < head_dim:
+        lanes *= 2
+    merge = 4 * heads_per_group * (DECODE_THREADS // lanes) \
+        * (DECODE_EPL * lanes + 2)
+    return max(ring + pages, merge)
+
+
+def decode_ctas_per_sm(head_dim: int, heads_per_group: int, hw: GpuParams,
+                       page_block: Optional[int] = None) -> int:
+    """Resident decode CTAs per SM: the least of the thread limit
+    (``warps_per_sm`` warps, 4 a CTA), the SM's shared memory at the
+    sweep's size plus the runtime's 1 KB a CTA, and the 4 CTAs the
+    kernels' register bound (``__launch_bounds__(128, 4)``) guarantees."""
+    by_threads = hw.warps_per_sm * hw.warp_size // DECODE_THREADS
+    smem = decode_smem_bytes(head_dim, heads_per_group, page_block)
+    by_smem = hw.smem_per_sm // (smem + SMEM_RESERVED)
+    return max(1, min(by_threads, by_smem, DECODE_MIN_CTAS))
 
 
 def decode_block_for(s: int, d: int, hw: GpuParams, block: int,
@@ -724,34 +798,30 @@ def decode_block_for(s: int, d: int, hw: GpuParams, block: int,
     """Legalise a decode ``block_s`` decision onto Hopper's rules:
     rounded up to a multiple of ``quantum`` (16 for the contiguous
     sweep, the page for the paged one), at most the cache length rounded
-    up to it, shrunk by one quantum while the staged tiles overflow the
-    block's shared memory.
+    up to it; raises when the sweep's shared memory, which no longer
+    grows with ``block_s``, does not fit the block's.
 
     Example::
 
         >>> from repro_torch.core.hw import GPU_REGISTRY
         >>> decode_block_for(1024, 64, GPU_REGISTRY["h100_sxm"], 512, 3)
-        432
+        512
     """
     q = int(quantum)
-    bs = min(round_up(max(1, int(block)), q), round_up(max(1, s), q))
-    while decode_smem_bytes(bs, d, heads_per_group) > hw.smem_per_block \
-            and bs > q:
-        bs -= q
-    if decode_smem_bytes(bs, d, heads_per_group) > hw.smem_per_block:
+    if decode_smem_bytes(d, heads_per_group) > hw.smem_per_block:
         raise ValueError(f"no legal decode block for head_dim={d}, "
                          f"heads_per_group={heads_per_group}")
-    return bs
+    return min(round_up(max(1, int(block)), q), round_up(max(1, s), q))
 
 
 def plan_cache_block(s: int, d: int, hw: GpuParams,
                      policy: MappingPolicy = MappingPolicy.AUTO,
                      heads_per_group: int = 1) -> int:
-    """The contiguous decode sweep's ``block_s`` (cache positions staged
-    per iteration; the Hopper translation of the JAX package's
-    ``kernels/decode_attention.py::plan_cache_block``): NAIVE 16
-    positions, FIXED 512, AUTO Eq. 1 over the cache length and the SMs
-    (positions per SM), each legalised by ``decode_block_for``.
+    """The contiguous decode sweep's ``block_s`` (the Hopper translation
+    of the JAX package's ``kernels/decode_attention.py::plan_cache_block``):
+    NAIVE 16 positions, FIXED 512, AUTO Eq. 1 over the cache length and
+    the SMs (positions per SM), each legalised by ``decode_block_for``.
+    It is the quantum of the split width (``plan_decode_split``).
 
     Example::
 
@@ -771,10 +841,10 @@ def plan_cache_block(s: int, d: int, hw: GpuParams,
 
 def plan_paged_block(s: int, d: int, page_block: int, hw: GpuParams,
                      heads_per_group: int = 1) -> int:
-    """Eq. 1 seed for the paged sweep's ``block_s`` (cache positions
-    staged per iteration): positions per SM, quantised UP to whole pages,
-    clamped to the padded cache length and shrunk while the staged tiles
-    overflow shared memory.
+    """Eq. 1 seed for the paged sweep's ``block_s`` (the quantum of its
+    split width, whole pages): positions per SM, quantised UP to whole
+    pages, clamped to the padded cache length and legalised by
+    ``decode_block_for``.
 
     Example::
 
@@ -784,3 +854,47 @@ def plan_paged_block(s: int, d: int, page_block: int, hw: GpuParams,
     """
     return decode_block_for(s, d, hw, resolve_lws(s, hw.sm_count),
                             heads_per_group, quantum=page_block)
+
+
+def plan_decode_split(t: int, rows: int, block_s: int, head_dim: int,
+                      hw: GpuParams,
+                      policy: MappingPolicy = MappingPolicy.AUTO,
+                      heads_per_group: int = 1,
+                      page_block: Optional[int] = None) -> int:
+    """The split width W of the decode sweep: each CTA of the grid
+    (B, G, ceil(t / W)) sweeps W positions of one (row, KV group), and a
+    row's splits are merged in the same launch.  W is a whole number of
+    ``block_s`` (so of pages on the paged path), at most the row ``t``
+    rounded up to it.  ``rows`` is B x G; ``t`` is the pool row's length
+    (the host plans from it, never from the live cache lengths).
+
+      * NAIVE: one split, the row swept whole by one CTA per (row, group)
+        whatever the card;
+      * FIXED: the JAX package's fixed 512-position block;
+      * AUTO: Eq. 1 over the split: the (row, group, position) work
+        ``rows x t`` over the resident CTA slots, ``sm_count`` x
+        ``decode_ctas_per_sm``, so the grid fills the card once.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> plan_decode_split(1024, 24, 16, 64, GPU_REGISTRY["h100_sxm"],
+        ...                   heads_per_group=3, page_block=16)
+        48
+    """
+    policy = MappingPolicy(policy)
+    bs = int(block_s)
+    whole = round_up(max(1, int(t)), bs)
+    if policy is MappingPolicy.NAIVE:
+        return whole
+    if policy is MappingPolicy.FIXED:
+        return min(whole, round_up(FIXED_CACHE_BLOCK, bs))
+    slots = hw.sm_count * decode_ctas_per_sm(head_dim, heads_per_group, hw,
+                                             page_block)
+    w = resolve_lws(max(1, int(rows)) * max(1, int(t)), slots)
+    return min(whole, round_up(w, bs))
+
+
+def decode_splits(t: int, split: int) -> int:
+    """CTAs a (row, group) gets at split width ``split``: ceil(t / W)."""
+    return max(1, ceil_div(int(t), int(split)))

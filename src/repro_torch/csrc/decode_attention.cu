@@ -17,111 +17,81 @@
 // Bound on the H100: bytes.  The live prefix's K and V rows,
 // sum_b min(cache_len_b, T) * G * D * 2 * dtype_bytes, read once, over
 // 3.35 TB/s; about 4 FLOPs per cache value and query head (R = 3 at
-// smollm-135m's width), far below the ~295 FLOP/byte ridge.
+// smollm-135m's width), far below the ~295 FLOP/byte ridge.  At the
+// serving shape that is under a microsecond, so what bounds the kernel
+// in practice is latency: the chain of dependent loads one CTA walks.
 //
-// Design, against that bound: grid (B, G), one CTA per (row, group)
-// stages block_s K/V rows of its group once in shared memory for all R
-// query heads (the GQA reuse; the JAX kernel runs one instance per
-// (row, group, head) and reads each group's cache R times), and stops at
-// cache_len instead of masking the whole row.  The staged rows past
-// cache_len are zeros, so stale cache words never enter the sum.
-// cache_len is clamped to [0, T]: a retired slot's length keeps growing
-// and may pass T; a row of length 0 writes zeros, not NaN.  block_s is
-// the mapper's plan_cache_block (a multiple of 16) and stays a runtime
-// argument.  The sweep (scores, online softmax, flush) is
-// csrc/decode_sweep.cuh, shared with csrc/paged_decode_attention.cu.
-// Left for later work: split-KV over the sequence to fill the SMs (the
-// serving shape's B * G = 24 CTAs leave most of the 132 SMs idle),
-// 16-byte vector loads, cp.async/TMA double buffering.
+// Design, against that: the split-KV sweep of csrc/decode_sweep.cuh.
+// The grid is (B, G, n_split): each row is cut into splits of W
+// positions (the mapper's Eq. 1 plan over the resident CTA slots, a
+// whole number of block_s), so the SMs share a long row instead of one
+// CTA walking it; within a split the group's K/V rows are staged once
+// for all R query heads (the GQA reuse; the JAX kernel runs one
+// instance per head and reads each group's cache R times) by cp.async
+// into a 4-stage ring, and the partials of a row's splits are merged by
+// its last split to finish.  cache_len is clamped to [0, T]: a retired
+// slot's length keeps growing and may pass T; a row of length 0 writes
+// zeros, not NaN.
 //
-// Launch geometry: grid (B, G), 128 threads, dynamic shared memory
-// 4 * (2 * S * (D + 1) + R * D + R * S) bytes for S = block_s.  Inputs
-// fp32 or bf16 (q and caches of one dtype); accumulation fp32; output in
-// q's dtype.
+// Launch geometry: grid (B, G, n_split), 128 threads, dynamic shared
+// memory decode_sweep::smem_bytes(D, R, 0, dtype bytes), under
+// 48 KB.  Inputs fp32 or bf16 (q and caches of one dtype); accumulation
+// fp32; output in q's dtype.
 
 #include "decode_sweep.cuh"
 
 namespace {
 
-using decode_sweep::kThreads;
-using decode_sweep::to_f32;
+using decode_sweep::Params;
 
-// Stages positions s0 .. s0+block_s-1 of group g from the row's cache;
-// positions at or past clen stage zeros.
-template <typename T>
-struct RowStage {
-  const T* __restrict__ k;             // this row's (T, G, D) cache
-  const T* __restrict__ v;
-  int G, D, g, clen;
-
-  __device__ __forceinline__ void operator()(int s0, float* s_k, float* s_v,
-                                             int dp, int block_s) const {
-    for (int e = threadIdx.x; e < block_s * D; e += kThreads) {
-      const int i = e / D, d = e - i * D;
-      const int p = s0 + i;
-      float kv = 0.f, vv = 0.f;
-      if (p < clen) {
-        const size_t off = ((size_t)p * G + g) * D + d;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
-      }
-      s_k[i * dp + d] = kv;
-      s_v[i * dp + d] = vv;
-    }
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q,           // (B, G, R, D)
-              const T* __restrict__ k_cache,     // (B, Tlen, G, D)
-              const T* __restrict__ v_cache,     // (B, Tlen, G, D)
-              const int* __restrict__ cache_len, // (B,)
-              T* __restrict__ out,               // (B, G, R, D)
-              int Tlen, int G, int R, int D, int block_s, float scale) {
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int clen = max(0, min(cache_len[b], Tlen));
-  const size_t row = (size_t)b * Tlen * G * D;
-  const RowStage<T> stage{k_cache + row, v_cache + row, G, D, g, clen};
-  const size_t qoff = (size_t)(b * G + g) * R * D;
-  decode_sweep::sweep(q + qoff, out + qoff, R, D, clen, block_s, scale,
-                      stage);
+template <typename T, int RB>
+__global__ void __launch_bounds__(decode_sweep::kThreads,
+                                  decode_sweep::kMinCtasPerSm)
+decode_kernel(const Params p) {
+  decode_sweep::sweep<T, T, false, RB>(p);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* cache_len,
-           void* out, int B, int Tlen, int G, int R, int D, int block_s,
-           float scale, cudaStream_t stream) {
-  const size_t smem = decode_sweep::smem_bytes(block_s, D, R);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_kernel<T><<<dim3(B, G), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(cache_len),
-      static_cast<T*>(out), Tlen, G, R, D, block_s, scale);
-  return (int)cudaGetLastError();
+int launch(Params p, cudaStream_t stream) {
+  switch (decode_sweep::heads_bucket(p.R)) {
+    case 1:
+      return decode_sweep::launch(decode_kernel<T, 1>, p, sizeof(T), stream);
+    case 2:
+      return decode_sweep::launch(decode_kernel<T, 2>, p, sizeof(T), stream);
+    case 3:
+      return decode_sweep::launch(decode_kernel<T, 3>, p, sizeof(T), stream);
+    case 4:
+      return decode_sweep::launch(decode_kernel<T, 4>, p, sizeof(T), stream);
+    default:
+      return decode_sweep::launch(decode_kernel<T, 8>, p, sizeof(T), stream);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  ws: (B * G * n_split, R, D + 2)
+// f32 partials (unused when n_split is 1); counters: >= B * G int32
+// zeros, left zero.  n_split must be ceil(Tlen / split): the grid's
+// third extent, which sized ws.  Returns cudaGetLastError() after the
+// launch (0 on success), cudaErrorInvalidValue for a shape or plan the
+// kernel does not take.
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* cache_len,
-                                void* out, int B, int Tlen, int G, int R,
-                                int D, int block_s, float scale, int dtype,
-                                void* stream) {
+                                void* out, void* ws, void* counters, int B,
+                                int Tlen, int G, int R, int D, int block_s,
+                                int split, int n_split, float scale,
+                                int dtype, void* stream) {
   if (R < 1 || R > decode_sweep::kMaxR || D < 1 || D > decode_sweep::kMaxD ||
-      block_s < 1)
+      block_s < 1 || split < block_s || split % block_s != 0)
     return (int)cudaErrorInvalidValue;
+  Params p{q,       k_cache, v_cache, nullptr, nullptr,
+           nullptr, static_cast<const int*>(cache_len), out,
+           static_cast<float*>(ws), static_cast<int*>(counters),
+           B,       Tlen,    G,       R,       D,
+           0,       0,       0,       split,   n_split,
+           0,       scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_cache, v_cache, cache_len, out, B, Tlen, G, R,
-                         D, block_s, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, cache_len, out, B, Tlen,
-                                 G, R, D, block_s, scale, st);
+  if (dtype == 0) return launch<float>(p, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, st);
   return (int)cudaErrorInvalidValue;
 }

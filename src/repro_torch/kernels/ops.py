@@ -6,7 +6,8 @@ JAX package's ``ops.flash_attention``; its tiles come from
 the serving kernels do).  ``decode_attention`` is the suite's entry
 point to the contiguous decode kernel the engine's unpaged and
 gather-then-sweep paths run; its
-``block_s`` comes from ``plan_cache_block`` under the policy.  ``ssd``
+``block_s`` comes from ``plan_cache_block`` and its split width from
+``plan_decode_split`` under the policy.  ``ssd``
 (Mamba-2's chunked scan) takes its chunk from ``chunk=`` or
 ``models.ssm.plan_ssd_chunk(L, hw)`` and ignores ``policy=``, as the JAX
 package's ``ops.ssd`` does.
@@ -38,9 +39,9 @@ import torch
 from repro_torch.core import workload
 from repro_torch.core.hw import GpuParams, detect
 from repro_torch.core.mapper import (MappingPolicy, plan_attention_blocks,
-                                     plan_cache_block, plan_gcn, plan_nn,
-                                     plan_rows, plan_stencil,
-                                     plan_vector_blocks)
+                                     plan_cache_block, plan_decode_split,
+                                     plan_gcn, plan_nn, plan_rows,
+                                     plan_stencil, plan_vector_blocks)
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn_agg
@@ -169,7 +170,9 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
     leading dims (default S) -> (..., d): single-token attention of each
     query over its own cache, masked past its length (the JAX package's
     layout).  The leading dims run as the kernel's rows, one query head
-    and one KV group each; one ``block_s`` serves them all."""
+    and one KV group each; one ``block_s`` and one split width serve
+    them all (NAIVE one split a row, FIXED 512 positions, AUTO Eq. 1
+    over the resident CTA slots)."""
     lead = q.shape[:-1]
     s, d = k_cache.shape[-2:]
     rows = q.reshape(-1, 1, 1, d).contiguous()
@@ -179,10 +182,12 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
         cache_len = s
     clen = torch.broadcast_to(torch.as_tensor(cache_len, dtype=torch.int32,
                                               device=q.device), lead)
-    block = plan_cache_block(s, d, _hw(q, hw), _resolve(policy))
+    hw, policy = _hw(q, hw), _resolve(policy)
+    block = plan_cache_block(s, d, hw, policy)
+    split = plan_decode_split(s, rows.shape[0], block, d, hw, policy)
     out = _decode.decode_attention(rows, kc, vc,
                                    clen.reshape(-1).contiguous(),
-                                   block_s=block, scale=scale)
+                                   block_s=block, split=split, scale=scale)
     return out.reshape(q.shape)
 
 

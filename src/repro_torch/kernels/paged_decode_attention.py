@@ -4,14 +4,19 @@ the row's block table with no logical view of the cache materialised.
 The CUDA kernel (``csrc/paged_decode_attention.cu``) replaces the JAX
 package's ``kernels/paged_decode_attention.py::_paged_decode_kernel``.
 What bounds it on the H100 is bytes — the K/V rows of every row's live
-prefix — and its design reads each of those bytes once: one CTA per
-(row, KV group) walks its own block table, stages ``block_s`` positions
-of pages at a time in shared memory for all R query heads of the group,
-and stops at ``cache_len``.  With ``k_scale``/``v_scale`` the caches
-hold the int8 pool's codes and a second instantiation of the kernel
+prefix — and, at serving sizes, the latency of the loads one CTA walks.
+Its design is the split-KV sweep of ``csrc/decode_sweep.cuh``: the grid
+is (B, G, ceil(T / split)), each CTA walks ``split`` positions of one
+(row, KV group) through the row's block table (each page resolved once
+per CTA), stages their K/V rows by cp.async into a ring for all R query
+heads of the group and stops at ``cache_len``; the last split of a row
+to finish merges the row's partials, in the same launch.  ``block_s``
+(whole pages) and ``split`` (whole ``block_s``) are the mapper's plan
+(``plan_paged_block``, ``plan_decode_split``), both required.  With ``k_scale``/``v_scale`` the caches hold the int8 pool's
+codes and a second instantiation of the kernel
 (``paged_decode_attention_int8`` in the same source; it replaces
-``_paged_decode_kernel_int8``) dequantises each page by its per-group
-scale as it stages it; its launches count in
+``_paged_decode_kernel_int8``) stages the codes and dequantises each by
+its page's group scale as it scores it; its launches count in
 ``paged_decode_attention.int8_launches``.
 
 ``paged_decode_attention_plain`` is the plain PyTorch version: the JAX
@@ -26,22 +31,40 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.core.hw import ceil_div
+from repro_torch.core.mapper import decode_smem_bytes, decode_splits
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import hw_of, split_buffers
 from repro_torch.kernels.paged_gather import paged_flat_indices
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_R, _MAX_D = 8, 128
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_INT8_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+#: C entry point -> its argument types (pointers, ints, scale, dtype,
+#: stream)
+_ARGTYPES = {
+    "paged_decode_attention": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                               + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p]),
+    "paged_decode_attention_int8": ([ctypes.c_void_p] * 10
+                                    + [ctypes.c_int] * 10
+                                    + [ctypes.c_float, ctypes.c_int,
+                                       ctypes.c_void_p]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The C entry point ``name`` with its argument types, set once."""
+    fn = getattr(_build.load("paged_decode_attention"), name)
+    fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+    return fn
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, tables, cache_len, *,
@@ -141,20 +164,28 @@ def _check(q, k_cache, v_cache, tables, cache_len, pb, block_s,
     if r > _MAX_R or d > _MAX_D:
         raise ValueError(f"kernel takes R <= {_MAX_R} and D <= {_MAX_D}, "
                          f"got R={r}, D={d}")
+    smem = decode_smem_bytes(d, r, page_block=pb,
+                             cache_bytes=k_cache.element_size())
+    if smem > hw_of(q.device).smem_per_block:
+        raise ValueError(f"the sweep stages {smem} B of shared memory, "
+                         f"over the block's limit")
     for x in (q, k_cache, v_cache, tables, cache_len):
         if x.device != q.device or not x.is_contiguous():
             raise ValueError("all operands must be contiguous on one device")
 
 
 def paged_decode_attention(q, k_cache, v_cache, tables, cache_len, *,
-                           page_block: int, block_s: int, scale=None,
-                           window=None, k_scale=None,
+                           page_block: int, block_s: int, split: int,
+                           scale=None, window=None, k_scale=None,
                            v_scale=None) -> torch.Tensor:
     """Fused paged decode.  CPU tensors (or ``kernels.force("plain")``)
-    run the plain version; CUDA tensors launch the kernel, whose launch
-    count is ``paged_decode_attention.launches`` (int8 codes with
-    ``k_scale``/``v_scale``: ``paged_decode_attention.int8_launches``).
-    Sliding windows are not supported by the kernel and raise."""
+    run the plain version, which ``split`` does not change; CUDA tensors
+    launch the kernel on the grid (B, G, ceil(T / split)), ``split`` the
+    mapper's width, counted in ``paged_decode_attention.launches`` (int8
+    codes with ``k_scale``/``v_scale``:
+    ``paged_decode_attention.int8_launches``), the grid in
+    ``paged_decode_attention.last_grid``.  Sliding windows are not
+    supported by the kernel and raise."""
     if window is not None:
         raise NotImplementedError("paged_decode_attention: sliding windows "
                                   "are not ported (smollm has none)")
@@ -168,32 +199,34 @@ def paged_decode_attention(q, k_cache, v_cache, tables, cache_len, *,
     b, g, r, d = q.shape
     t = k_cache.shape[1]
     block_s = min(int(block_s), t)
+    split = int(split)
+    n_split = decode_splits(t, split)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     if b == 0:
         return out
-    lib = _build.load("paged_decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape = (b, t, g, r, d, tables.shape[1], pb, block_s, float(scale),
-             _DTYPES[q.dtype], stream)
+    ws, tickets = split_buffers(q, n_split, stream)
+    ptrs = (tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr())
+    shape = (b, t, g, r, d, tables.shape[1], pb, block_s, split, n_split,
+             float(scale), _DTYPES[q.dtype], stream)
     if k_scale is None:
-        fn = lib.paged_decode_attention
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-                *shape)
+        rc = _entry("paged_decode_attention")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *ptrs,
+            *shape)
         _build.check(rc, "paged_decode_attention")
         paged_decode_attention.launches += 1
     else:
-        fn = lib.paged_decode_attention_int8
-        fn.argtypes, fn.restype = _INT8_ARGTYPES, ctypes.c_int
-        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-                cache_len.data_ptr(), out.data_ptr(), *shape)
+        rc = _entry("paged_decode_attention_int8")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), *ptrs, *shape)
         _build.check(rc, "paged_decode_attention_int8")
         paged_decode_attention.int8_launches += 1
+    paged_decode_attention.last_grid = (b, g, n_split)
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
+paged_decode_attention.last_grid = None

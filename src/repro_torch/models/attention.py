@@ -15,7 +15,8 @@ decode kernels, chosen as the JAX package's ``attention_decode`` chooses:
 
 With no plan (``decode_block`` None on a non-fused read) the contiguous
 sweep's ``block_s`` is planned here (``plan_cache_block`` under AUTO for
-the tensors' device), so every read goes through a kernel wrapper.
+the tensors' device), and a sweep given no split width gets AUTO's
+(``plan_decode_split``), so every read goes through a kernel wrapper.
 
 The KV pool is updated IN PLACE (``index_put_`` on flat views, slice
 assignment on row caches) where the JAX package rebuilds it
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hw import detect
-from repro_torch.core.mapper import plan_cache_block
+from repro_torch.core.mapper import plan_cache_block, plan_decode_split
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
@@ -173,17 +174,22 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: torch.Tensor, *, cos, sin, write_index,
                      decode_block: Optional[int] = None,
+                     decode_split: Optional[int] = None,
                      page_tables: Optional[torch.Tensor] = None,
                      page_block: Optional[int] = None,
                      paged_decode_block: Optional[int] = None,
+                     paged_decode_split: Optional[int] = None,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode: write the new K/V into the pool (in place), then
     read it through the path the arguments select (module docstring).
     ``pos`` (B,) is each row's position; ``write_index`` is the step's
     ``paged_write_index`` (with ``page_tables``) or ``row_write_index``.
-    ``k_scale``/``v_scale`` mark the int8 paged pool.  Returns
-    (B, 1, d_model)."""
+    ``k_scale``/``v_scale`` mark the int8 paged pool.  The splits are
+    the router's split widths of the two sweeps, passed to the kernels
+    as planned; ``None`` plans AUTO here (``plan_decode_split``), as a
+    ``None`` ``decode_block`` plans the block.  Returns (B, 1,
+    d_model)."""
     q, k, v = project_qkv(params, x, cfg, cos, sin)
     q = q[:, 0]
     if k_scale is not None:
@@ -195,11 +201,18 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         cache_write(k_cache, k[:, 0], write_index)
         cache_write(v_cache, v[:, 0], write_index)
     clen = (pos + 1).to(torch.int32)
+    b, g, r, d = q.shape
     if page_tables is not None and paged_decode_block is not None:
         # fused: the sweep reads the pages through the tables
+        if paged_decode_split is None:
+            paged_decode_split = plan_decode_split(
+                k_cache.shape[1], b * g, int(paged_decode_block), d,
+                detect(q.device), heads_per_group=r,
+                page_block=int(page_block))
         o = paged_decode_attention(q, k_cache, v_cache, page_tables, clen,
                                    page_block=int(page_block),
                                    block_s=int(paged_decode_block),
+                                   split=paged_decode_split,
                                    k_scale=k_scale, v_scale=v_scale)
         return out_proj(params, o[:, None], cfg)
     kr, vr = k_cache, v_cache
@@ -212,8 +225,13 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         kr = paged_gather(k_cache, page_tables, int(page_block))
         vr = paged_gather(v_cache, page_tables, int(page_block))
     if decode_block is None:
-        decode_block = plan_cache_block(kr.shape[1], q.shape[-1],
-                                        detect(q.device),
-                                        heads_per_group=q.shape[2])
-    o = decode_attention(q, kr, vr, clen, block_s=int(decode_block))
+        decode_block = plan_cache_block(kr.shape[1], d, detect(q.device),
+                                        heads_per_group=r)
+        decode_split = None         # planned with its block, below
+    if decode_split is None:
+        decode_split = plan_decode_split(kr.shape[1], b * g,
+                                         int(decode_block), d,
+                                         detect(q.device), heads_per_group=r)
+    o = decode_attention(q, kr, vr, clen, block_s=int(decode_block),
+                         split=decode_split)
     return out_proj(params, o[:, None], cfg)

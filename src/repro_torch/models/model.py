@@ -8,9 +8,10 @@
     logits, cache = m.prefill_chunk(params, cache, chunk_tokens, n_valid,
                                     prefill_tiles=tiles)
     logits, cache = m.decode_step(params, pool_cache, tokens,
-                                  decode_block=...,
+                                  decode_block=..., decode_split=...,
                                   page_tables=..., page_block=16,
-                                  paged_decode_block=...)
+                                  paged_decode_block=...,
+                                  paged_decode_split=...)
 
 The ssm family (Mamba-2) takes ``prefill_tiles=None`` (no attention to
 map) and ignores the decode step's block and page arguments.
@@ -109,9 +110,11 @@ class Model:
                                          prefill_tiles=prefill_tiles)
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, *,
-                    decode_block: Optional[int] = None, page_tables=None,
+                    decode_block: Optional[int] = None,
+                    decode_split: Optional[int] = None, page_tables=None,
                     page_block: Optional[int] = None,
-                    paged_decode_block: Optional[int] = None):
+                    paged_decode_block: Optional[int] = None,
+                    paged_decode_split: Optional[int] = None):
         """One decode step.  ``page_tables`` (B, nb) + ``page_block``
         make the pool paged; ``paged_decode_block`` (the router's paged
         ``block_s``) then fuses the read with the block tables, and
@@ -119,14 +122,18 @@ class Model:
         ``decode_block`` (the router's contiguous ``block_s``) is the
         sweep of the contiguous pool and of the gathered view; ``None``
         plans it (``plan_cache_block``, AUTO) for the cache's length.
-        ssm ignores all four: no attention sweep, no time axis to page."""
+        ``decode_split``/``paged_decode_split`` are the router's split
+        widths of the two sweeps (``None``: ``attention_decode`` plans
+        AUTO).  ssm ignores all six: no attention sweep, no time axis to
+        page."""
         if self.cfg.family == "ssm":
             return ssm_mod.ssm_decode(params, cache, tokens, self.cfg)
         return tf_mod.decode_step(
             params, cache, tokens, self.cfg, decode_block=decode_block,
-            page_tables=page_tables,
+            decode_split=decode_split, page_tables=page_tables,
             page_block=None if page_block is None else int(page_block),
-            paged_decode_block=paged_decode_block)
+            paged_decode_block=paged_decode_block,
+            paged_decode_split=paged_decode_split)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:

@@ -96,8 +96,9 @@ def chunk_prefill_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                cfg: ModelConfig, *, decode_block=None, page_tables=None,
-                page_block=None, paged_decode_block=None):
+                cfg: ModelConfig, *, decode_block=None, decode_split=None,
+                page_tables=None, page_block=None, paged_decode_block=None,
+                paged_decode_split=None):
     """One greedy decode step over the pool: ``cache["pos"]`` is a (B,)
     tensor of per-row positions (ragged rows).  Writes each row's new K/V
     in place and returns (logits (B, 1, V), the cache with ``pos``
@@ -108,8 +109,11 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     into the paged sweep, and without it the read gathers the logical
     view first.  ``decode_block`` is the contiguous sweep's ``block_s``
     (the contiguous pool and the gathered view); ``None`` plans it
-    (``plan_cache_block``, AUTO) for the cache's length.  A cache with ``k_scale``/``v_scale`` is the int8 paged
-    pool.  The branches are ``attention.attention_decode``'s."""
+    (``plan_cache_block``, AUTO) for the cache's length.
+    ``decode_split``/``paged_decode_split`` are the two sweeps' split
+    widths (``None``: AUTO, planned in ``attention_decode``).  A cache with
+    ``k_scale``/``v_scale`` is the int8 paged pool.  The branches are
+    ``attention.attention_decode``'s."""
     pos = cache["pos"]
     x = embed(params["embed"], tokens)
     cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
@@ -125,8 +129,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         x = x + attention_decode(
             lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,
             cos=cos, sin=sin, write_index=index, decode_block=decode_block,
-            page_tables=page_tables, page_block=page_block,
-            paged_decode_block=paged_decode_block,
+            decode_split=decode_split, page_tables=page_tables,
+            page_block=page_block, paged_decode_block=paged_decode_block,
+            paged_decode_split=paged_decode_split,
             k_scale=cache["k_scale"][i] if quant else None,
             v_scale=cache["v_scale"][i] if quant else None)
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))

@@ -3,8 +3,8 @@
 ``BucketSpec`` and ``Bucket`` are copies of the JAX package's lattice:
 live serving geometry rounds UP onto a bounded set of lengths.
 ``BucketRouter`` resolves each bucket's kernel mappings — the
-contiguous decode ``block_s``, the fused paged-decode ``block_s`` and
-the prefill flash tiles — from the port's Eq. 1 mapper (AUTO) over the
+contiguous decode ``block_s`` and split width, the fused paged-decode
+``block_s`` and split width, and the prefill flash tiles — from the port's Eq. 1 mapper (AUTO) over the
 runtime ``GpuParams`` and memoises them per bucket (the tuner cache and
 measured refinement are not ported yet, so a cold bucket is one planner
 call, a warm one a dict hit).  An attention-free config (ssm) plans
@@ -20,7 +20,8 @@ from typing import Optional
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hw import GpuParams
 from repro_torch.core.mapper import (plan_attention_blocks, plan_cache_block,
-                                     plan_paged_block)
+                                     plan_decode_split, plan_paged_block)
+from repro_torch.kernels.decode_attention import check_split
 
 __all__ = ["BucketSpec", "Bucket", "BucketPlan", "RouterStats",
            "BucketRouter"]
@@ -122,15 +123,19 @@ class Bucket:
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
     """A bucket's resolved decode mappings, threaded into the executed
-    decode step: ``decode_block`` is the contiguous sweep's staging chunk
-    (the contiguous pool and the gather-then-sweep read),
-    ``paged_decode_block`` the fused paged sweep's (``None`` for an
-    unpaged engine).  The prefill tiles are resolved per prompt bucket
-    by ``BucketRouter.prefill_tiles``."""
+    decode step: ``decode_block`` and ``decode_split`` are the
+    contiguous sweep's ``block_s`` and split width (the contiguous pool
+    and the gather-then-sweep read), ``paged_decode_block`` and
+    ``paged_decode_split`` the fused paged sweep's (``None`` for an
+    unpaged engine).  The split is ``plan_decode_split`` (AUTO) over the
+    bucket's slots x KV groups.  The prefill tiles are resolved per
+    prompt bucket by ``BucketRouter.prefill_tiles``."""
 
     bucket: Bucket
     decode_block: Optional[int]          # None: attention-free
     paged_decode_block: Optional[int]    # None: unpaged or attention-free
+    decode_split: Optional[int] = None
+    paged_decode_split: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -158,8 +163,8 @@ class BucketRouter:
         tiles = router.prefill_tiles(router.quantize_prompt(plen))
 
     ``page_block=None`` is an unpaged engine (no paged plan).  The int8
-    pool resolves the same blocks as the fp32 one: both decode kernels
-    stage f32 tiles in shared memory whatever the pool stores.
+    pool resolves the same blocks and splits as the fp32 one: the plan
+    sizes the sweep's shared memory for f32 caches, the most it stages.
     """
 
     def __init__(self, cfg: ModelConfig, spec: BucketSpec, *, slots: int,
@@ -191,15 +196,27 @@ class BucketRouter:
         if self.cfg.is_attention_free:
             plan = BucketPlan(bucket, None, None)
         else:
-            d, r = self.cfg.head_dim, self.cfg.heads_per_group
-            paged = None if self.page_block is None else plan_paged_block(
-                bucket.kv_len, d, self.page_block, self.hw,
-                heads_per_group=r)
+            t, d, r = bucket.kv_len, self.cfg.head_dim, \
+                self.cfg.heads_per_group
+            rows = bucket.slots * self.cfg.num_kv_heads
+            block = plan_cache_block(t, d, self.hw, heads_per_group=r)
+            paged = paged_split = None
+            if self.page_block is not None:
+                paged = plan_paged_block(t, d, self.page_block, self.hw,
+                                         heads_per_group=r)
+                paged_split = plan_decode_split(
+                    t, rows, paged, d, self.hw, heads_per_group=r,
+                    page_block=self.page_block)
+            split = plan_decode_split(t, rows, block, d, self.hw,
+                                      heads_per_group=r)
+            # the kernels' split checks, once per plan, not per launch
+            check_split(t, block, split)
+            if paged is not None:
+                check_split(t, paged, paged_split)
             plan = BucketPlan(
-                bucket=bucket,
-                decode_block=plan_cache_block(bucket.kv_len, d, self.hw,
-                                              heads_per_group=r),
-                paged_decode_block=paged)
+                bucket=bucket, decode_block=block,
+                paged_decode_block=paged, decode_split=split,
+                paged_decode_split=paged_split)
         self._plans[bucket.kv_len] = plan
         return plan
 

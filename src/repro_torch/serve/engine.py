@@ -8,7 +8,8 @@ JAX package's ``serve/engine.py`` on PyTorch.
   * the whole pool decodes one token per tick through one step whose
     rows are ragged — every row carries its own position.  By default the
     pool is paged and the attention reads it through the block tables in
-    the fused kernel, at the router's per-bucket ``block_s``;
+    the fused kernel, at the router's per-bucket ``block_s`` and split
+    width (the report records both per pool length);
     ``fused_decode=False`` gathers each row's logical view first and
     sweeps it with the contiguous kernel, ``paged=False`` keeps one
     contiguous cache row per slot, and ``kv_dtype="int8"`` stores the
@@ -81,12 +82,14 @@ class ServeReport:
     router_stats: dict
     pool_growths: int
     #: the bucket plans that executed: kv_len -> the fused paged sweep's
-    #: block_s (fused reads), kv_len -> the contiguous sweep's block_s
-    #: (contiguous pool or gather-then-sweep), and prompt bucket -> flash
-    #: (block_q, block_k)
+    #: block_s and split width (fused reads), kv_len -> the contiguous
+    #: sweep's block_s and split width (contiguous pool or
+    #: gather-then-sweep), and prompt bucket -> flash (block_q, block_k)
     paged_decode_blocks: dict = dataclasses.field(default_factory=dict)
     decode_blocks: dict = dataclasses.field(default_factory=dict)
     prefill_tiles: dict = dataclasses.field(default_factory=dict)
+    paged_decode_splits: dict = dataclasses.field(default_factory=dict)
+    decode_splits: dict = dataclasses.field(default_factory=dict)
 
 
 class ServeEngine:
@@ -187,6 +190,8 @@ class ServeEngine:
         self.pool_growths = 0
         self.executed_paged_blocks: dict[int, int] = {}
         self.executed_decode_blocks: dict[int, int] = {}
+        self.executed_paged_splits: dict[int, int] = {}
+        self.executed_decode_splits: dict[int, int] = {}
         self.executed_prefill_tiles: dict[int, tuple] = {}
         self._t0: Optional[float] = None
         self._skew = 0.0
@@ -393,17 +398,21 @@ class ServeEngine:
             kw = dict(page_tables=self._tables_dev,
                       page_block=self._block_size,
                       paged_decode_block=(plan.paged_decode_block
-                                          if self.fused_decode else None))
+                                          if self.fused_decode else None),
+                      paged_decode_split=plan.paged_decode_split)
+        kv_len = self.pool.kv_len
         if kw.get("paged_decode_block") is not None:
-            self.executed_paged_blocks[self.pool.kv_len] = \
-                plan.paged_decode_block
+            self.executed_paged_blocks[kv_len] = plan.paged_decode_block
+            self.executed_paged_splits[kv_len] = plan.paged_decode_split
         elif plan.decode_block is not None:
-            self.executed_decode_blocks[self.pool.kv_len] = plan.decode_block
+            self.executed_decode_blocks[kv_len] = plan.decode_block
+            self.executed_decode_splits[kv_len] = plan.decode_split
         t0 = time.perf_counter()
         logits, self._cache = self.model.decode_step(
             self.params, self._cache,
             torch.from_numpy(self._tokens).to(self.device),
-            decode_block=plan.decode_block, **kw)
+            decode_block=plan.decode_block, decode_split=plan.decode_split,
+            **kw)
         nxt = logits[:, 0].argmax(-1).cpu().numpy()   # waits for the device
         self.metrics.add_decode_time(time.perf_counter() - t0)
         n_dec = 0
@@ -490,4 +499,6 @@ class ServeEngine:
             paged_decode_blocks=dict(self.executed_paged_blocks),
             decode_blocks=dict(self.executed_decode_blocks),
             prefill_tiles=dict(self.executed_prefill_tiles),
+            paged_decode_splits=dict(self.executed_paged_splits),
+            decode_splits=dict(self.executed_decode_splits),
         )

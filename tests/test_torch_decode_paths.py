@@ -142,7 +142,7 @@ def test_decode_attention_plain_matches_pallas_and_blocked(block):
     length 0 gives zeros, a length past T reads the whole row."""
     q, k, v, clen = _decode_case(block)
     got = da.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, clen)),
-                              block_s=block).numpy()
+                              block_s=block, split=block).numpy()
     # a length past T means the whole row; the JAX sweeps take it
     # clamped (the blocked one would count its zero padding past T)
     jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -194,8 +194,8 @@ def test_int8_paged_decode_plain_matches_pallas(block_s):
     q = rng.standard_normal((b, g, r, d)).astype(np.float32)
     got = pda.paged_decode_attention(
         *(torch.from_numpy(a) for a in (q, kc, vc, tables, clen)),
-        page_block=bs, block_s=block_s, k_scale=torch.from_numpy(ks),
-        v_scale=torch.from_numpy(vs)).numpy()
+        page_block=bs, block_s=block_s, split=block_s,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs)).numpy()
     pal = np.asarray(paged_decode_attention_pallas(
         *(jnp.asarray(a) for a in (q, kc, vc, tables, clen)), page_block=bs,
         block_s=block_s, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
@@ -325,15 +325,16 @@ def test_plan_cache_block_is_hopper_legal(s):
         for policy in ("naive", "fixed", "auto"):
             bs = plan_cache_block(s, 64, hw, policy, heads_per_group=3)
             assert bs % 16 == 0 and 16 <= bs <= -(-s // 16) * 16
-            assert decode_smem_bytes(bs, 64, 3) <= hw.smem_per_block
+            assert decode_smem_bytes(64, 3) <= hw.smem_per_block
 
 
 def test_plan_cache_block_policies_differ():
-    """NAIVE 16, FIXED 512 legalised (432 at head_dim 64, R 3: 512 would
-    overflow 227 KB), AUTO Eq. 1's positions per SM."""
+    """NAIVE 16, FIXED 512 (the split sweep stages at most 32 positions
+    a stage, so its shared memory no longer grows with block_s and 512
+    needs no legalising), AUTO Eq. 1's positions per SM."""
     plans = {p: plan_cache_block(4096, 64, H100, p, heads_per_group=3)
              for p in ("naive", "fixed", "auto")}
-    assert plans == {"naive": 16, "fixed": 432, "auto": 32}
+    assert plans == {"naive": 16, "fixed": 512, "auto": 32}
     assert decode_block_for(4096, 64, H100, 31, 3) == 32
     with pytest.raises(ValueError):
         plan_cache_block(4096, 64, H100, "tuned")

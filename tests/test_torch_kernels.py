@@ -65,7 +65,7 @@ def test_paged_decode_plain_matches_jax(block_s, seed):
     got = pda.paged_decode_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(tables), torch.from_numpy(clen), page_block=16,
-        block_s=block_s).numpy()
+        block_s=block_s, split=block_s).numpy()
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
             jnp.asarray(tables), jnp.asarray(clen))
     ref = np.asarray(paged_decode_attention_ref(*args, page_block=16,
@@ -130,15 +130,15 @@ def test_cpu_tensors_take_plain_and_count_no_launch():
     q, k, v, tables, clen = (torch.from_numpy(a) for a in _paged_case(3))
     before = _counts()
     pda.paged_decode_attention(q, k, v, tables, clen, page_block=16,
-                               block_s=16)
+                               block_s=16, split=16)
     codes = torch.zeros(k.shape, dtype=torch.int8)
     sc = torch.ones(k.shape[0], k.shape[1] // 16, k.shape[2])
     pda.paged_decode_attention(q, codes, codes, tables, clen, page_block=16,
-                               block_s=16, k_scale=sc, v_scale=sc)
+                               block_s=16, split=16, k_scale=sc, v_scale=sc)
     x = torch.zeros(1, 4, 1, 1, 32)
     fa.flash_attention(x, x[:, :, :, 0], x[:, :, :, 0], block_q=16,
                        block_k=16)
-    da.decode_attention(q, k, v, clen, block_s=16)
+    da.decode_attention(q, k, v, clen, block_s=16, split=16)
     pg.paged_gather(k, tables, 16)
     pg.paged_dequant_gather(codes, sc, tables, 16)
     assert _counts() == before
@@ -155,7 +155,7 @@ def test_wrappers_raise_on_masks_they_do_not_take():
     with pytest.raises(NotImplementedError):
         pda.paged_decode_attention(x[:, 0], x[:, 0, :, 0], x[:, 0, :, 0],
                                    None, None, page_block=16, block_s=16,
-                                   window=4)
+                                   split=16, window=4)
 
 
 def test_force_is_scoped_and_validated():
@@ -227,7 +227,7 @@ def test_mapper_plans_are_hopper_legal(seq):
             <= hw.smem_per_block
         bs = plan_paged_block(seq, 64, 16, hw, heads_per_group=3)
         assert bs % 16 == 0 and 16 <= bs <= -(-seq // 16) * 16
-        assert decode_smem_bytes(bs, 64, 3) <= hw.smem_per_block
+        assert decode_smem_bytes(64, 3, 16) <= hw.smem_per_block
 
 
 def test_eq1_reads_hp_from_the_sm_count():
