@@ -41,13 +41,17 @@ Phases, each printing one JSON line:
            (naive, fixed, auto; for ssd the chunk
            ``plan_ssd_chunk(L, hw, policy)``) at the cases of
            ``SUITE_CASES``: each op driven once per policy with its
-           launch counts reset just before and read just after (all ten
-           counts must be above 0; the matmul's two routes count apart:
-           every bf16 case that TMA can take must launch the tensor-core
-           kernel once, and every f32 case and the bf16 case of N = 1532
-           the CUDA-core kernel once); then per case and
-           policy the plan (for matmul its route, both counts and the
-           host's time to enqueue a call),
+           launch counts reset just before and read just after (all
+           twelve counts must be above 0; the matmul's routes count
+           apart: every f32 case must launch the split pass and the
+           3xTF32 product once each, every bf16 case that TMA can take
+           the tensor-core kernel once, the bf16 case of N = 1532 the
+           CUDA-core kernel once, and nothing else); then per case and
+           policy the plan (for matmul its route, its counts and the
+           host's time to enqueue a call; for f32 the split pass held
+           bit for bit against its plain version, the split and the
+           product timed apart, and the route's and ``torch.matmul``'s
+           max error against an f64 product; for rmsnorm the row path),
            the launches of the case's own drive, the resident CTAs per SM
            that the CUDA runtime reports beside the plan's full-residency
            assumption, the error against the plain version
@@ -59,7 +63,9 @@ Phases, each printing one JSON line:
            the roofline bound; for the blur each pass held and timed
            apart, for the aggregation the occupied share of the plan's
            tiles and the occupancy pass and kernel timed apart; then the
-           vecadd sweep (float32, n = 2^12 ... 2^26, the three policies);
+           vecadd sweep (float32, n = 2^12 ... 2^26, the three policies)
+           and the split pass held bit for bit against its plain version
+           on infinities, NaN, the largest floats, subnormals and ties;
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
            requests in bf16 on each path of ``ENGINE_RUNS``: the default
            (fused paged decode) with chunked and with whole-prompt
@@ -658,6 +664,7 @@ F32, BF16 = torch.float32, torch.bfloat16
 CORA = (2708, 1433, 5278)
 PUBMED = (19717, 500, 44324)
 COMMUNITY, LOCAL_P = 256, 0.9
+RMS_MISALIGNED = (64, 1000)      # rmsnorm x 2 bytes past a 16-byte boundary
 # SSD (L, H, P, G, N): one mamba2-1.3b layer over a 2,048-token prompt
 # (d_inner 4096 = 64 heads of 64, one group, state 128), and a ragged L
 # of 1,200 that no policy's chunk divides (the wrapper halves to 16)
@@ -668,12 +675,16 @@ BLUR_SIGMA = 1.0
 # over hp; smollm-135m's decode-row MLP projection (m, n, k) = (8 slots,
 # d_ff, d_model) and its decode rows (8, d_model); the paper's sgemm
 # size and a long-prompt norm; a bf16 projection of 1532 columns (N not a
-# multiple of 8: TMA cannot take it, so bf16 runs the CUDA-core route).  The atypical kernels: the blur (h, w,
-# ksize) of 256^2 (under hp) and of a 16-megapixel frame (62x hp) with
-# halo 2 and 3; nn_search (nq, nr, d) of SIFT-style 128-dim descriptors
+# multiple of 8: TMA cannot take it, so bf16 runs the CUDA-core route).
+# The atypical kernels: the blur (h, w, ksize) of 256^2 (under hp) and of
+# a 16-megapixel frame (62x hp) with halo 2 and 3; nn_search (nq, nr, d) of SIFT-style 128-dim descriptors
 # (gws under hp) and at the workload's default 4 dims (gws ~1.9x hp);
 # GCN aggregation (nodes, features, edges) at Cora's and Pubmed's sizes.
 # Mamba-2's SSD at one mamba2-1.3b layer (f32 and bf16) and a ragged L.
+# Then an f32 product of odd sizes (130, 70, 300) (the 3xTF32 route pads
+# it), and rmsnorm rows of 999 (not whole 16-byte vectors) and rows whose
+# x starts 2 bytes past a 16-byte boundary (``RMS_MISALIGNED``): the
+# scalar path.
 SUITE_CASES = (
     [(op, (n,), F32) for op in ("vecadd", "saxpy")
      for n in (1 << 16, "hp", 1 << 26)]
@@ -691,12 +702,17 @@ SUITE_CASES = (
     + [("gcn_aggregate", CORA, F32)]
     + [("gcn_aggregate", PUBMED, dt) for dt in (F32, BF16)]
     + [("ssd", MAMBA2_LAYER, dt) for dt in (F32, BF16)]
-    + [("ssd", SSD_RAGGED, F32)])
+    + [("ssd", SSD_RAGGED, F32)]
+    # last, so the seeded inputs of every case above stay as they were
+    + [("matmul", (130, 70, 300), F32)]
+    + [("rmsnorm", s, BF16) for s in ((37, 999), RMS_MISALIGNED)])
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
 # tolerances against JAX (tests/test_torch_suite.py,
 # tests/test_torch_suite_atypical.py).  vecadd and saxpy round where
 # their plain versions round; matmul's inputs are scaled by k^-1/4 so its
-# outputs are O(1) and float32 sums over k = 4096 stay within 1e-4.  The
+# outputs are O(1) and float32 sums over k = 4096 stay within 1e-4 (the
+# 3xTF32 route keeps ~21 bits of each operand; one TF32 product would
+# not: tests/test_torch_tf32x3.py).  The
 # blur passes repeat their plain versions' roundings (expected bitwise);
 # the aggregation sums each row in another order.
 SUITE_TOL = {
@@ -781,6 +797,10 @@ def suite_inputs(cases, device):
                          -randn(length, h, dtype=F32).abs() * 0.1,
                          randn(length, g, n, dtype=dtype, scale=0.3),
                          randn(length, g, n, dtype=dtype, scale=0.3))
+        elif shape == RMS_MISALIGNED:           # one bf16 past the start
+            t, d = shape
+            x = randn(t * d + 1, dtype=dtype)[1:].view(t, d)
+            made[key] = (x, randn(d, dtype=dtype))
         else:
             made[key] = (randn(*shape, dtype=dtype),
                          randn(shape[1], dtype=dtype))
@@ -900,7 +920,13 @@ def suite_bound(op, shape, dtype, hw, ins):
     if op == "matmul":
         m, n, k = shape
         w = workload.sgemm(m, n, k, es)
-        return bound((m * k + k * n + m * n) * es, w.total_flops, dtype, hw)
+        nbytes = (m * k + k * n + m * n) * es
+        if dtype == F32:             # 3xTF32: three TF32 products each
+            t_bytes = nbytes / hw.mem_bw * 1e3
+            t_ops = 3 * w.total_flops / hw.peak_flops_tf32 * 1e3
+            return (max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations")
+        return bound(nbytes, w.total_flops, dtype, hw)
     if op == "gaussian_blur":        # two passes, each 2 h w elements
         h, w, k = shape
         return bound(2 * 2 * h * w * es, 2 * 2 * k * h * w, dtype, hw)
@@ -947,7 +973,7 @@ def ssd_bound(shape, dtype, hw):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def suite_occupancy(op, plan, dtype, shape):
+def suite_occupancy(op, plan, dtype, shape, ins):
     from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
                                      saxpy, ssd, stencil, vecadd)
 
@@ -961,8 +987,9 @@ def suite_occupancy(op, plan, dtype, shape):
         return gcn_agg.occupancy(plan, dtype)
     if op == "ssd":
         return ssd.occupancy(plan.legal_chunk, dtype)
-    return {"vecadd": vecadd, "saxpy": saxpy,
-            "rmsnorm": rmsnorm}[op].occupancy(dtype)
+    if op == "rmsnorm":
+        return rmsnorm.occupancy(*ins)
+    return {"vecadd": vecadd, "saxpy": saxpy}[op].occupancy(dtype)
 
 
 def nn_compare(got, want, ins):
@@ -1033,6 +1060,77 @@ def blur_pass_yardsticks(ins, timer):
                              head_start=True)})
 
 
+def matmul_route_launches(shape, dtype):
+    """The launches one ``ops.matmul`` call must make: the split pass and
+    the 3xTF32 product for float32; the tensor-core kernel for bfloat16
+    that TMA can take (K and N multiples of 8); else the CUDA-core
+    kernel."""
+    _, n, k = shape
+    if dtype == F32:
+        return {"matmul_split": 1, "matmul_tf32x3": 1}
+    if n % 8 == 0 and k % 8 == 0:
+        return {"matmul_tc": 1}
+    return {"matmul": 1}
+
+
+def tf32x3_parts(ins, plan, timer):
+    """The 3xTF32 route's two launches apart: the split pass held bit for
+    bit against its plain version and timed, the product timed; and the
+    route's and ``torch.matmul``'s (TF32 off) max error against an f64
+    product of the same inputs."""
+    from repro_torch import kernels
+    from repro_torch.kernels import matmul as mm
+
+    a, b = ins
+    n = b.shape[1]
+    ws = mm.tf32_split(a, b, plan)
+    with kernels.force("plain"):
+        want = mm.tf32_split(a, b, plan)
+    for got, ref, what in zip(ws, want, ("A", "B")):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"tf32x3_split: {what}'s workspaces differ "
+                                 f"from the plain split")
+    del want
+    ref = a.double() @ b.double()
+    err = float((mm.tf32_product(*ws, n, plan).double() - ref).abs().max())
+    lib_err = float((torch.matmul(a, b).double() - ref).abs().max())
+    del ref
+    return dict(
+        f64_max_abs_err=err, library_f64_max_abs_err=lib_err,
+        split_ms=timer.ms(lambda: mm.tf32_split(a, b, plan), head_start=True),
+        product_ms=timer.ms(lambda: mm.tf32_product(*ws, n, plan),
+                            head_start=True))
+
+
+def tf32x3_split_edges(hw, device):
+    """The split pass held bit for bit against its plain version on the
+    values a random operand seldom holds: infinities, NaN, the largest
+    floats (one within half a TF32 step of FLT_MAX, which rounding would
+    take to infinity), subnormals and ties of the TF32 rounding."""
+    from repro_torch.kernels import matmul as mm
+
+    top = float(np.finfo(np.float32).max)
+    ties = (np.float32(1.0).view(np.uint32)
+            | np.array([0x1000, 0x0FFF, 0x1001, 0x1FFF], np.uint32)
+            ).view(np.float32)
+    edge = np.concatenate([
+        np.float32([np.inf, -np.inf, np.nan, top, -top, 3.4027e38, 1e-45,
+                    -1e-45, 1e-40, 0.0, -0.0]), ties, -ties])
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((9, 40)).astype(np.float32)
+    b = rng.standard_normal((40, 13)).astype(np.float32)
+    a.flat[:edge.size], b.flat[-edge.size:] = edge, edge
+    a, b = (torch.from_numpy(t).to(device) for t in (a, b))
+    plan = mm.plan_for(a, b, hw, "auto")
+    got = mm.tf32_split(a, b, plan)
+    want = mm.tf32_split(a.cpu(), b.cpu(), plan)
+    for g, w, what in zip(got, want, ("A", "B")):
+        if not torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"tf32x3_split: {what}'s workspaces differ "
+                                 f"from the plain split on edge values")
+    return int(2 * edge.size)
+
+
 def gcn_parts(ins, plan, timer):
     """The occupied share of the plan's tiles, and the op's two parts
     timed apart: the occupancy pass and the kernel alone."""
@@ -1053,6 +1151,7 @@ SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
                   "saxpy": "src/repro/kernels/saxpy.py:15",
                   "matmul": "src/repro/kernels/matmul.py:24",
                   "matmul_tc": "src/repro/kernels/matmul.py:24",
+                  "matmul_tf32x3": "src/repro/kernels/matmul.py:24",
                   "rmsnorm": "src/repro/kernels/rmsnorm.py:19",
                   "stencil_rows": "src/repro/kernels/stencil.py:40",
                   "stencil_cols": "src/repro/kernels/stencil.py:59",
@@ -1067,12 +1166,14 @@ def suite_phase(hw, timer, device):
     from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
                                      saxpy, ssd, stencil, vecadd)
 
-    # kernel name -> (wrapper, attribute of its launch count); the two
-    # matmul routes count apart
+    # kernel name -> (wrapper, attribute of its launch count); the three
+    # matmul routes count apart, the 3xTF32 route's split and product too
     counters = {"vecadd": (vecadd.vecadd, "launches"),
                 "saxpy": (saxpy.saxpy, "launches"),
                 "matmul": (matmul.matmul, "launches"),
                 "matmul_tc": (matmul.matmul, "tc_launches"),
+                "matmul_split": (matmul.matmul, "split_launches"),
+                "matmul_tf32x3": (matmul.matmul, "tf32_launches"),
                 "rmsnorm": (rmsnorm.rmsnorm, "launches"),
                 "stencil_rows": (stencil.stencil_rows, "launches"),
                 "stencil_cols": (stencil.stencil_cols, "launches"),
@@ -1100,15 +1201,13 @@ def suite_phase(hw, timer, device):
             case_launches[case, policy] = {
                 k: n - before[k] for k, n in counts().items()
                 if n != before[k]}
-            if case[0] == "matmul":   # bf16 that TMA takes: tensor cores
-                _, n, k = case[1]
-                route = "matmul_tc" if case[2] == BF16 and n % 8 == 0 \
-                    and k % 8 == 0 else "matmul"
-                if case_launches[case, policy] != {route: 1}:
+            if case[0] == "matmul":
+                want = matmul_route_launches(*case[1:])
+                if case_launches[case, policy] != want:
                     raise AssertionError(
                         f"suite: matmul {case[1]} {case[2]} {policy} "
-                        f"launched {case_launches[case, policy]}, not one "
-                        f"{route}")
+                        f"launched {case_launches[case, policy]}, not "
+                        f"{want}")
         torch.cuda.synchronize()
         launches[policy] = counts()
         for k, n in launches[policy].items():
@@ -1161,7 +1260,14 @@ def suite_phase(hw, timer, device):
                 extra.update(route=plan.kernel,
                              matmul_launches=launched.get("matmul", 0),
                              matmul_tc_launches=launched.get("matmul_tc", 0),
+                             split_launches=launched.get("matmul_split", 0),
+                             tf32_launches=launched.get("matmul_tf32x3", 0),
                              host_ms=host_ms(call))
+                if plan.kernel == "tf32x3":
+                    extra.update(tf32x3_parts(ins, plan, timer))
+            elif op == "rmsnorm":
+                from repro_torch.kernels.rmsnorm import row_path
+                extra["row_path"] = row_path(*ins)
 
             def plain():
                 with kernels.force("plain"):
@@ -1170,7 +1276,8 @@ def suite_phase(hw, timer, device):
                 op=op, shape=list(shape), dtype=dt, policy=policy,
                 plan={k: (v.value if hasattr(v, "value") else v)
                       for k, v in dataclasses.asdict(plan).items()},
-                resident_ctas_per_sm=suite_occupancy(op, plan, dtype, shape),
+                resident_ctas_per_sm=suite_occupancy(op, plan, dtype, shape,
+                                                     ins),
                 assumed_ctas_per_sm=hw.warps_per_sm * hw.warp_size
                 // plan.threads,
                 max_abs_err=err, atol=atol, rtol=rtol,
@@ -1192,6 +1299,7 @@ def suite_phase(hw, timer, device):
                                 head_start=True) for p in POLICIES}
     emit("suite_sweep", op="vecadd", dtype="float32",
          kernel_ms={str(n): v for n, v in sweep.items()})
+    emit("tf32x3_split_edges", values=tf32x3_split_edges(hw, device))
     emit("suite_done", seconds=time.perf_counter() - t0)
     total = {k: sum(launches[p][k] for p in POLICIES) for k in counters}
     return results, total
@@ -1550,8 +1658,9 @@ def main() -> int:
     for name, op, shape, dt in (
             ("vecadd", "vecadd", (1 << 26,), "float32"),
             ("saxpy", "saxpy", (1 << 26,), "float32"),
-            ("matmul", "matmul", (4096, 4096, 4096), "float32"),
+            ("matmul", "matmul", (8, 1532, 576), "bfloat16"),
             ("matmul_tc", "matmul", (4096, 4096, 4096), "bfloat16"),
+            ("matmul_tf32x3", "matmul", (4096, 4096, 4096), "float32"),
             ("rmsnorm", "rmsnorm", (16384, 4096), "bfloat16"),
             ("stencil_rows", "gaussian_blur", (4096, 4096, 5), "float32"),
             ("stencil_cols", "gaussian_blur", (4096, 4096, 5), "float32"),
@@ -1576,6 +1685,14 @@ def main() -> int:
             row["shape"] += f", chunk {e['plan']['legal_chunk']}"
         elif name.startswith("matmul"):
             row["shape"] += f", {e['route']} route"
+            if name == "matmul_tf32x3":        # ms: the split + the product
+                row.update(split_ms=e["split_ms"], product_ms=e["product_ms"],
+                           split_launches=suite_launches["matmul_split"],
+                           f64_max_abs_err=e["f64_max_abs_err"],
+                           library_f64_max_abs_err=e[
+                               "library_f64_max_abs_err"])
+        elif name == "rmsnorm":
+            row["shape"] += f", {e['row_path']} path"
         src = "stencil" if name.startswith("stencil_") else name
         summary.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{src}.cu",

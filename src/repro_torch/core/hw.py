@@ -40,6 +40,7 @@ class GpuParams:
     mem_bw: float = 3.35e12
     peak_flops_bf16: float = 989e12  # dense tensor-core rate
     peak_flops_fp32: float = 67e12   # CUDA-core rate (no tensor cores)
+    peak_flops_tf32: float = 495e12  # dense tensor-core rate, TF32 inputs
 
     def hp(self) -> int:
         """Eq. 1's ``hp = cores x warps x threads`` on a GPU."""
@@ -58,7 +59,8 @@ GPU_REGISTRY: dict[str, GpuParams] = {
     # geometry is Hopper's, scaled to a few SMs
     "cpu": GpuParams(name="cpu", sm_count=8, warps_per_sm=64,
                      mem_bytes=8 * 1024**3, mem_bw=50e9,
-                     peak_flops_bf16=1e12, peak_flops_fp32=1e12),
+                     peak_flops_bf16=1e12, peak_flops_fp32=1e12,
+                     peak_flops_tf32=1e12),
 }
 
 

@@ -55,6 +55,14 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     least the prefetch ring runs with) up to 4.  At
     4096^3 AUTO's 63 -> 64 gives a 128 x 128 tile (the same tile as the
     float32 plan), FIXED's 32 128 x 64 and NAIVE's 1 -> 4 128 x 8.
+    float32 operands plan ``kernel="tf32x3"`` (``csrc/matmul_tf32x3.cu``:
+    3xTF32 products on the tensor cores from padded, K-major big and
+    small halves of A and B): the same warpgroup tile and the same
+    ``lws`` -> BN rule, but ``lws`` at most 64 (BN 8 ... 128: a thread
+    keeps a K step's partial and the f32 sum, BN f32), so at 4096^3
+    NAIVE plans 128 x 8, FIXED 128 x 64 and AUTO 128 x 128; ``bk`` is 32
+    (128 bytes of f32) and a stage holds four tiles (A and B, big and
+    small), so ``stages`` is as many as fit from 2 to 4: 3 at 128 x 128.
 
   * gaussian blur (two passes, one plan): a work item is one output
     pixel, ``gws = h w``, ``hp = GpuParams.hp()``; ``lws`` = pixels per
@@ -148,7 +156,8 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "BlockPlan", "plan_vector_blocks", "vector_plan_for_block",
            "plan_rows", "row_plan_for_block", "MatmulPlan",
            "plan_matmul_blocks", "matmul_plan_for_blocks",
-           "matmul_smem_bytes", "matmul_tc_smem_bytes", "StencilPlan",
+           "matmul_smem_bytes", "matmul_tc_smem_bytes",
+           "matmul_tf32x3_smem_bytes", "StencilPlan",
            "plan_stencil", "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
            "plan_nn", "nn_plan_for_block", "nn_block_r", "nn_smem_bytes",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
@@ -171,6 +180,8 @@ MM_BK = 32
 MM_TC_BK = 64             # tensor-core matmul: 128 bytes of bf16 a K step
 MM_TC_MAX_STAGES = 4
 MM_TC_LWS = (4, 128)      # BN = 2 lws from 8 to 256
+MM_TF32_BK = 32           # 3xTF32 matmul: 128 bytes of f32 a K step
+MM_TF32_LWS = (4, 64)     # BN 8 to 128: a partial and a sum a thread
 STENCIL_TILE_W = 256      # blur CTA: 256 columns, one per thread
 MAX_KSIZE = 63            # blur taps passed by value (csrc/stencil.cu)
 NN_BLOCK_R = 512          # the JAX default ref block, cut to fit on Hopper
@@ -316,8 +327,10 @@ class MatmulPlan:
     = (16 tm) x (16 tn)`` output tile and sweeps K in ``bk`` steps staged
     in shared memory.  ``kernel`` "tensor_core": ``bm / 64`` warpgroups
     own a ``bm x bn`` tile, a thread ``tm x tn = 2 x bn / 4`` outputs, K
-    swept in ``bk`` = 64 steps through ``stages`` TMA stages.  ``grid``
-    is (n tiles, m tiles)."""
+    swept in ``bk`` = 64 steps through ``stages`` TMA stages.  ``kernel``
+    "tf32x3": the same warpgroup tile over f32 operands split into TF32
+    big and small halves, ``bk`` = 32.  ``grid`` is (n tiles, m
+    tiles)."""
 
     policy: MappingPolicy
     lws: int
@@ -350,13 +363,23 @@ def matmul_tc_smem_bytes(bm: int, bn: int, stages: int) -> int:
         + 1024
 
 
+def matmul_tf32x3_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of ``csrc/matmul_tf32x3.cu``'s product:
+    ``stages`` x (A big, A small: bm x 32 f32; B big, B small: bn x 32
+    f32, K-major), two mbarriers a stage (room for 4), and 1024 bytes to
+    align the tiles on the swizzle atom."""
+    return stages * (bm + bn) * MM_TF32_BK * 4 * 2 \
+        + 2 * MM_TC_MAX_STAGES * 8 + 1024
+
+
 def plan_matmul_blocks(m: int, n: int, k: int, hw: GpuParams,
                        policy: MappingPolicy = MappingPolicy.AUTO,
                        kernel: str = "cuda_core") -> MatmulPlan:
     """Map ``C[m,n] = A[m,k] @ B[k,n]`` onto the card: ``lws`` outputs
     per thread from the policy, legalised to a micro-tile of the
     CUDA-core kernel (``kernel="cuda_core"``) or to a warpgroup tile of
-    the tensor-core kernel (``kernel="tensor_core"``).
+    the bf16 tensor-core kernel (``kernel="tensor_core"``) or of the
+    3xTF32 kernel (``kernel="tf32x3"``).
 
     Example::
 
@@ -368,6 +391,10 @@ def plan_matmul_blocks(m: int, n: int, k: int, hw: GpuParams,
         ...                        "naive", kernel="tensor_core")
         >>> t.kernel, (t.bm, t.bn), t.bk, t.stages
         ('tensor_core', (128, 8), 64, 4)
+        >>> f = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"],
+        ...                        kernel="tf32x3")
+        >>> f.kernel, (f.bm, f.bn), f.bk, f.stages
+        ('tf32x3', (128, 128), 32, 3)
     """
     lws = _policy_lws(policy, m * n, hw.hp())
     return matmul_plan_for_blocks(m, n, k, hw, lws, MM_BK, policy, kernel)
@@ -381,13 +408,13 @@ def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
     register budget), split as ``tm x tn`` with ``tn >= tm``; each tile
     side halved while half still covers the matrix; ``bk`` a multiple of
     16, at most K rounded up to 16, shrunk while the staged tiles
-    overflow shared memory.  "tensor_core": the warpgroup tile of the
-    module docstring (``bk`` is always 64)."""
-    if kernel == "tensor_core":
-        return _matmul_tc_plan(m, n, hw, lws, policy)
+    overflow shared memory.  "tensor_core" and "tf32x3": the warpgroup
+    tile of the module docstring (``bk`` is always 64, resp. 32)."""
+    if kernel in ("tensor_core", "tf32x3"):
+        return _matmul_tc_plan(m, n, hw, lws, policy, kernel)
     if kernel != "cuda_core":
-        raise ValueError(f"no matmul kernel {kernel!r}: cuda_core or "
-                         f"tensor_core")
+        raise ValueError(f"no matmul kernel {kernel!r}: tf32x3, cuda_core "
+                         f"or tensor_core")
     t = MM_THREAD_GRID
     lws = min(max(1, int(lws)), MM_MAX_TILE * MM_MAX_TILE)
     e = (lws - 1).bit_length()                      # 2**e >= lws
@@ -412,27 +439,28 @@ def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
 
 
 def _matmul_tc_plan(m: int, n: int, hw: GpuParams, lws: int,
-                    policy: MappingPolicy) -> MatmulPlan:
-    lo, hi = MM_TC_LWS
+                    policy: MappingPolicy, kernel: str) -> MatmulPlan:
+    lo, hi = MM_TC_LWS if kernel == "tensor_core" else MM_TF32_LWS
     lws = 1 << (min(max(lo, int(lws)), hi) - 1).bit_length()
     bn = 2 * lws
     while bn > 2 * lo and bn // 2 >= n:
         bn //= 2
     bm = 64 if m <= 64 else 128
+    bk, smem_bytes = (MM_TC_BK, matmul_tc_smem_bytes) \
+        if kernel == "tensor_core" else (MM_TF32_BK, matmul_tf32x3_smem_bytes)
     stages = MM_TC_MAX_STAGES
-    while stages > 2 and matmul_tc_smem_bytes(bm, bn, stages) \
-            > hw.smem_per_block:
+    while stages > 2 and smem_bytes(bm, bn, stages) > hw.smem_per_block:
         stages -= 1
-    smem = matmul_tc_smem_bytes(bm, bn, stages)
+    smem = smem_bytes(bm, bn, stages)
     if smem > hw.smem_per_block:
         raise ValueError(f"no legal tensor-core matmul tile: {smem} B of "
                          f"shared memory")
     grid = (ceil_div(n, bn), ceil_div(m, bm))
     return MatmulPlan(policy=MappingPolicy(policy), lws=bn // 2, tm=2,
-                      tn=bn // 4, bm=bm, bn=bn, bk=MM_TC_BK, threads=2 * bm,
+                      tn=bn // 4, bm=bm, bn=bn, bk=bk, threads=2 * bm,
                       grid=grid, rounds=_rounds(grid[0] * grid[1], hw),
                       regime=classify_regime(bn // 2, m * n, hw.hp()),
-                      smem_bytes=smem, kernel="tensor_core", stages=stages)
+                      smem_bytes=smem, kernel=kernel, stages=stages)
 
 
 # --------------------------------------------------------------------------- #

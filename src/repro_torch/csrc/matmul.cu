@@ -1,15 +1,17 @@
 // Tiled matmul, C[M, N] = A[M, K] @ B[K, N] with an fp32 accumulator,
-// for Hopper (sm_90a).
+// on the CUDA cores, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/matmul.py::_matmul_kernel (the Pallas
-// kernel that matmul_pallas launches at :66), the paper's sgemm.
+// kernel that matmul_pallas launches at :66), the paper's sgemm, for the
+// bf16 operands the tensor-core kernel cannot take (K or N not a
+// multiple of 8, or a pointer off 16 bytes: TMA needs 16-byte strides).
+// float32 operands run as 3xTF32 on the tensor cores
+// (csrc/matmul_tf32x3.cu), other bf16 ones on csrc/matmul_tc.cu.
 //
 // Bound on the H100: 2 M N K FLOPs against (M K + K N) inputs read and
-// M N outputs written; at 4096^3 that is ~700 FLOP/byte, far above the
-// machine balance, so operations bound it: 2 M N K over 989 TF/s for
-// bf16 inputs (the tensor cores) or 67 TF/s for fp32 (the CUDA cores).
-// This kernel runs on the CUDA cores for both, so in bf16 it is far from
-// its bound: reaching it needs wgmma fed by TMA, work for a later PR.
+// M N outputs written; at 4096^3 that is ~1,400 FLOP/byte, far above the
+// machine balance, so operations bound it: 2 M N K over 989 TF/s, the
+// bf16 tensor-core rate, which this kernel (scalar fmaf) cannot reach.
 //
 // Design: the mapping policy decides lws, the number of outputs a thread
 // owns, held in registers as a TM x TN micro-tile.  A CTA is a 16 x 16
@@ -23,7 +25,7 @@
 // and so are template parameters: 1, 2, 4 or 8 each (lws = TM TN from 1
 // to 64; an 8 x 8 tile already takes ~100 registers a thread).  Edges
 // are zero-filled on load and masked on store: no padded copies.
-// Inputs fp32 or bf16 (A and B alike); output fp32 or bf16.
+// Inputs bf16; output fp32 or bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,14 +35,10 @@ namespace {
 constexpr int kGrid = 16;                   // 16 x 16 threads per CTA
 constexpr int kThreads = kGrid * kGrid;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T, int TM, int TN>
+template <int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
-matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
+matmul_kernel(const __nv_bfloat16* __restrict__ A,
+              const __nv_bfloat16* __restrict__ B,
               void* __restrict__ C, int M, int N, int K, int bk,
               int out_bf16) {
   constexpr int BM = kGrid * TM, BN = kGrid * TN, LDA = BM + 1;
@@ -62,13 +60,15 @@ matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
       const int r = e / bk, c = e % bk;
       const int gr = row0 + r, gc = k0 + c;
       As[c * LDA + r] =
-          (gr < M && gc < K) ? to_f32(A[(size_t)gr * K + gc]) : 0.f;
+          (gr < M && gc < K) ? __bfloat162float(A[(size_t)gr * K + gc])
+                             : 0.f;
     }
     for (int e = tid; e < bk * BN; e += kThreads) {
       const int r = e / BN, c = e % BN;
       const int gr = k0 + r, gc = col0 + c;
       Bs[r * BN + c] =
-          (gr < K && gc < N) ? to_f32(B[(size_t)gr * N + gc]) : 0.f;
+          (gr < K && gc < N) ? __bfloat162float(B[(size_t)gr * N + gc])
+                             : 0.f;
     }
     __syncthreads();
     for (int kk = 0; kk < bk; ++kk) {
@@ -108,69 +108,68 @@ size_t smem_bytes(int tm, int tn, int bk) {
   return sizeof(float) * (size_t)bk * ((kGrid * tm + 1) + kGrid * tn);
 }
 
-template <typename T, int TM, int TN>
+template <int TM, int TN>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
            int bk, int out_bf16, cudaStream_t stream) {
   const size_t smem = smem_bytes(TM, TN, bk);
   cudaError_t err = cudaFuncSetAttribute(
-      matmul_kernel<T, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      matmul_kernel<TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kGrid * TN - 1) / (kGrid * TN),
                   (M + kGrid * TM - 1) / (kGrid * TM));
-  matmul_kernel<T, TM, TN><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), c, M, N, K, bk,
-      out_bf16);
+  matmul_kernel<TM, TN><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), c, M, N, K, bk, out_bf16);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TM, int TN>
+template <int TM, int TN>
 int occupancy(int bk, int* blocks) {
   const size_t smem = smem_bytes(TM, TN, bk);
   cudaError_t err = cudaFuncSetAttribute(
-      matmul_kernel<T, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      matmul_kernel<TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, matmul_kernel<T, TM, TN>, kThreads, smem);
+      blocks, matmul_kernel<TM, TN>, kThreads, smem);
 }
 
-// One call per (T, TM, TN) instantiation: F is launch or occupancy.
-#define MATMUL_DISPATCH_TN(T, TM, F, ...)                    \
+// One call per (TM, TN) instantiation: F is launch or occupancy.
+#define MATMUL_DISPATCH_TN(TM, F, ...)                       \
   switch (tn) {                                              \
-    case 1: return F<T, TM, 1>(__VA_ARGS__);                 \
-    case 2: return F<T, TM, 2>(__VA_ARGS__);                 \
-    case 4: return F<T, TM, 4>(__VA_ARGS__);                 \
-    case 8: return F<T, TM, 8>(__VA_ARGS__);                 \
+    case 1: return F<TM, 1>(__VA_ARGS__);                    \
+    case 2: return F<TM, 2>(__VA_ARGS__);                    \
+    case 4: return F<TM, 4>(__VA_ARGS__);                    \
+    case 8: return F<TM, 8>(__VA_ARGS__);                    \
   }                                                          \
   return (int)cudaErrorInvalidValue;
 
-#define MATMUL_DISPATCH(T, F, ...)                                   \
+#define MATMUL_DISPATCH(F, ...)                                      \
   switch (tm) {                                                      \
-    case 1: { MATMUL_DISPATCH_TN(T, 1, F, __VA_ARGS__) }             \
-    case 2: { MATMUL_DISPATCH_TN(T, 2, F, __VA_ARGS__) }             \
-    case 4: { MATMUL_DISPATCH_TN(T, 4, F, __VA_ARGS__) }             \
-    case 8: { MATMUL_DISPATCH_TN(T, 8, F, __VA_ARGS__) }             \
+    case 1: { MATMUL_DISPATCH_TN(1, F, __VA_ARGS__) }                \
+    case 2: { MATMUL_DISPATCH_TN(2, F, __VA_ARGS__) }                \
+    case 4: { MATMUL_DISPATCH_TN(4, F, __VA_ARGS__) }                \
+    case 8: { MATMUL_DISPATCH_TN(8, F, __VA_ARGS__) }                \
   }                                                                  \
   return (int)cudaErrorInvalidValue;
 
-template <typename T>
 int launch_tile(int tm, int tn, const void* a, const void* b, void* c,
                 int M, int N, int K, int bk, int out_bf16,
                 cudaStream_t st) {
-  MATMUL_DISPATCH(T, launch, a, b, c, M, N, K, bk, out_bf16, st)
+  MATMUL_DISPATCH(launch, a, b, c, M, N, K, bk, out_bf16, st)
 }
 
-template <typename T>
 int occupancy_tile(int tm, int tn, int bk, int* blocks) {
-  MATMUL_DISPATCH(T, occupancy, bk, blocks)
+  MATMUL_DISPATCH(occupancy, bk, blocks)
 }
 
 }  // namespace
 
-// dtype (of A and B) and out_dtype: 0 = float32, 1 = bfloat16; tm, tn in
-// {1, 2, 4, 8}; bk a multiple of 16.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// dtype (of A and B): 1 = bfloat16 (float32, 0, is refused: it runs as
+// 3xTF32); out_dtype: 0 = float32, 1 = bfloat16; tm, tn in {1, 2, 4,
+// 8}; bk a multiple of 16.  Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int matmul(const void* a, const void* b, void* c, int M, int N,
                       int K, int tm, int tn, int bk, int dtype,
                       int out_dtype, void* stream) {
@@ -178,21 +177,17 @@ extern "C" int matmul(const void* a, const void* b, void* c, int M, int N,
       bk < 16 || bk % 16 != 0 || (out_dtype != 0 && out_dtype != 1) ||
       (M + kGrid * tm - 1) / (kGrid * tm) > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_tile<float>(tm, tn, a, b, c, M, N, K, bk, out_dtype, st);
-  if (dtype == 1)
-    return launch_tile<__nv_bfloat16>(tm, tn, a, b, c, M, N, K, bk,
-                                      out_dtype, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return launch_tile(tm, tn, a, b, c, M, N, K, bk, out_dtype,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// Resident CTAs per SM that the CUDA runtime reports for one instantiation.
+// Resident CTAs per SM that the CUDA runtime reports for one instantiation
+// (dtype 1, bfloat16, as for matmul).
 extern "C" int matmul_occupancy(int tm, int tn, int bk, int dtype,
                                 int* blocks) {
-  if (!legal_tile(tm) || !legal_tile(tn) || bk < 16 || bk % 16 != 0)
+  if (!legal_tile(tm) || !legal_tile(tn) || bk < 16 || bk % 16 != 0 ||
+      dtype != 1)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return occupancy_tile<float>(tm, tn, bk, blocks);
-  if (dtype == 1) return occupancy_tile<__nv_bfloat16>(tm, tn, bk, blocks);
-  return (int)cudaErrorInvalidValue;
+  return occupancy_tile(tm, tn, bk, blocks);
 }

@@ -34,7 +34,9 @@
 // TMA fills loads past the edges with zeros (M = 8 decode rows, ragged K).
 // The TMA descriptors are encoded on the host for each call
 // (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint so no
-// -lcuda is needed) and passed as __grid_constant__ parameters.
+// -lcuda is needed) and passed as __grid_constant__ parameters.  The
+// TMA, mbarrier and wgmma helpers are csrc/tma_wgmma.cuh's, shared with
+// csrc/matmul_tf32x3.cu.
 //
 // Takes: A (M, K) and B (K, N) row-major bf16, K and N multiples of 8 (16-
 // byte row strides), 16-byte-aligned pointers; C (M, N) f32 or bf16.
@@ -44,7 +46,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "smem_optin.cuh"
+#include "tma_wgmma.cuh"
+
 namespace {
+
+using namespace tma_wgmma;
 
 constexpr int kBK = 64;            // K step: 128 bytes of bf16
 constexpr int kMaxStages = 4;
@@ -64,82 +73,6 @@ struct BTile {
   static constexpr uint32_t kKGroup = 8 * kPitch;
   static constexpr uint32_t kMNStride = kBoxes > 1 ? kBoxBytes : kKGroup;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory matrix descriptor
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers while a wgmma
-// that writes them is in flight
-template <int R>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D(64 x N, f32) += A(64 x 16, K-major) B(16 x N, MN-major)
 template <int N>
@@ -381,31 +314,6 @@ matmul_tc_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeFn>(p);
-  }
-  return fn;
-}
-
 // a 2-D row-major bf16 tensor (rows, cols) read in (box_rows, box_cols) boxes
 bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
             int box_rows, int box_cols, int pitch_bytes) {
@@ -431,10 +339,9 @@ size_t smem_bytes(int bm, int bn, int stages) {
 }
 
 template <int BN, int WGS>
-cudaError_t set_smem(int stages) {
-  return cudaFuncSetAttribute(matmul_tc_kernel<BN, WGS>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(64 * WGS, BN, stages));
+cudaError_t allow_smem() {
+  static std::atomic<unsigned> devices{0};
+  return smem_optin::allow((const void*)matmul_tc_kernel<BN, WGS>, devices);
 }
 
 template <int BN, int WGS>
@@ -442,7 +349,7 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
            int stages, int out_bf16, cudaStream_t stream) {
   using BT = BTile<BN>;
   constexpr int BM = 64 * WGS;
-  cudaError_t err = set_smem<BN, WGS>(stages);
+  cudaError_t err = allow_smem<BN, WGS>();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap ta, tb;
   if (!encode(&ta, a, M, K, BM, kBK, 128) ||
@@ -457,7 +364,7 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
 
 template <int BN, int WGS>
 int occupancy(int stages, int* blocks) {
-  cudaError_t err = set_smem<BN, WGS>(stages);
+  cudaError_t err = allow_smem<BN, WGS>();
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, matmul_tc_kernel<BN, WGS>, kWG * WGS,

@@ -101,8 +101,10 @@ def saxpy(a, x, y, *, policy=None, hw: Optional[GpuParams] = None):
 def matmul(a, b, *, policy=None, out_dtype=None,
            hw: Optional[GpuParams] = None):
     """``a @ b``, planned for the kernel of the operands' route
-    (``kernels.matmul.route``): bfloat16 that TMA can take on the tensor
-    cores, everything else on the CUDA cores."""
+    (``kernels.matmul.route``): float32 as three TF32 products on the
+    tensor cores ("tf32x3"), bfloat16 that TMA can take on the tensor
+    cores ("tensor_core"), other bfloat16 on the CUDA cores
+    ("cuda_core")."""
     plan = _matmul.plan_for(a, b, _hw(a, hw), _resolve(policy))
     return _matmul.matmul(a, b, plan=plan, out_dtype=out_dtype)
 

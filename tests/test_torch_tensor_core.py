@@ -141,7 +141,7 @@ def _route_case(case):
     if case == "bf16":
         return a, b, "tensor_core"
     if case == "f32":
-        return a.float(), b.float(), "cuda_core"
+        return a.float(), b.float(), "tf32x3"
     if case == "k_not_8":
         return a[:, :12].contiguous(), b[:12].contiguous(), "cuda_core"
     if case == "n_not_8":
