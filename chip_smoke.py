@@ -42,16 +42,18 @@ Phases, each printing one JSON line:
            ``plan_ssd_chunk(L, hw, policy)``) at the cases of
            ``SUITE_CASES``: each op driven once per policy with its
            launch counts reset just before and read just after (all
-           twelve counts must be above 0; the matmul's routes count
+           eleven counts must be above 0; the matmul's routes count
            apart: every f32 case must launch the split pass and the
-           3xTF32 product once each, every bf16 case that TMA can take
-           the tensor-core kernel once, the bf16 case of N = 1532 the
-           CUDA-core kernel once, and nothing else); then per case and
-           policy the plan (for matmul its route, its counts and the
-           host's time to enqueue a call; for f32 the split pass held
-           bit for bit against its plain version, the split and the
-           product timed apart, and the route's and ``torch.matmul``'s
-           max error against an f64 product; for rmsnorm the row path),
+           3xTF32 product once each, every bf16 case, odd shapes and
+           pointers included, the tensor-core kernel once, and nothing
+           else); then per case and policy the plan (for matmul its
+           route, its counts, the bytes of each operand's copies (16:
+           TMA) and the host's time to enqueue a call; for f32 the split
+           pass held bit for bit against its plain version, the split
+           and the product timed apart, and the route's and
+           ``torch.matmul``'s max error against an f64 product; for
+           vecadd the 16-byte vectors a thread takes (0: scalars); for
+           rmsnorm the row path),
            the launches of the case's own drive, the resident CTAs per SM
            that the CUDA runtime reports beside the plan's full-residency
            assumption, the error against the plain version
@@ -63,9 +65,14 @@ Phases, each printing one JSON line:
            the roofline bound; for the blur each pass held and timed
            apart, for the aggregation the occupied share of the plan's
            tiles and the occupancy pass and kernel timed apart; then the
-           vecadd sweep (float32, n = 2^12 ... 2^26, the three policies)
-           and the split pass held bit for bit against its plain version
-           on infinities, NaN, the largest floats, subnormals and ties;
+           vecadd sweep (float32, n = 2^12 ... 2^26, the three policies),
+           the split pass held bit for bit against its plain version
+           on infinities, NaN, the largest floats, subnormals and ties,
+           and the bf16 kernel's copy loader against TMA
+           (``tc_loader_check``): at every tile the same operands 2, 4
+           and 8 bytes off a 16-byte boundary (A, B, both) bit for bit
+           equal to TMA's product, and odd K and N against the plain
+           version;
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
            requests in bf16 on each path of ``ENGINE_RUNS``: the default
            (fused paged decode) with chunked and with whole-prompt
@@ -665,6 +672,7 @@ CORA = (2708, 1433, 5278)
 PUBMED = (19717, 500, 44324)
 COMMUNITY, LOCAL_P = 256, 0.9
 RMS_MISALIGNED = (64, 1000)      # rmsnorm x 2 bytes past a 16-byte boundary
+MM_MISALIGNED = (8, 576, 576)    # matmul A 2 bytes past a 16-byte boundary
 # SSD (L, H, P, G, N): one mamba2-1.3b layer over a 2,048-token prompt
 # (d_inner 4096 = 64 heads of 64, one group, state 128), and a ragged L
 # of 1,200 that no policy's chunk divides (the wrapper halves to 16)
@@ -675,7 +683,7 @@ BLUR_SIGMA = 1.0
 # over hp; smollm-135m's decode-row MLP projection (m, n, k) = (8 slots,
 # d_ff, d_model) and its decode rows (8, d_model); the paper's sgemm
 # size and a long-prompt norm; a bf16 projection of 1532 columns (N not a
-# multiple of 8: TMA cannot take it, so bf16 runs the CUDA-core route).
+# multiple of 8: TMA cannot take B, the kernel copies it).
 # The atypical kernels: the blur (h, w, ksize) of 256^2 (under hp) and of
 # a 16-megapixel frame (62x hp) with halo 2 and 3; nn_search (nq, nr, d) of SIFT-style 128-dim descriptors
 # (gws under hp) and at the workload's default 4 dims (gws ~1.9x hp);
@@ -684,7 +692,13 @@ BLUR_SIGMA = 1.0
 # Then an f32 product of odd sizes (130, 70, 300) (the 3xTF32 route pads
 # it), and rmsnorm rows of 999 (not whole 16-byte vectors) and rows whose
 # x starts 2 bytes past a 16-byte boundary (``RMS_MISALIGNED``): the
-# scalar path.
+# scalar path.  Then bf16 products TMA cannot take, each operand copied
+# by the kernel: (130, 70, 300) (K and N not multiples of 8: A in 8-byte
+# copies, B in 4), (130, 1001, 257) (K and N odd: both in 2-byte copies)
+# and smollm's decode-row output projection (8, 576, 576) with A 2 bytes
+# past a 16-byte boundary (``MM_MISALIGNED``: A in 2-byte copies, B by
+# TMA); and the sgemm size with N 4 or 1 short of 4096 (B in 8- or
+# 2-byte copies at the large tiles).
 SUITE_CASES = (
     [(op, (n,), F32) for op in ("vecadd", "saxpy")
      for n in (1 << 16, "hp", 1 << 26)]
@@ -705,7 +719,10 @@ SUITE_CASES = (
     + [("ssd", SSD_RAGGED, F32)]
     # last, so the seeded inputs of every case above stay as they were
     + [("matmul", (130, 70, 300), F32)]
-    + [("rmsnorm", s, BF16) for s in ((37, 999), RMS_MISALIGNED)])
+    + [("rmsnorm", s, BF16) for s in ((37, 999), RMS_MISALIGNED)]
+    + [("matmul", s, BF16) for s in ((130, 70, 300), (130, 1001, 257),
+                                     MM_MISALIGNED, (4096, 4092, 4096),
+                                     (4096, 4095, 4096))])
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
 # tolerances against JAX (tests/test_torch_suite.py,
 # tests/test_torch_suite_atypical.py).  vecadd and saxpy round where
@@ -781,8 +798,12 @@ def suite_inputs(cases, device):
                          randn(*shape, dtype=dtype))
         elif op == "matmul":
             m, n, k = shape
-            made[key] = (randn(m, k, dtype=dtype, scale=k ** -0.25),
-                         randn(k, n, dtype=dtype, scale=k ** -0.25))
+            if shape == MM_MISALIGNED:          # one bf16 past the start
+                a = randn(m * k + 1, dtype=dtype,
+                          scale=k ** -0.25)[1:].view(m, k)
+            else:
+                a = randn(m, k, dtype=dtype, scale=k ** -0.25)
+            made[key] = (a, randn(k, n, dtype=dtype, scale=k ** -0.25))
         elif op == "gaussian_blur":
             made[key] = (randn(*shape[:2], dtype=dtype), shape[2])
         elif op == "nn_search":
@@ -978,7 +999,7 @@ def suite_occupancy(op, plan, dtype, shape, ins):
                                      saxpy, ssd, stencil, vecadd)
 
     if op == "matmul":
-        return matmul.occupancy(plan, dtype)
+        return matmul.occupancy(plan, *ins)
     if op == "gaussian_blur":
         return {p: stencil.occupancy(p, plan, dtype) for p in ("rows", "cols")}
     if op == "nn_search":
@@ -989,7 +1010,9 @@ def suite_occupancy(op, plan, dtype, shape, ins):
         return ssd.occupancy(plan.legal_chunk, dtype)
     if op == "rmsnorm":
         return rmsnorm.occupancy(*ins)
-    return {"vecadd": vecadd, "saxpy": saxpy}[op].occupancy(dtype)
+    if op == "vecadd":
+        return vecadd.occupancy(dtype, vecadd.vector_steps(plan, *ins) > 0)
+    return saxpy.occupancy(dtype)
 
 
 def nn_compare(got, want, ins):
@@ -1060,17 +1083,13 @@ def blur_pass_yardsticks(ins, timer):
                              head_start=True)})
 
 
-def matmul_route_launches(shape, dtype):
+def matmul_route_launches(dtype):
     """The launches one ``ops.matmul`` call must make: the split pass and
-    the 3xTF32 product for float32; the tensor-core kernel for bfloat16
-    that TMA can take (K and N multiples of 8); else the CUDA-core
-    kernel."""
-    _, n, k = shape
+    the 3xTF32 product for float32; the tensor-core kernel for bfloat16,
+    whatever the shape or alignment."""
     if dtype == F32:
         return {"matmul_split": 1, "matmul_tf32x3": 1}
-    if n % 8 == 0 and k % 8 == 0:
-        return {"matmul_tc": 1}
-    return {"matmul": 1}
+    return {"matmul_tc": 1}
 
 
 def tf32x3_parts(ins, plan, timer):
@@ -1131,6 +1150,80 @@ def tf32x3_split_edges(hw, device):
     return int(2 * edge.size)
 
 
+# tc_loader_check's operands: M 40 plans BM 64 and M 130 BM 128 (a
+# second row tile of 2 rows); N and K multiples of 8 that TMA takes, with
+# a ragged last column tile at BN 256 and a K tail of 8; N and K one
+# less are both odd
+LOADER_SHAPES = ((40, 264, 328), (130, 264, 328))
+
+
+def tc_loader_check(hw, device):
+    """The bf16 kernel's copy loader held against TMA's at every tile (BN
+    8 ... 256, BM 64 and 128): the same operands, once where TMA takes
+    them and once 1, 2 or 4 elements past a 16-byte boundary (A, B or
+    both: 2-, 4- or 8-byte copies), must give the same bits, since the
+    copies must write TMA's swizzled layout.  Then N and K odd (2-byte
+    copies of both, the odd-N epilogue) against the plain version within
+    ``SUITE_TOL``, in bf16 and f32 out.  These launches come after the
+    suite's counts were read."""
+    from repro_torch import kernels
+    from repro_torch.core.mapper import matmul_plan_for_blocks
+    from repro_torch.kernels import matmul as mm
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    atol, rtol = SUITE_TOL["matmul", BF16]
+
+    def off(t, e):                        # t's values, e elements past
+        flat = torch.empty(t.numel() + e, dtype=t.dtype, device=device)
+        flat[e:] = t.flatten()
+        return flat[e:].view(t.shape)
+
+    bitwise = odd = 0
+    odd_err = 0.0
+    for m, n, k in LOADER_SHAPES:
+        a = (torch.randn(m, k, generator=gen, device=device)
+             * k ** -0.25).to(BF16)
+        b = (torch.randn(k, n, generator=gen, device=device)
+             * k ** -0.25).to(BF16)
+        n_odd, k_odd = n - 1, k - 1
+        a_odd = a[:, :k_odd].contiguous()
+        b_odd = b[:k_odd, :n_odd].contiguous()
+        for lws in (4, 8, 16, 32, 64, 128):
+            plan = matmul_plan_for_blocks(m, n, k, hw, lws,
+                                          kernel="tensor_core")
+            want = mm.matmul(a, b, plan=plan)
+            for e in (1, 2, 4):
+                for a2, b2 in ((off(a, e), b), (a, off(b, e)),
+                               (off(a, e), off(b, e))):
+                    widths = mm.loader_bytes(a2, b2)
+                    if widths == (16, 16) or 2 * e not in widths:
+                        raise AssertionError(f"tc_loader_check: loaders "
+                                             f"{widths} at offset {e}")
+                    if not torch.equal(mm.matmul(a2, b2, plan=plan), want):
+                        raise AssertionError(
+                            f"tc_loader_check: ({m}, {n}, {k}) {plan.bm}x"
+                            f"{plan.bn}, loaders {widths}: the copy "
+                            f"loader's product differs from TMA's")
+                    bitwise += 1
+            oplan = matmul_plan_for_blocks(m, n_odd, k_odd, hw, lws,
+                                           kernel="tensor_core")
+            for out in (BF16, F32):
+                got = mm.matmul(a_odd, b_odd, plan=oplan, out_dtype=out)
+                with kernels.force("plain"):
+                    ref = mm.matmul(a_odd, b_odd, plan=oplan, out_dtype=out)
+                err = float((got.float() - ref.float()).abs().max())
+                if not torch.allclose(got.float(), ref.float(), atol=atol,
+                                      rtol=rtol):
+                    raise AssertionError(
+                        f"tc_loader_check: ({m}, {n_odd}, {k_odd}) "
+                        f"{oplan.bm}x{oplan.bn} {out}: max abs err {err}")
+                odd_err = max(odd_err, err)
+                odd += 1
+    torch.cuda.synchronize()
+    return dict(bitwise_cases=bitwise, odd_cases=odd,
+                odd_max_abs_err=odd_err, atol=atol, rtol=rtol)
+
+
 def gcn_parts(ins, plan, timer):
     """The occupied share of the plan's tiles, and the op's two parts
     timed apart: the occupancy pass and the kernel alone."""
@@ -1149,7 +1242,6 @@ def gcn_parts(ins, plan, timer):
 
 SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
                   "saxpy": "src/repro/kernels/saxpy.py:15",
-                  "matmul": "src/repro/kernels/matmul.py:24",
                   "matmul_tc": "src/repro/kernels/matmul.py:24",
                   "matmul_tf32x3": "src/repro/kernels/matmul.py:24",
                   "rmsnorm": "src/repro/kernels/rmsnorm.py:19",
@@ -1166,11 +1258,10 @@ def suite_phase(hw, timer, device):
     from repro_torch.kernels import (gcn_agg, matmul, nn_search, rmsnorm,
                                      saxpy, ssd, stencil, vecadd)
 
-    # kernel name -> (wrapper, attribute of its launch count); the three
+    # kernel name -> (wrapper, attribute of its launch count); the two
     # matmul routes count apart, the 3xTF32 route's split and product too
     counters = {"vecadd": (vecadd.vecadd, "launches"),
                 "saxpy": (saxpy.saxpy, "launches"),
-                "matmul": (matmul.matmul, "launches"),
                 "matmul_tc": (matmul.matmul, "tc_launches"),
                 "matmul_split": (matmul.matmul, "split_launches"),
                 "matmul_tf32x3": (matmul.matmul, "tf32_launches"),
@@ -1202,7 +1293,7 @@ def suite_phase(hw, timer, device):
                 k: n - before[k] for k, n in counts().items()
                 if n != before[k]}
             if case[0] == "matmul":
-                want = matmul_route_launches(*case[1:])
+                want = matmul_route_launches(case[2])
                 if case_launches[case, policy] != want:
                     raise AssertionError(
                         f"suite: matmul {case[1]} {case[2]} {policy} "
@@ -1258,7 +1349,7 @@ def suite_phase(hw, timer, device):
             elif op == "matmul":
                 launched = case_launches[case, policy]
                 extra.update(route=plan.kernel,
-                             matmul_launches=launched.get("matmul", 0),
+                             loader_bytes=matmul.loader_bytes(*ins),
                              matmul_tc_launches=launched.get("matmul_tc", 0),
                              split_launches=launched.get("matmul_split", 0),
                              tf32_launches=launched.get("matmul_tf32x3", 0),
@@ -1268,6 +1359,8 @@ def suite_phase(hw, timer, device):
             elif op == "rmsnorm":
                 from repro_torch.kernels.rmsnorm import row_path
                 extra["row_path"] = row_path(*ins)
+            elif op == "vecadd":
+                extra["vector_steps"] = vecadd.vector_steps(plan, *ins)
 
             def plain():
                 with kernels.force("plain"):
@@ -1300,6 +1393,7 @@ def suite_phase(hw, timer, device):
     emit("suite_sweep", op="vecadd", dtype="float32",
          kernel_ms={str(n): v for n, v in sweep.items()})
     emit("tf32x3_split_edges", values=tf32x3_split_edges(hw, device))
+    emit("matmul_tc_loaders", **tc_loader_check(hw, device))
     emit("suite_done", seconds=time.perf_counter() - t0)
     total = {k: sum(launches[p][k] for p in POLICIES) for k in counters}
     return results, total
@@ -1658,7 +1752,7 @@ def main() -> int:
     for name, op, shape, dt in (
             ("vecadd", "vecadd", (1 << 26,), "float32"),
             ("saxpy", "saxpy", (1 << 26,), "float32"),
-            ("matmul", "matmul", (8, 1532, 576), "bfloat16"),
+            ("matmul_tc", "matmul", (8, 1532, 576), "bfloat16"),
             ("matmul_tc", "matmul", (4096, 4096, 4096), "bfloat16"),
             ("matmul_tf32x3", "matmul", (4096, 4096, 4096), "float32"),
             ("rmsnorm", "rmsnorm", (16384, 4096), "bfloat16"),
@@ -1685,6 +1779,7 @@ def main() -> int:
             row["shape"] += f", chunk {e['plan']['legal_chunk']}"
         elif name.startswith("matmul"):
             row["shape"] += f", {e['route']} route"
+            row["loader_bytes"] = e["loader_bytes"]
             if name == "matmul_tf32x3":        # ms: the split + the product
                 row.update(split_ms=e["split_ms"], product_ms=e["product_ms"],
                            split_launches=suite_launches["matmul_split"],

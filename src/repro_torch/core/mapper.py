@@ -27,42 +27,31 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     ``hp = SMs x warps_per_sm``; ``lws`` = rows per warp and a CTA owns
     ``8 lws`` consecutive rows, so ``grid = ceil(tokens / (8 lws))``.
   * matmul: a work item is one output element, ``gws = m n``,
-    ``hp = GpuParams.hp()``; ``lws`` = outputs per thread, held in
-    registers as a ``tm x tn`` micro-tile over a 16 x 16 thread grid, so
-    a CTA owns a ``(16 tm) x (16 tn)`` output tile.  The micro-tile's
-    dimensions size register arrays and are template parameters of the
-    kernel: ``tm, tn`` are powers of two up to 8, so the legal ``lws``
-    are 1, 2, 4, ..., 64.  64 (8 x 8) is the register budget: the 64 f32
-    accumulators plus operand fragments take ~100 registers a thread;
-    a 16 x 16 micro-tile would pass the 255-register limit and spill.
-    Eq. 1's ``lws`` is rounded UP to the next legal value (63 -> 64 at
-    4096^2) so AUTO still takes one round; a tile dimension is halved
-    while half of it still covers the matrix.  ``bk`` (the K step staged
-    per ``__syncthreads``) is 32 for every policy, cut to 16 for K <= 16.
-    That is the CUDA-core plan (``csrc/matmul.cu``: float32, and
-    bfloat16 that TMA cannot take).  With ``kernel="tensor_core"`` the
-    planner plans the tensor-core kernel (``csrc/matmul_tc.cu``:
-    bfloat16, TMA into shared-memory stages, ``wgmma``).
-    ``kernels.matmul.plan_for`` picks the kernel from the operands.
-    ``lws`` is still the outputs one thread owns: a thread of a
-    ``wgmma.m64nBN`` warpgroup holds 64 BN / 128 = BN / 2 f32
-    accumulators (2 rows x BN / 4 columns: ``tm = 2``, ``tn = BN / 4``),
-    so ``BN = 2 lws`` with ``lws`` rounded up to a power of two in [4,
-    128] (BN 8 ... 256).  BM is 128 (two consumer warpgroups, 256
-    threads) or 64 (one, 128 threads) when 64 rows cover M; BN is halved
-    while half still covers N.  ``bk`` is 64 (128 bytes of bf16, one
-    128-byte swizzle row) and ``stages`` as many as fit, from 2 (the
-    least the prefetch ring runs with) up to 4.  At
-    4096^3 AUTO's 63 -> 64 gives a 128 x 128 tile (the same tile as the
-    float32 plan), FIXED's 32 128 x 64 and NAIVE's 1 -> 4 128 x 8.
-    float32 operands plan ``kernel="tf32x3"`` (``csrc/matmul_tf32x3.cu``:
-    3xTF32 products on the tensor cores from padded, K-major big and
-    small halves of A and B): the same warpgroup tile and the same
-    ``lws`` -> BN rule, but ``lws`` at most 64 (BN 8 ... 128: a thread
-    keeps a K step's partial and the f32 sum, BN f32), so at 4096^3
-    NAIVE plans 128 x 8, FIXED 128 x 64 and AUTO 128 x 128; ``bk`` is 32
-    (128 bytes of f32) and a stage holds four tiles (A and B, big and
-    small), so ``stages`` is as many as fit from 2 to 4: 3 at 128 x 128.
+    ``hp = GpuParams.hp()``; ``lws`` = outputs per thread.  Both
+    kernels run ``wgmma`` warpgroup tiles: ``kernel="tensor_core"``
+    (``csrc/matmul_tc.cu``: bfloat16 of any shape and alignment, TMA or
+    the CTA's own copies into shared-memory stages) and
+    ``kernel="tf32x3"`` (``csrc/matmul_tf32x3.cu``: float32 as 3xTF32
+    products from padded, K-major big and small halves of A and B);
+    ``kernels.matmul.plan_for`` picks the kernel from the operands'
+    dtype.  A thread of a ``wgmma.m64nBN`` warpgroup holds 64 BN / 128 =
+    BN / 2 f32 accumulators (2 rows x BN / 4 columns: ``tm = 2``, ``tn =
+    BN / 4``), so ``BN = 2 lws`` with ``lws`` rounded up to a power of
+    two in [4, 128] (BN 8 ... 256).  BM is 128 (two consumer warpgroups,
+    256 threads) or 64 (one, 128 threads) when 64 rows cover M; BN is
+    halved while half still covers N.  bf16: ``bk`` is 64 (128 bytes,
+    one 128-byte swizzle row) and ``stages`` as many as fit, from 2 (the
+    least the prefetch ring runs with) up to 4.  At 4096^3 AUTO's 63 ->
+    64 gives a 128 x 128 tile, FIXED's 32 128 x 64 and NAIVE's 1 -> 4
+    128 x 8; at smollm's decode row (8, 1536, 576) every policy's
+    ``lws`` is under 4: 64 x 8, 192 CTAs.  f32 takes the same tile and
+    the same ``lws`` -> BN rule, but ``lws`` at most 64 (BN 8 ... 128: a
+    thread keeps a K step's partial and the f32 sum, BN f32), so at
+    4096^3 NAIVE plans 128 x 8, FIXED 128 x 64 and AUTO 128 x 128;
+    ``bk`` is 32 (128 bytes of f32) and a stage holds four tiles (A and
+    B, big and small), so ``stages`` is as many as fit from 2 to 4: 3
+    at 128 x 128.  Every K and N is legal: the kernels mask or pad the
+    ragged edges.
 
   * gaussian blur (two passes, one plan): a work item is one output
     pixel, ``gws = h w``, ``hp = GpuParams.hp()``; ``lws`` = pixels per
@@ -113,8 +102,8 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     c x c quadratic work against the sequential chunk count.
 
 ``rounds`` counts waves of CTAs at full residency (``warps_per_sm / 8``
-CTAs of 8 warps on each SM); the matmul micro-tile's registers may
-lower the real residency, which ``chip_smoke.py`` reads from the CUDA runtime
+CTAs of 8 warps on each SM); the matmul tiles' registers and shared
+memory lower the real residency, which ``chip_smoke.py`` reads from the CUDA runtime
 beside the plan.  ``TUNED`` (the measured refinement with its tuning
 cache) comes with the tuner slice and raises here.
 
@@ -156,7 +145,7 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "BlockPlan", "plan_vector_blocks", "vector_plan_for_block",
            "plan_rows", "row_plan_for_block", "MatmulPlan",
            "plan_matmul_blocks", "matmul_plan_for_blocks",
-           "matmul_smem_bytes", "matmul_tc_smem_bytes",
+           "matmul_tc_smem_bytes",
            "matmul_tf32x3_smem_bytes", "StencilPlan",
            "plan_stencil", "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
            "plan_nn", "nn_plan_for_block", "nn_block_r", "nn_smem_bytes",
@@ -174,9 +163,6 @@ TILE_QUANTUM = 16         # mma's row/column quantum on Hopper
 
 FIXED_LWS = 32            # the paper's fixed baseline
 CTA_THREADS = 256         # every suite kernel's CTA: 8 warps
-MM_THREAD_GRID = 16       # matmul CTA: 16 x 16 threads
-MM_MAX_TILE = 8           # micro-tile side: 8 x 8 = 64 accumulators
-MM_BK = 32
 MM_TC_BK = 64             # tensor-core matmul: 128 bytes of bf16 a K step
 MM_TC_MAX_STAGES = 4
 MM_TC_LWS = (4, 128)      # BN = 2 lws from 8 to 256
@@ -323,11 +309,9 @@ def row_plan_for_block(tokens: int, hw: GpuParams, lws: int,
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
-    """``kernel`` "cuda_core": a CTA of 16 x 16 threads owns a ``bm x bn
-    = (16 tm) x (16 tn)`` output tile and sweeps K in ``bk`` steps staged
-    in shared memory.  ``kernel`` "tensor_core": ``bm / 64`` warpgroups
-    own a ``bm x bn`` tile, a thread ``tm x tn = 2 x bn / 4`` outputs, K
-    swept in ``bk`` = 64 steps through ``stages`` TMA stages.  ``kernel``
+    """``kernel`` "tensor_core": ``bm / 64`` warpgroups own a ``bm x bn``
+    tile, a thread ``tm x tn = 2 x bn / 4`` outputs, K swept in ``bk`` =
+    64 steps through ``stages`` shared-memory stages.  ``kernel``
     "tf32x3": the same warpgroup tile over f32 operands split into TF32
     big and small halves, ``bk`` = 32.  ``grid`` is (n tiles, m
     tiles)."""
@@ -344,15 +328,8 @@ class MatmulPlan:
     rounds: int
     regime: Regime
     smem_bytes: int
-    kernel: str = "cuda_core"
-    stages: int = 0
-
-
-def matmul_smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of ``csrc/matmul.cu``: the f32 A tile stored
-    transposed with one word of padding per row (no bank conflicts when
-    it is written) and the f32 B tile."""
-    return 4 * bk * ((bm + 1) + bn)
+    kernel: str
+    stages: int
 
 
 def matmul_tc_smem_bytes(bm: int, bn: int, stages: int) -> int:
@@ -373,69 +350,44 @@ def matmul_tf32x3_smem_bytes(bm: int, bn: int, stages: int) -> int:
 
 
 def plan_matmul_blocks(m: int, n: int, k: int, hw: GpuParams,
-                       policy: MappingPolicy = MappingPolicy.AUTO,
-                       kernel: str = "cuda_core") -> MatmulPlan:
+                       policy: MappingPolicy = MappingPolicy.AUTO, *,
+                       kernel: str) -> MatmulPlan:
     """Map ``C[m,n] = A[m,k] @ B[k,n]`` onto the card: ``lws`` outputs
-    per thread from the policy, legalised to a micro-tile of the
-    CUDA-core kernel (``kernel="cuda_core"``) or to a warpgroup tile of
-    the bf16 tensor-core kernel (``kernel="tensor_core"``) or of the
-    3xTF32 kernel (``kernel="tf32x3"``).
+    per thread from the policy, legalised to a warpgroup tile of the
+    bf16 tensor-core kernel (``kernel="tensor_core"``) or of the 3xTF32
+    kernel (``kernel="tf32x3"``).  Any ``k`` is legal: the kernels sweep
+    it in their own steps.
 
     Example::
 
         >>> from repro_torch.core.hw import GPU_REGISTRY
-        >>> p = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"])
-        >>> p.lws, (p.bm, p.bn), p.grid, p.rounds
-        (64, (128, 128), (32, 32), 1)
         >>> t = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"],
-        ...                        "naive", kernel="tensor_core")
-        >>> t.kernel, (t.bm, t.bn), t.bk, t.stages
-        ('tensor_core', (128, 8), 64, 4)
+        ...                        kernel="tensor_core")
+        >>> t.lws, (t.bm, t.bn), t.grid, t.rounds, t.bk, t.stages
+        (64, (128, 128), (32, 32), 1, 64, 4)
+        >>> d = plan_matmul_blocks(8, 1532, 576, GPU_REGISTRY["h100_sxm"],
+        ...                        kernel="tensor_core")
+        >>> (d.bm, d.bn), d.grid
+        ((64, 8), (192, 1))
         >>> f = plan_matmul_blocks(4096, 4096, 4096, GPU_REGISTRY["h100_sxm"],
         ...                        kernel="tf32x3")
         >>> f.kernel, (f.bm, f.bn), f.bk, f.stages
         ('tf32x3', (128, 128), 32, 3)
     """
     lws = _policy_lws(policy, m * n, hw.hp())
-    return matmul_plan_for_blocks(m, n, k, hw, lws, MM_BK, policy, kernel)
+    return matmul_plan_for_blocks(m, n, k, hw, lws, policy, kernel=kernel)
 
 
 def matmul_plan_for_blocks(m: int, n: int, k: int, hw: GpuParams, lws: int,
-                           bk: int, policy: MappingPolicy = MappingPolicy.AUTO,
-                           kernel: str = "cuda_core") -> MatmulPlan:
-    """Legalise an (``lws``, ``bk``) decision onto the kernel's rules.
-    "cuda_core": ``lws`` rounded up to a power of two and capped at 64 (the
-    register budget), split as ``tm x tn`` with ``tn >= tm``; each tile
-    side halved while half still covers the matrix; ``bk`` a multiple of
-    16, at most K rounded up to 16, shrunk while the staged tiles
-    overflow shared memory.  "tensor_core" and "tf32x3": the warpgroup
-    tile of the module docstring (``bk`` is always 64, resp. 32)."""
-    if kernel in ("tensor_core", "tf32x3"):
-        return _matmul_tc_plan(m, n, hw, lws, policy, kernel)
-    if kernel != "cuda_core":
-        raise ValueError(f"no matmul kernel {kernel!r}: tf32x3, cuda_core "
-                         f"or tensor_core")
-    t = MM_THREAD_GRID
-    lws = min(max(1, int(lws)), MM_MAX_TILE * MM_MAX_TILE)
-    e = (lws - 1).bit_length()                      # 2**e >= lws
-    tm, tn = 1 << (e // 2), 1 << (e - e // 2)
-    while tm > 1 and t * (tm // 2) >= m:
-        tm //= 2
-    while tn > 1 and t * (tn // 2) >= n:
-        tn //= 2
-    bm, bn = t * tm, t * tn
-    bk = min(max(16, round_up(int(bk), 16)), round_up(max(k, 1), 16))
-    while matmul_smem_bytes(bm, bn, bk) > hw.smem_per_block and bk > 16:
-        bk -= 16
-    smem = matmul_smem_bytes(bm, bn, bk)
-    if smem > hw.smem_per_block:
-        raise ValueError(f"no legal matmul tile: {smem} B of shared memory")
-    grid = (ceil_div(n, bn), ceil_div(m, bm))
-    return MatmulPlan(policy=MappingPolicy(policy), lws=tm * tn, tm=tm,
-                      tn=tn, bm=bm, bn=bn, bk=bk, threads=t * t, grid=grid,
-                      rounds=_rounds(grid[0] * grid[1], hw),
-                      regime=classify_regime(tm * tn, m * n, hw.hp()),
-                      smem_bytes=smem)
+                           policy: MappingPolicy = MappingPolicy.AUTO, *,
+                           kernel: str) -> MatmulPlan:
+    """Legalise an ``lws`` decision onto the kernel's warpgroup tile (the
+    module docstring's rule; ``bk`` is 64 for "tensor_core", 32 for
+    "tf32x3")."""
+    if kernel not in ("tensor_core", "tf32x3"):
+        raise ValueError(f"no matmul kernel {kernel!r}: tensor_core or "
+                         f"tf32x3")
+    return _matmul_tc_plan(m, n, hw, lws, policy, kernel)
 
 
 def _matmul_tc_plan(m: int, n: int, hw: GpuParams, lws: int,

@@ -1,45 +1,65 @@
-// bf16 matmul on Hopper's tensor cores: TMA loads into a ring of shared
-// memory stages, wgmma products, f32 accumulators in registers (sm_90a).
+// bf16 matmul on Hopper's tensor cores: TMA or the CTA's own copies into
+// a ring of shared-memory stages, wgmma products, f32 accumulators in
+// registers (sm_90a).
 //
 // Replaces: src/repro/kernels/matmul.py::_matmul_kernel (the Pallas
 // kernel that matmul_pallas launches at :66) for bfloat16 operands.  The
 // Pallas kernel casts both operands to f32 and accumulates in f32; a
 // product of two bf16 values is exact in f32, so
 // wgmma.mma_async.f32.bf16.bf16 computes the same function and only the
-// order of the sums differs.  float32 operands, and bf16 operands TMA
-// cannot take, stay on the CUDA-core kernel of csrc/matmul.cu.
+// order of the sums differs.  Every contiguous bf16 pair runs here, of
+// any shape and alignment; float32 operands run as 3xTF32
+// (csrc/matmul_tf32x3.cu).
 //
 // Bound on the H100: 2 M N K operations against (M K + K N) bf16 read and
 // M N written; at 4096^3 that is ~1,400 FLOP a byte, far above the
-// card's ~295, so the bf16 tensor-core rate (989 TF/s) bounds it.  The
-// CUDA-core kernel reached 2.4% of that: no tensor cores, and its 8 x 8
-// register micro-tile left 2 resident CTAs per SM.
+// card's ~295, so the bf16 tensor-core rate (989 TF/s) bounds it.  At a
+// decode row (M = 8) the bytes of B bound it.
 //
 // Design.  A CTA owns a BM x BN output tile, BM = 64 WGS for WGS = 1 or 2
 // consumer warpgroups, BN in {8, ..., 256}.  K is swept in steps of 64
-// (128 bytes of bf16, one 128-byte swizzle row of A).  Thread 0 keeps the
-// ring of `stages` (2 to 4) shared-memory stages filled by TMA: A's box
-// (64 K x BM rows, K-major, 128B swizzle) and B's boxes (64 K rows x up
-// to 64 N columns, MN-major, the swizzle that matches the box's row of
-// 16 to 128 bytes), completion counted on the stage's `full` mbarrier.
-// There is no producer warp: thread 0 prefetches stages - 1 tiles ahead
-// between its own products, so the CTA is 128 or 256 threads, every
-// thread keeps its registers (BN / 2 accumulators; no setmaxnreg), and a
-// stage is refilled once every consumer warpgroup has arrived on its
-// `empty` mbarrier.  Each warpgroup issues four wgmma.m64nBNk16 per K
-// step on its 64 rows (B transposed in the instruction: it is MN-major),
-// commits, and waits for the step before, so one step's products are in
-// flight while the next stage's barrier is awaited.  The epilogue
-// converts the f32 accumulators and stores them with the edges masked;
-// TMA fills loads past the edges with zeros (M = 8 decode rows, ragged K).
-// The TMA descriptors are encoded on the host for each call
-// (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint so no
-// -lcuda is needed) and passed as __grid_constant__ parameters.  The
-// TMA, mbarrier and wgmma helpers are csrc/tma_wgmma.cuh's, shared with
-// csrc/matmul_tf32x3.cu.
+// (128 bytes of bf16, one 128-byte swizzle row of A).  A stage holds A's
+// tile (64 K x BM rows, K-major, 128B swizzle) and B's boxes (64 K rows x
+// up to 64 N columns, MN-major, the swizzle that matches the box's row of
+// 16 to 128 bytes); `stages` (2 to 4) of them form a ring, each with a
+// `full` and an `empty` mbarrier.  Each warpgroup issues four
+// wgmma.m64nBNk16 per K step on its 64 rows (B transposed in the
+// instruction: it is MN-major), commits, and waits for the step before,
+// so one step's products are in flight while the next stage's barrier is
+// awaited; a stage is refilled once every consumer warpgroup has
+// arrived on its `empty` mbarrier.  The epilogue converts the f32
+// accumulators and stores them with the edges masked.
 //
-// Takes: A (M, K) and B (K, N) row-major bf16, K and N multiples of 8 (16-
-// byte row strides), 16-byte-aligned pointers; C (M, N) f32 or bf16.
+// Each operand has its loader, a template parameter:
+//  * kTma: a row stride and a pointer on 16 bytes.  Thread 0 keeps the
+//    ring filled by TMA `stages - 1` tiles ahead, between its own
+//    products; completion is counted in bytes on the stage's `full`
+//    mbarrier, and TMA fills loads past the edges with zeros.  There is
+//    no producer warp, so the CTA is 128 or 256 threads and every thread
+//    keeps its registers (BN / 2 accumulators; no setmaxnreg).  The TMA
+//    descriptors are encoded on the host for each call
+//    (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint so
+//    no -lcuda is needed) and passed as __grid_constant__ parameters.
+//  * kCopy: everything else (K or N not a multiple of 8, a pointer off
+//    16 bytes), which TMA cannot describe.  Every thread of the CTA
+//    copies its share of the tile at the refill point in the K loop,
+//    each element to the byte that the TMA box would have written under
+//    the tile's swizzle, with the widest access the operand's row
+//    stride and pointer allow: 8 or 4 bytes by cp.async (source size 0
+//    past M, N or K: zeros, as TMA's fill), or 2 bytes through
+//    registers when a row starts on an odd element.  A thread's cp.async
+//    copies arrive on `full` when they land
+//    (cp.async.mbarrier.arrive.noinc), its register copies after a
+//    proxy fence; `full` counts those arrivals and, when the other
+//    operand is TMA's, thread 0's transaction bytes.  The consumers
+//    fence the async proxy after the wait, since wgmma reads what the
+//    generic proxy wrote.  The TMA-TMA instantiation is the kernel
+//    without the copy loader: every copy path is `if constexpr`.
+// The TMA, mbarrier and wgmma helpers are csrc/tma_wgmma.cuh's, shared
+// with csrc/matmul_tf32x3.cu.
+//
+// Takes: A (M, K) and B (K, N) row-major bf16 on 2-byte boundaries; C
+// (M, N) f32 or bf16.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -216,16 +236,128 @@ __device__ __forceinline__ void wgmma<256>(float* d, uint64_t da,
 }
 
 
-template <int BN, int WGS>
+enum Loader { kTma, kCopy };
+
+// Byte `o` of a tile whose rows are `pitch` bytes, where TMA writes it
+// under the swizzle of that pitch (128B, 64B, 32B; none at 16): the
+// 16-byte chunk index (bits 4..6) XORed with the 128-byte line (bits
+// 7..9), as many bits of it as the swizzle spans.  The tiles sit on
+// 1024-byte boundaries, so the offset's bits are the address's.
+template <int PITCH>
+__device__ __forceinline__ uint32_t swizzled(uint32_t o) {
+  constexpr uint32_t kMask = PITCH == 128 ? 7 : PITCH == 64 ? 3
+                             : PITCH == 32 ? 1 : 0;
+  return o ^ (((o >> 7) & kMask) << 4);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued has landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// VB (4 or 8) bytes from global to shared; zeros when !in (source size 0)
+template <int VB>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(VB), "r"(in ? VB : 0)
+               : "memory");
+}
+
+// One thread's share of the copy loader: the ROWS x COLS tile at (r0, c0)
+// of a row-major bf16 operand (row stride ld, rows < rmax, columns <
+// cmax; zeros past them) into the stage `st`, element (r, c) at byte
+// place(r, c), VB bytes a copy (consecutive threads, consecutive copies
+// along a row).  VB 2 goes through registers, eight copies in flight.
+template <int VB, int ROWS, int COLS, int THREADS, typename Place>
+__device__ __forceinline__ void copy_share(const __nv_bfloat16* g, int ld,
+                                           int r0, int c0, int rmax,
+                                           int cmax, uint8_t* st,
+                                           Place place, int tid) {
+  constexpr int kVE = VB / 2, kPerRow = COLS / kVE;
+  constexpr int kTotal = ROWS * kPerRow;
+  constexpr int kCopies = (kTotal + THREADS - 1) / THREADS;  // per thread
+  if constexpr (VB > 2) {
+#pragma unroll 8
+    for (int j = 0; j < kCopies; ++j) {
+      const int i = tid + j * THREADS;
+      // fewer copies than threads only at BN 8 on two warpgroups
+      if (kTotal % THREADS != 0 && i >= kTotal) break;
+      const int r = i / kPerRow, c = i % kPerRow * kVE;
+      const bool in = r0 + r < rmax && c0 + c < cmax;
+      cp_async<VB>(st + place(r, c),
+                   in ? g + (size_t)(r0 + r) * ld + c0 + c : g, in);
+    }
+  } else {
+    constexpr int kBatch = kCopies < 8 ? kCopies : 8;
+    static_assert(kTotal % (THREADS * kBatch) == 0, "uneven copy batches");
+    const uint16_t* g16 = reinterpret_cast<const uint16_t*>(g);
+#pragma unroll 1
+    for (int j0 = 0; j0 < kCopies; j0 += kBatch) {
+      uint16_t v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = tid + (j0 + u) * THREADS;
+        const int r = i / kPerRow, c = i % kPerRow;
+        v[u] = r0 + r < rmax && c0 + c < cmax
+                   ? __ldg(g16 + (size_t)(r0 + r) * ld + c0 + c)
+                   : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = tid + (j0 + u) * THREADS;
+        *reinterpret_cast<uint16_t*>(st + place(i / kPerRow, i % kPerRow)) =
+            v[u];
+      }
+    }
+  }
+}
+
+template <int ROWS, int COLS, int THREADS, typename Place>
+__device__ __forceinline__ void copy_tile(int vb, const __nv_bfloat16* g,
+                                          int ld, int r0, int c0, int rmax,
+                                          int cmax, uint8_t* st, Place place,
+                                          int tid) {
+  if (vb == 8)
+    copy_share<8, ROWS, COLS, THREADS>(g, ld, r0, c0, rmax, cmax, st, place,
+                                       tid);
+  else if (vb == 4)
+    copy_share<4, ROWS, COLS, THREADS>(g, ld, r0, c0, rmax, cmax, st, place,
+                                       tid);
+  else
+    copy_share<2, ROWS, COLS, THREADS>(g, ld, r0, c0, rmax, cmax, st, place,
+                                       tid);
+}
+
+// What the copy loader reads: the operands and each one's copy width in
+// bytes (8, 4 or 2; 16 means TMA's)
+struct CopySrc {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  int wa, wb;
+};
+
+template <int BN, int WGS, Loader LA, Loader LB>
 __global__ void __launch_bounds__(kWG * WGS, 1)
 matmul_tc_kernel(const __grid_constant__ CUtensorMap tma_a,
                  const __grid_constant__ CUtensorMap tma_b,
-                 void* __restrict__ C, int M, int N, int K, int stages,
-                 int out_bf16) {
+                 const CopySrc src, void* __restrict__ C, int M, int N,
+                 int K, int stages, int out_bf16) {
   using BT = BTile<BN>;
   constexpr int BM = 64 * WGS;
-  constexpr int kABytes = BM * kBK * 2;
-  constexpr int kStage = kABytes + kBK * BN * 2;
+  constexpr int kThreads = kWG * WGS;
+  constexpr int kABytes = BM * kBK * 2, kBBytes = kBK * BN * 2;
+  constexpr int kStage = kABytes + kBBytes;
+  constexpr bool kCopyA = LA == kCopy, kCopyB = LB == kCopy;
+  constexpr bool kAnyCopy = kCopyA || kCopyB;
+  constexpr int kTmaBytes = (kCopyA ? 0 : kABytes) + (kCopyB ? 0 : kBBytes);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles sit on 1024-byte boundaries (the swizzle atom)
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -236,26 +368,58 @@ matmul_tc_kernel(const __grid_constant__ CUtensorMap tma_a,
   const int wg = tid / kWG;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int KT = (K + kBK - 1) / kBK;
+  // a copying thread arrives on `full` once for its cp.async copies and
+  // once for its register copies, each where it has any
+  const bool async_arrive = (kCopyA && src.wa > 2) || (kCopyB && src.wb > 2);
+  const bool reg_arrive = (kCopyA && src.wa == 2) || (kCopyB && src.wb == 2);
 
   auto load = [&](int t, int s) {         // K tile t into stage s
     uint8_t* st = smem + s * kStage;
-    mbar_expect_tx(&full[s], kStage);
-    tma_load(st, &tma_a, t * kBK, row0, &full[s]);
+    if constexpr (kTmaBytes > 0) {
+      if (!kAnyCopy || tid == 0) {         // TMA alone: only thread 0 loads
+        mbar_expect_tx(&full[s], kTmaBytes);
+        if constexpr (!kCopyA) tma_load(st, &tma_a, t * kBK, row0, &full[s]);
+        if constexpr (!kCopyB) {
 #pragma unroll
-    for (int j = 0; j < BT::kBoxes; ++j)
-      tma_load(st + kABytes + j * BT::kBoxBytes, &tma_b, col0 + j * BT::kBox,
-               t * kBK, &full[s]);
+          for (int j = 0; j < BT::kBoxes; ++j)
+            tma_load(st + kABytes + j * BT::kBoxBytes, &tma_b,
+                     col0 + j * BT::kBox, t * kBK, &full[s]);
+        }
+      }
+    }
+    if constexpr (kCopyA)
+      copy_tile<BM, kBK, kThreads>(
+          src.wa, src.a, K, row0, t * kBK, M, K, st,
+          [](int r, int c) { return swizzled<128>(r * 128 + c * 2); }, tid);
+    if constexpr (kCopyB)
+      copy_tile<kBK, BN, kThreads>(
+          src.wb, src.b, N, t * kBK, col0, K, N, st + kABytes,
+          [](int r, int c) {
+            return c / BT::kBox * BT::kBoxBytes +
+                   swizzled<BT::kPitch>(r * BT::kPitch + c % BT::kBox * 2);
+          },
+          tid);
+    if constexpr (kAnyCopy) {
+      if (async_arrive) cp_async_arrive(&full[s]);
+      if (reg_arrive) {
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
+      }
+    }
   };
 
   if (tid == 0) {
+    const int arrivals = kAnyCopy ? kThreads * (async_arrive + reg_arrive) +
+                                        (kTmaBytes > 0)
+                                  : 1;
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], arrivals);
       mbar_init(&empty[s], WGS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0)
+  if (kAnyCopy || tid == 0)
     for (int t = 0; t < stages && t < KT; ++t) load(t, t);
 
   float acc[BN / 2];
@@ -265,6 +429,7 @@ matmul_tc_kernel(const __grid_constant__ CUtensorMap tma_a,
   for (int k = 0; k < KT; ++k) {
     const int s = k % stages;
     mbar_wait(&full[s], (k / stages) & 1);
+    if constexpr (kAnyCopy) fence_proxy_async();
     const uint32_t a0 = smem_u32(smem + s * kStage) + wg * 64 * 128;
     const uint32_t b0 = smem_u32(smem + s * kStage + kABytes);
     fence_regs<BN / 2>(acc);
@@ -280,7 +445,7 @@ matmul_tc_kernel(const __grid_constant__ CUtensorMap tma_a,
     if (k > 0) {
       const int ps = (k - 1) % stages;
       if (tid % kWG == 0) mbar_arrive(&empty[ps]);
-      if (tid == 0 && k - 1 + stages < KT) {
+      if ((kAnyCopy || tid == 0) && k - 1 + stages < KT) {
         mbar_wait(&empty[ps], ((k - 1) / stages) & 1);
         load(k - 1 + stages, ps);
       }
@@ -294,22 +459,36 @@ matmul_tc_kernel(const __grid_constant__ CUtensorMap tma_a,
   // 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
   const int lane = tid % 32, warp = (tid % kWG) / 32;
   const int r_lo = row0 + wg * 64 + warp * 16 + lane / 4;
+  // an odd N (copied B only) puts every other row's pairs off their
+  // alignment: store single elements
+  const bool pairs = !kCopyB || N % 2 == 0;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = col0 + 8 * j + 2 * (lane % 4);
-    if (col >= N) continue;                // N is even: col + 1 < N too
+    if (col >= N) continue;                // pairs: col + 1 < N too
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r_lo + 8 * h;
       if (row >= M) continue;
       const size_t o = (size_t)row * N + col;
       const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
-      if (out_bf16)
-        *reinterpret_cast<__nv_bfloat162*>(
-            static_cast<__nv_bfloat16*>(C) + o) = __floats2bfloat162_rn(x, y);
-      else
-        *reinterpret_cast<float2*>(static_cast<float*>(C) + o) =
-            make_float2(x, y);
+      if (pairs) {
+        if (out_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(C) + o) =
+              __floats2bfloat162_rn(x, y);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(C) + o) =
+              make_float2(x, y);
+      } else if (out_bf16) {
+        __nv_bfloat16* c = static_cast<__nv_bfloat16*>(C) + o;
+        c[0] = __float2bfloat16_rn(x);
+        if (col + 1 < N) c[1] = __float2bfloat16_rn(y);
+      } else {
+        float* c = static_cast<float*>(C) + o;
+        c[0] = x;
+        if (col + 1 < N) c[1] = y;
+      }
     }
   }
 }
@@ -338,37 +517,65 @@ size_t smem_bytes(int bm, int bn, int stages) {
   return (size_t)stages * (bm + bn) * kBK * 2 + 2 * kMaxStages * 8 + 1024;
 }
 
-template <int BN, int WGS>
-cudaError_t allow_smem() {
-  static std::atomic<unsigned> devices{0};
-  return smem_optin::allow((const void*)matmul_tc_kernel<BN, WGS>, devices);
+// The widest access a row-major bf16 operand of `cols` columns allows, in
+// bytes: 16 (TMA's: the pointer and the row stride on 16 bytes), 8, 4 or 2
+int copy_width(const void* p, int cols) {
+  const uintptr_t x = reinterpret_cast<uintptr_t>(p) | (uintptr_t)cols * 2;
+  return x % 16 == 0 ? 16 : x % 8 == 0 ? 8 : x % 4 == 0 ? 4 : 2;
 }
 
-template <int BN, int WGS>
-int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           int stages, int out_bf16, cudaStream_t stream) {
+template <int BN, int WGS, Loader LA, Loader LB>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned> devices{0};
+  return smem_optin::allow((const void*)matmul_tc_kernel<BN, WGS, LA, LB>,
+                           devices);
+}
+
+template <int BN, int WGS, Loader LA, Loader LB>
+int launch_as(const CopySrc& src, void* c, int M, int N, int K, int stages,
+              int out_bf16, cudaStream_t stream) {
   using BT = BTile<BN>;
   constexpr int BM = 64 * WGS;
-  cudaError_t err = allow_smem<BN, WGS>();
+  cudaError_t err = allow_smem<BN, WGS, LA, LB>();
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap ta, tb;
-  if (!encode(&ta, a, M, K, BM, kBK, 128) ||
-      !encode(&tb, b, K, N, kBK, BT::kBox, BT::kPitch))
+  CUtensorMap ta{}, tb{};
+  if ((LA == kTma && !encode(&ta, src.a, M, K, BM, kBK, 128)) ||
+      (LB == kTma && !encode(&tb, src.b, K, N, kBK, BT::kBox, BT::kPitch)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_tc_kernel<BN, WGS><<<grid, kWG * WGS,
-                              smem_bytes(BM, BN, stages), stream>>>(
-      ta, tb, c, M, N, K, stages, out_bf16);
+  matmul_tc_kernel<BN, WGS, LA, LB><<<grid, kWG * WGS,
+                                      smem_bytes(BM, BN, stages), stream>>>(
+      ta, tb, src, c, M, N, K, stages, out_bf16);
   return (int)cudaGetLastError();
 }
 
-template <int BN, int WGS>
-int occupancy(int stages, int* blocks) {
-  cudaError_t err = allow_smem<BN, WGS>();
+template <int BN, int WGS, Loader LA, Loader LB>
+int occupancy_as(int stages, int* blocks) {
+  cudaError_t err = allow_smem<BN, WGS, LA, LB>();
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, matmul_tc_kernel<BN, WGS>, kWG * WGS,
+      blocks, matmul_tc_kernel<BN, WGS, LA, LB>, kWG * WGS,
       smem_bytes(64 * WGS, BN, stages));
+}
+
+// one call of F<BN, WGS, LA, LB> for the operands' loaders (a width of 16
+// is TMA's)
+#define TC_DISPATCH_LOADERS(F, wa, wb, ...)                          \
+  if (wa == 16 && wb == 16) return F<BN, WGS, kTma, kTma>(__VA_ARGS__); \
+  if (wa == 16) return F<BN, WGS, kTma, kCopy>(__VA_ARGS__);         \
+  if (wb == 16) return F<BN, WGS, kCopy, kTma>(__VA_ARGS__);         \
+  return F<BN, WGS, kCopy, kCopy>(__VA_ARGS__);
+
+template <int BN, int WGS>
+int launch(const CopySrc& src, void* c, int M, int N, int K, int stages,
+           int out_bf16, cudaStream_t stream) {
+  TC_DISPATCH_LOADERS(launch_as, src.wa, src.wb, src, c, M, N, K, stages,
+                      out_bf16, stream)
+}
+
+template <int BN, int WGS>
+int occupancy(int wa, int wb, int stages, int* blocks) {
+  TC_DISPATCH_LOADERS(occupancy_as, wa, wb, stages, blocks)
 }
 
 // one call per (BN, WGS) instantiation: F is launch or occupancy
@@ -395,25 +602,33 @@ bool legal(int bm, int bn, int stages) {
 
 }  // namespace
 
-// A (M, K), B (K, N) bf16 row-major; C (M, N) float32 (out_dtype 0) or
-// bfloat16 (1).  bm in {64, 128}; bn a power of two in [8, 256]; stages in
-// [2, 4] (with one stage the tile of step k + 1 would be loaded only after
-// step k + 1 waits on it).  Returns cudaGetLastError() after the launch (0
-// on success).
+// A (M, K), B (K, N) bf16 row-major, any shape, each on a 2-byte boundary;
+// C (M, N) float32 (out_dtype 0) or bfloat16 (1).  An operand whose
+// pointer and row stride are on 16 bytes is loaded by TMA, any other by
+// the CTA's copies.  bm in {64, 128}; bn a power of two in [8, 256];
+// stages in [2, 4] (with one stage the tile of step k + 1 would be loaded
+// only after step k + 1 waits on it).  Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int matmul_tc(const void* a, const void* b, void* c, int M, int N,
                          int K, int bm, int bn, int stages, int out_dtype,
                          void* stream) {
-  if (M < 1 || N < 1 || K < 1 || N % 8 != 0 || K % 8 != 0 ||
-      !legal(bm, bn, stages) || (out_dtype != 0 && out_dtype != 1) ||
-      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 ||
+  if (M < 1 || N < 1 || K < 1 || !legal(bm, bn, stages) ||
+      (out_dtype != 0 && out_dtype != 1) ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 2 ||
       reinterpret_cast<uintptr_t>(c) % 8 || (M + bm - 1) / bm > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TC_DISPATCH(launch, a, b, c, M, N, K, stages, out_dtype, st)
+  const CopySrc src{static_cast<const __nv_bfloat16*>(a),
+                    static_cast<const __nv_bfloat16*>(b), copy_width(a, K),
+                    copy_width(b, N)};
+  TC_DISPATCH(launch, src, c, M, N, K, stages, out_dtype, st)
 }
 
-// Resident CTAs per SM that the CUDA runtime reports for one instantiation.
-extern "C" int matmul_tc_occupancy(int bm, int bn, int stages, int* blocks) {
+// Resident CTAs per SM that the CUDA runtime reports for the instantiation
+// that matmul_tc launches for these operands (a of K columns, b of N).
+extern "C" int matmul_tc_occupancy(const void* a, const void* b, int N,
+                                   int K, int bm, int bn, int stages,
+                                   int* blocks) {
   if (!legal(bm, bn, stages)) return (int)cudaErrorInvalidValue;
-  TC_DISPATCH(occupancy, stages, blocks)
+  TC_DISPATCH(occupancy, copy_width(a, K), copy_width(b, N), stages, blocks)
 }

@@ -22,7 +22,7 @@
 // Bound on the H100: 3 x 2 M N K TF32 operations against (M K + K N) f32
 // read and M N written; at 4096^3 that is 412 GFLOP over 495 TF/s, 0.833
 // ms, far above the bytes' 0.06 ms, so operations bound it.  The
-// CUDA-core kernel (csrc/matmul.cu) reached a third of the f32 CUDA-core
+// CUDA-core kernel this replaced reached a third of the f32 CUDA-core
 // rate (67 TF/s), cuBLAS's SGEMM 78% of it; the TF32 tensor cores give a
 // 3xTF32 ceiling of 165 TF/s.
 //

@@ -38,9 +38,8 @@ __all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "load", "check"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("paged_decode_attention", "flash_attention", "vecadd", "saxpy",
-           "rmsnorm", "matmul", "stencil", "nn_search", "gcn_agg",
-           "decode_attention", "paged_gather", "ssd", "matmul_tc",
-           "matmul_tf32x3")
+           "rmsnorm", "stencil", "nn_search", "gcn_agg", "decode_attention",
+           "paged_gather", "ssd", "matmul_tc", "matmul_tf32x3")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,8 +1,8 @@
 """Tiled matmul ``C[m,n] = A[m,k] @ B[k,n]`` with a float32 accumulator.
 
-Three CUDA kernels replace the JAX package's
+Two CUDA kernels replace the JAX package's
 ``kernels/matmul.py::_matmul_kernel``, and ``route`` picks one from the
-operands' dtype, shape and alignment before anything is launched:
+operands' dtype before anything is launched:
 
   * "tf32x3" (``csrc/matmul_tf32x3.cu``): every float32 A and B.  Two
     launches: the split pass writes each operand's TF32 big and small
@@ -12,15 +12,13 @@ operands' dtype, shape and alignment before anything is launched:
     CUDA cores add to an f32 sum after each step (``tf32_product``,
     counted in ``matmul.tf32_launches``); a ``bm x bn`` tile of
     ``bm / 64`` warpgroups, K in steps of 32.
-  * "tensor_core" (``csrc/matmul_tc.cu``): bfloat16 A and B that TMA can
-    take — K and N multiples of 8 (16-byte row strides), both pointers
-    16-byte aligned.  TMA stages, ``wgmma`` products, f32 accumulators;
-    a ``bm x bn`` tile of ``bm / 64`` warpgroups.  Counted in
-    ``matmul.tc_launches``.
-  * "cuda_core" (``csrc/matmul.cu``): every other bfloat16 shape — a
-    ``tm x tn`` register micro-tile per thread (``lws = tm * tn``
-    outputs), a ``(16 tm) x (16 tn)`` output tile per CTA, K swept in
-    ``bk`` steps.  Counted in ``matmul.launches``.
+  * "tensor_core" (``csrc/matmul_tc.cu``): every bfloat16 A and B, of
+    any shape and alignment.  Shared-memory stages, ``wgmma`` products,
+    f32 accumulators; a ``bm x bn`` tile of ``bm / 64`` warpgroups, K in
+    steps of 64.  An operand whose pointer and row stride (K columns of
+    A, N of B) lie on 16 bytes is loaded by TMA, any other by the CTA's
+    own copies of 8, 4 or 2 bytes into the same swizzled stages.
+    Counted in ``matmul.tc_launches``.
 
 ``plan_for`` plans the launch of the operands' route under one of the
 mapping policies (``core.mapper.plan_matmul_blocks`` with ``kernel=``
@@ -50,10 +48,10 @@ from repro_torch.core.mapper import MappingPolicy, MatmulPlan, \
 from repro_torch.kernels import _build
 from repro_torch.kernels.vecadd import DTYPES
 
-__all__ = ["matmul", "matmul_plain", "occupancy", "plan_for", "route",
-           "tf32_split", "tf32_split_plain", "tf32_product"]
+__all__ = ["matmul", "matmul_plain", "loader_bytes", "occupancy",
+           "plan_for", "route", "tf32_split", "tf32_split_plain",
+           "tf32_product"]
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _TC_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                 + [ctypes.c_void_p])
 _SPLIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -64,19 +62,28 @@ _TF32_LOW = 0x1FFF          # the 13 mantissa bits TF32 drops
 _TF32_NAN = 0x7FFFE000      # the split's NaN: quiet, its 13 low bits clear
 
 
+_ROUTES = {torch.float32: "tf32x3", torch.bfloat16: "tensor_core"}
+
+
 def route(a: torch.Tensor, b: torch.Tensor) -> str:
-    """"tf32x3" for float32 operands, whatever their shape or alignment;
-    "tensor_core" for bfloat16 operands that TMA can take (2-D,
-    contiguous, K and N multiples of 8, 16-byte-aligned pointers); else
-    "cuda_core"."""
-    if a.dtype == b.dtype == torch.float32:
-        return "tf32x3"
-    if a.dtype == b.dtype == torch.bfloat16 and a.dim() == b.dim() == 2 \
-            and a.is_contiguous() and b.is_contiguous() \
-            and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0 \
-            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0:
-        return "tensor_core"
-    return "cuda_core"
+    """"tf32x3" for float32 operands, "tensor_core" for bfloat16, whatever
+    their shape or alignment; raises on operands of two dtypes or of
+    another dtype."""
+    if a.dtype != b.dtype or a.dtype not in _ROUTES:
+        raise TypeError(f"matmul takes A and B of one dtype, float32 or "
+                        f"bfloat16, got {a.dtype} and {b.dtype}")
+    return _ROUTES[a.dtype]
+
+
+def loader_bytes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    """The bytes a copy of A and of B moves in ``csrc/matmul_tc.cu``
+    (``copy_width``): 16 where the pointer and the row stride (K columns
+    of A, N of B) lie on 16 bytes, which TMA loads; else 8, 4 or 2, the
+    widest that divides both, by the CTA's own copies."""
+    def width(t):
+        x = t.data_ptr() | 2 * t.shape[1]
+        return next(w for w in (16, 8, 4, 2) if x % w == 0)
+    return width(a), width(b)
 
 
 def plan_for(a: torch.Tensor, b: torch.Tensor, hw: GpuParams,
@@ -208,9 +215,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, plan: MatmulPlan,
     """``a @ b``.  CPU tensors (or ``kernels.force("plain")``) run the
     plain version; CUDA tensors launch the plan's kernel: the split pass
     and the 3xTF32 product (``matmul.split_launches``,
-    ``matmul.tf32_launches``), the tensor-core kernel
-    (``matmul.tc_launches``) or the CUDA-core kernel
-    (``matmul.launches``)."""
+    ``matmul.tf32_launches``) or the bf16 tensor-core kernel
+    (``matmul.tc_launches``)."""
     if kernels.use_plain(a):
         return matmul_plain(a, b, plan=plan, out_dtype=out_dtype)
     out_dtype = out_dtype or a.dtype
@@ -224,47 +230,38 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, plan: MatmulPlan,
     if plan.kernel == "tf32x3":
         return tf32_product(*tf32_split(a, b, plan), n, plan, out_dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    if plan.kernel == "tensor_core":
-        fn = _build.load("matmul_tc").matmul_tc
-        fn.argtypes, fn.restype = _TC_ARGTYPES, ctypes.c_int
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                plan.bm, plan.bn, plan.stages, DTYPES[out_dtype], stream)
-        _build.check(rc, "matmul_tc")
-        matmul.tc_launches += 1
-        return out
-    fn = _build.load("matmul").matmul
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, plan.tm,
-            plan.tn, plan.bk, DTYPES[a.dtype], DTYPES[out_dtype], stream)
-    _build.check(rc, "matmul")
-    matmul.launches += 1
+    fn = _build.load("matmul_tc").matmul_tc
+    fn.argtypes, fn.restype = _TC_ARGTYPES, ctypes.c_int
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, plan.bm,
+            plan.bn, plan.stages, DTYPES[out_dtype],
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "matmul_tc")
+    matmul.tc_launches += 1
     return out
 
 
-matmul.launches = 0
 matmul.tc_launches = 0
 matmul.split_launches = 0
 matmul.tf32_launches = 0
 
 
-def occupancy(plan: MatmulPlan, dtype: torch.dtype) -> int:
-    """Resident CTAs per SM that the CUDA runtime reports for the plan's
-    instantiation (its registers and its shared memory)."""
+def occupancy(plan: MatmulPlan, a: torch.Tensor, b: torch.Tensor) -> int:
+    """Resident CTAs per SM that the CUDA runtime reports for the
+    instantiation that ``a @ b`` launches under ``plan`` (its registers
+    and its shared memory; for bf16, its operands' loaders)."""
     blocks = ctypes.c_int(0)
-    if plan.kernel in ("tensor_core", "tf32x3"):
-        lib, entry = ("matmul_tc", "matmul_tc_occupancy") \
-            if plan.kernel == "tensor_core" \
-            else ("matmul_tf32x3", "tf32x3_occupancy")
-        fn = getattr(_build.load(lib), entry)
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if plan.kernel == "tensor_core":
+        fn = _build.load("matmul_tc").matmul_tc_occupancy
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _build.check(fn(plan.bm, plan.bn, plan.stages, ctypes.byref(blocks)),
-                     entry)
+        _build.check(fn(a.data_ptr(), b.data_ptr(), b.shape[1], a.shape[1],
+                        plan.bm, plan.bn, plan.stages, ctypes.byref(blocks)),
+                     "matmul_tc_occupancy")
         return blocks.value
-    fn = _build.load("matmul").matmul_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = _build.load("matmul_tf32x3").tf32x3_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(plan.tm, plan.tn, plan.bk, DTYPES[dtype],
-                    ctypes.byref(blocks)), "matmul_occupancy")
+    _build.check(fn(plan.bm, plan.bn, plan.stages, ctypes.byref(blocks)),
+                 "tf32x3_occupancy")
     return blocks.value

@@ -102,9 +102,8 @@ def matmul(a, b, *, policy=None, out_dtype=None,
            hw: Optional[GpuParams] = None):
     """``a @ b``, planned for the kernel of the operands' route
     (``kernels.matmul.route``): float32 as three TF32 products on the
-    tensor cores ("tf32x3"), bfloat16 that TMA can take on the tensor
-    cores ("tensor_core"), other bfloat16 on the CUDA cores
-    ("cuda_core")."""
+    tensor cores ("tf32x3"), bfloat16 of any shape and alignment on the
+    tensor cores ("tensor_core")."""
     plan = _matmul.plan_for(a, b, _hw(a, hw), _resolve(policy))
     return _matmul.matmul(a, b, plan=plan, out_dtype=out_dtype)
 

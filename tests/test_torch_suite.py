@@ -39,7 +39,7 @@ from repro_torch.core import workload
 from repro_torch.core.hw import GPU_REGISTRY
 from repro_torch.core.mapper import (FIXED_LWS, MappingPolicy, Regime,
                                      classify_regime, matmul_plan_for_blocks,
-                                     matmul_smem_bytes, plan_matmul_blocks,
+                                     plan_matmul_blocks,
                                      plan_rows, plan_vector_blocks,
                                      resolve_lws)
 from repro_torch.kernels import _build, ops
@@ -52,6 +52,7 @@ TPU = TPU_REGISTRY["cpu_sim"]
 H100 = GPU_REGISTRY["h100_sxm"]
 CPU = GPU_REGISTRY["cpu"]
 POLICIES = ["naive", "fixed", "auto"]
+TC = "tensor_core"
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -89,6 +90,40 @@ def test_vecadd_matches_pallas(n, policy, dtype):
     want = vecadd_pallas(jx, jy, hw=TPU, policy=JaxPolicy(policy),
                          interpret=True)
     np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("n", [1, 5, 4097, (1 << 20) + 3])
+def test_vecadd_launch_takes_each_element_once(n, policy, dtype):
+    """The launch the wrapper gives the kernel on the H100's plan: with
+    ``vector_steps`` > 0, thread t of T takes 16-byte vectors t, t + T,
+    ... below n // v for that many steps and threads 0 ... n % v - 1 one
+    element each of the tail; with 0, lws scalars at stride T.  Modelled
+    item by item: every element is taken once and no vector runs past
+    n.  A pointer off 16 bytes takes the scalars."""
+    x = torch.zeros(n + 1, dtype=DTYPES[dtype][0])[:n]
+    plan = plan_vector_blocks(workload.vecadd(n, x.element_size()), H100,
+                              policy)
+    steps = va.vector_steps(plan, x, x, x)
+    v = 16 // x.element_size()
+    t = np.arange(plan.grid * plan.threads, dtype=np.int64)
+    if steps == 0:
+        assert plan.lws < v
+        items = (t + np.arange(plan.lws)[:, None] * t.size).ravel()
+        taken = items[items < n]
+    else:
+        assert steps == -(-plan.lws // v)
+        assert plan.grid * plan.threads * steps * v >= n
+        vec = (t + np.arange(steps)[:, None] * t.size).ravel()
+        vec = vec[vec < n // v]
+        assert (vec.max() + 1) * v <= n
+        tail = n // v * v + t
+        taken = np.concatenate([(vec[:, None] * v + np.arange(v)).ravel(),
+                                tail[tail < n]])
+    np.testing.assert_array_equal(np.sort(taken), np.arange(n))
+    off = torch.zeros(n + 1, dtype=x.dtype)[1:]
+    assert va.vector_steps(plan, x, off, x) == 0
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -194,27 +229,10 @@ def test_vector_and_row_plans_cover_gws_and_are_legal(policy, hw):
         assert (r.grid - 1) * 8 * r.lws < gws
 
 
-@pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
-@pytest.mark.parametrize("policy", POLICIES)
-def test_matmul_plans_cover_and_are_hopper_legal(policy, hw):
-    for m, n, k in [(1, 1, 1), (8, 1536, 576), (130, 70, 300),
-                    (4096, 4096, 4096), (100_000, 48, 9), (37, 5000, 2048)]:
-        p = plan_matmul_blocks(m, n, k, hw, policy)
-        assert p.tm in (1, 2, 4, 8) and p.tn in (1, 2, 4, 8)
-        assert p.lws == p.tm * p.tn and p.threads == 256
-        assert (p.bm, p.bn) == (16 * p.tm, 16 * p.tn)
-        assert p.bm % 16 == 0 and p.bn % 16 == 0 and p.bk % 16 == 0
-        assert p.bk <= max(16, -(-k // 16) * 16)
-        assert p.smem_bytes == matmul_smem_bytes(p.bm, p.bn, p.bk) \
-            <= hw.smem_per_block
-        assert p.grid[0] * p.bn >= n and p.grid[1] * p.bm >= m
-        assert p.grid[1] <= 65535
-        assert p.grid[0] * p.grid[1] * p.threads * p.lws >= m * n
-
-
 def test_policies_translate_eq1_to_hopper():
     """NAIVE one item per thread, FIXED 32, AUTO Eq. 1 over hp =
-    SMs x warps x 32 (rows: SMs x warps), matmul rounded up to 8 x 8."""
+    SMs x warps x 32 (rows: SMs x warps), matmul rounded up to a power of
+    two on the warpgroup tile (BN = 2 lws, at least 8)."""
     n = 1 << 26
     plans = {p: plan_vector_blocks(workload.vecadd(n), H100, p)
              for p in POLICIES}
@@ -225,15 +243,23 @@ def test_policies_translate_eq1_to_hopper():
     assert plan_vector_blocks(workload.vecadd(H100.hp()), H100,
                               "auto").regime is Regime.EXACT
     assert plan_rows(16384, H100, "auto").lws == -(-16384 // (132 * 64))
-    mm_auto = plan_matmul_blocks(4096, 4096, 4096, H100, "auto")
+    mm_auto = plan_matmul_blocks(4096, 4096, 4096, H100, "auto", kernel=TC)
     assert resolve_lws(4096 * 4096, H100.hp()) == 63
-    assert (mm_auto.tm, mm_auto.tn, mm_auto.lws) == (8, 8, 64)
-    assert plan_matmul_blocks(4096, 4096, 4096, H100, "fixed").lws == 32
-    assert plan_matmul_blocks(4096, 4096, 4096, H100, "naive").lws == 1
-    # a tile side never outgrows the matrix: 8 rows keep tm = 1
-    assert plan_matmul_blocks(8, 1536, 576, H100, "fixed").tm == 1
-    # the register budget caps lws at 64 whatever Eq. 1 asks
-    assert matmul_plan_for_blocks(4096, 4096, 64, H100, 500, 32).lws == 64
+    assert (mm_auto.tm, mm_auto.tn, mm_auto.lws) == (2, 32, 64)
+    assert (mm_auto.bm, mm_auto.bn) == (128, 128)
+    assert plan_matmul_blocks(4096, 4096, 4096, H100, "fixed",
+                              kernel=TC).lws == 32
+    # NAIVE's one output a thread rounds up to the least tile, BN 8
+    naive = plan_matmul_blocks(4096, 4096, 4096, H100, "naive", kernel=TC)
+    assert (naive.lws, naive.bn) == (4, 8)
+    # a tile side never outgrows the matrix: 8 rows take one warpgroup,
+    # and the odd N of a decode row the same tile as its neighbours
+    for n in (1536, 1532):
+        p = plan_matmul_blocks(8, n, 576, H100, "fixed", kernel=TC)
+        assert (p.bm, p.bn, p.threads, p.grid) == (64, 64, 128, (24, 1))
+    # the accumulators cap lws at 128 whatever Eq. 1 asks
+    assert matmul_plan_for_blocks(4096, 4096, 64, H100, 500,
+                                  kernel=TC).lws == 128
 
 
 @pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
@@ -244,7 +270,8 @@ def test_auto_takes_one_round_at_or_above_hp(hw):
             == 1
         assert plan_rows(int(hw.sm_count * hw.warps_per_sm * mult), hw,
                          "auto").rounds == 1
-    assert plan_matmul_blocks(4096, 4096, 4096, H100, "auto").rounds == 1
+    assert plan_matmul_blocks(4096, 4096, 4096, H100, "auto",
+                              kernel=TC).rounds == 1
     # NAIVE past hp needs more than one round; FIXED under hp idles SMs
     big = plan_vector_blocks(workload.vecadd(4 * hw.hp()), hw, "naive")
     assert big.rounds > 1
@@ -276,16 +303,19 @@ def test_default_policy_is_auto_and_scoped(monkeypatch):
 
 
 def test_cpu_tensors_launch_nothing():
-    fns = (va.vecadd, sx.saxpy, mm.matmul, rn.rmsnorm)
-    before = [f.launches for f in fns]
+    counts = ((va.vecadd, "launches"), (sx.saxpy, "launches"),
+              (mm.matmul, "tc_launches"), (mm.matmul, "split_launches"),
+              (mm.matmul, "tf32_launches"), (rn.rmsnorm, "launches"))
+    before = [getattr(f, attr) for f, attr in counts]
     x = torch.randn(64)
     a = torch.randn(16, 32)
     for policy in POLICIES:
         ops.vecadd(x, x, policy=policy)
         ops.saxpy(2.0, x, x, policy=policy)
         ops.matmul(a, a.T.contiguous(), policy=policy)
+        ops.matmul(a.bfloat16(), a.T.bfloat16(), policy=policy)
         ops.rmsnorm(a, torch.ones(32), policy=policy)
-    assert [f.launches for f in fns] == before
+    assert [getattr(f, attr) for f, attr in counts] == before
 
 
 @pytest.mark.parametrize("case", ["vec_dtype", "vec_shape", "vec_plan",
@@ -297,7 +327,7 @@ def test_kernel_input_checks_raise(case):
     x = torch.zeros(1000)
     vplan = plan_vector_blocks(workload.vecadd(1000), H100, "auto")
     a, b = torch.zeros(8, 16), torch.zeros(16, 4)
-    mplan = plan_matmul_blocks(8, 4, 16, H100, "auto")
+    mplan = plan_matmul_blocks(8, 4, 16, H100, "auto", kernel="tf32x3")
     rplan = plan_rows(8, H100, "auto")
     with pytest.raises((TypeError, ValueError)):
         if case == "vec_dtype":
@@ -331,5 +361,6 @@ def test_saxpy_scalar_is_rounded_to_x_dtype():
 def test_build_sources_name_every_cu():
     on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
-    for name in ("vecadd", "saxpy", "rmsnorm", "matmul"):
+    for name in ("vecadd", "saxpy", "rmsnorm", "matmul_tc",
+                 "matmul_tf32x3"):
         assert name in _build.SOURCES

@@ -1,5 +1,6 @@
-"""The port's tensor-core kernels, on the CPU: the bf16 matmul's plans and
-route (``csrc/matmul_tc.cu``), and the flash kernel's new forms —
+"""The port's tensor-core kernels, on the CPU: the bf16 matmul's plans,
+route and odd shapes (``csrc/matmul_tc.cu``: any K, N and alignment;
+TMA or the CTA's own copies), and the flash kernel's new forms —
 non-causal, head_dim 32 and 128 — and ``ops.flash_attention``, each
 plain version against the JAX function it replaces on the same numpy
 inputs (the Pallas kernels in interpret mode, as the JAX package's own
@@ -100,15 +101,6 @@ def test_bf16_policies_plan_three_tiles_at_4096(hw):
         assert (tiles["auto"].bm, tiles["auto"].bn) == (128, 256)
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-def test_float32_plans_are_unchanged_by_the_kernel_keyword(policy):
-    for shape in SHAPES:
-        p = plan_matmul_blocks(*shape, H100, policy)
-        assert p == plan_matmul_blocks(*shape, H100, policy,
-                                       kernel="cuda_core")
-        assert p.kernel == "cuda_core" and p.stages == 0
-
-
 # --------------------------------------------------------------------------- #
 # bf16 matmul against the Pallas kernel, and the route
 # --------------------------------------------------------------------------- #
@@ -136,6 +128,45 @@ def test_bf16_ops_matmul_matches_pallas_at_the_tc_plan(mnk, policy):
         _np(got), _np(mm.matmul_plain(a, b, plan=plan)))
 
 
+# bf16 shapes that TMA cannot take: the kernel copies such an operand
+# into its stages itself (8-, 4- or 2-byte copies); on the CPU the
+# wrapper runs the plain version at the same tile plan.
+ODD = {"k_odd": (130, 72, 257), "k_4_mod_8": (130, 70, 300),
+       "n_odd": (64, 1001, 192), "n_1532": (8, 1532, 576),
+       "a_misaligned": (8, 576, 576)}
+# the bytes of each operand's copies (16: TMA's): every width is reached
+LOADERS = {"k_odd": (2, 16), "k_4_mod_8": (8, 4), "n_odd": (16, 2),
+           "n_1532": (16, 8), "a_misaligned": (2, 16)}
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("case", list(ODD))
+def test_bf16_odd_shapes_match_pallas_at_the_tc_plan(case, policy):
+    m, n, k = ODD[case]
+    rng = np.random.default_rng(m + n + k)
+    (a, ja), (b, jb) = (_bf16(rng, (m, k), k ** -0.25),
+                        _bf16(rng, (k, n), k ** -0.25))
+    if case == "a_misaligned":         # A 2 bytes past a 16-byte boundary
+        flat = torch.empty(m * k + 1, dtype=BF16)
+        flat[1:] = a.flatten()
+        a = flat[1:].view(m, k)
+        assert a.data_ptr() % 16 == 2 and a.is_contiguous()
+    assert mm.route(a, b) == "tensor_core"
+    assert mm.loader_bytes(a, b) == LOADERS[case]
+    got = ops.matmul(a, b, policy=policy)
+    assert got.dtype == BF16 and got.shape == (m, n)
+    plan = plan_matmul_blocks(m, n, k, CPU, policy, kernel=TC)
+    assert mm.plan_for(a, b, CPU, policy) == plan
+    jplan = jax_matmul_plan(m, n, k, TPU, plan.bm, plan.bn, plan.bk,
+                            JaxPolicy(policy))
+    assert jplan.bk == plan.bk == 64
+    want = matmul_pallas(ja, jb, hw=TPU, plan=jplan, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1.6e-2,
+                               rtol=1.6e-2)
+    np.testing.assert_array_equal(
+        _np(got), _np(mm.matmul_plain(a, b, plan=plan)))
+
+
 def _route_case(case):
     a, b = torch.zeros(16, 32, dtype=BF16), torch.zeros(32, 24, dtype=BF16)
     if case == "bf16":
@@ -143,28 +174,39 @@ def _route_case(case):
     if case == "f32":
         return a.float(), b.float(), "tf32x3"
     if case == "k_not_8":
-        return a[:, :12].contiguous(), b[:12].contiguous(), "cuda_core"
+        return a[:, :12].contiguous(), b[:12].contiguous(), "tensor_core"
     if case == "n_not_8":
-        return a, b[:, :20].contiguous(), "cuda_core"
+        return a, b[:, :20].contiguous(), "tensor_core"
     if case == "strided":
-        return torch.zeros(32, 16, dtype=BF16).T, b, "cuda_core"
+        return torch.zeros(32, 16, dtype=BF16).T, b, "tensor_core"
     if case == "misaligned":           # 2 bytes past a 16-byte boundary
         flat = torch.zeros(16 * 32 + 1, dtype=BF16)
-        return flat[1:].view(16, 32), b, "cuda_core"
+        return flat[1:].view(16, 32), b, "tensor_core"
     if case == "mixed":
-        return a, b.float(), "cuda_core"
+        return a, b.float(), None
     raise AssertionError(case)
 
 
 @pytest.mark.parametrize("case", ["bf16", "f32", "k_not_8", "n_not_8",
                                   "strided", "misaligned", "mixed"])
 def test_route_rule(case, monkeypatch):
-    """bf16 that TMA can take goes to the tensor cores, everything else
-    to the CUDA cores; ``ops.matmul`` plans for the route."""
+    """Every bf16 pair goes to the tensor-core kernel and every f32 pair to
+    3xTF32, whatever the shape or alignment; two dtypes raise, and the
+    wrapper refuses a strided operand; ``ops.matmul`` plans for the
+    route."""
     a, b, want = _route_case(case)
+    if want is None:
+        with pytest.raises(TypeError, match="one dtype"):
+            mm.route(a, b)
+        with pytest.raises(ValueError, match="one dtype"):
+            mm._check(a, b, plan_matmul_blocks(16, 24, 32, H100, kernel=TC),
+                      BF16)
+        return
     assert mm.route(a, b) == want
-    if case in ("strided", "mixed"):
-        return                          # the wrapper refuses these anyway
+    if case == "strided":
+        with pytest.raises(ValueError, match="contiguous"):
+            mm._check(a, b, mm.plan_for(a, b, H100, "auto"), BF16)
+        return
     seen = []
     monkeypatch.setattr(mm, "matmul",
                         lambda a, b, *, plan, out_dtype: seen.append(plan))
@@ -177,14 +219,14 @@ def test_wrapper_refuses_a_plan_of_the_other_route(monkeypatch):
     monkeypatch.setattr(kernels, "use_plain", lambda t: False)
     monkeypatch.setattr(_build, "load", _no_build)
     a, b = torch.zeros(16, 32, dtype=BF16), torch.zeros(32, 24, dtype=BF16)
-    f32_plan = plan_matmul_blocks(16, 24, 32, H100, "auto")
+    f32_plan = plan_matmul_blocks(16, 24, 32, H100, "auto", kernel="tf32x3")
     tc_plan = plan_matmul_blocks(16, 24, 32, H100, "auto", kernel=TC)
     with pytest.raises(ValueError, match="route"):
         mm.matmul(a, b, plan=f32_plan)
     with pytest.raises(ValueError, match="route"):
         mm.matmul(a.float(), b.float(), plan=tc_plan)
     with pytest.raises(ValueError, match="route"):
-        mm.matmul(a[:, :12].contiguous(), b[:12].contiguous(), plan=tc_plan)
+        mm.matmul(a[:, :12].contiguous(), b[:12].contiguous(), plan=f32_plan)
 
 
 @pytest.mark.parametrize("case", ["bf16", "f32", "k_not_8", "n_not_8",
@@ -198,9 +240,10 @@ def test_plan_for_plans_the_routes_kernel(case, policy):
     assert p.kernel == want
 
 
-def test_planner_refuses_an_unknown_kernel():
-    with pytest.raises(ValueError, match="cuda_core or tensor_core"):
-        plan_matmul_blocks(64, 64, 64, H100, "auto", kernel="bfloat16")
+@pytest.mark.parametrize("kernel", ["bfloat16", "cuda_core"])
+def test_planner_refuses_an_unknown_kernel(kernel):
+    with pytest.raises(ValueError, match="tensor_core or tf32x3"):
+        plan_matmul_blocks(64, 64, 64, H100, "auto", kernel=kernel)
 
 
 def test_tc_plan_takes_two_stages_at_least():
@@ -216,8 +259,13 @@ def test_tc_plan_takes_two_stages_at_least():
         plan_matmul_blocks(4096, 4096, 4096, short, "auto", kernel=TC)
 
 
+def _launches():
+    return (mm.matmul.tc_launches, mm.matmul.split_launches,
+            mm.matmul.tf32_launches)
+
+
 def test_cpu_tensors_count_no_launch_on_either_route():
-    before = (mm.matmul.launches, mm.matmul.tc_launches)
+    before = _launches()
     rng = np.random.default_rng(3)
     (a, _), (b, _) = _bf16(rng, (16, 64)), _bf16(rng, (64, 40))
     for policy in POLICIES:
@@ -225,7 +273,7 @@ def test_cpu_tensors_count_no_launch_on_either_route():
         ops.matmul(a, b, policy=policy)
         ops.matmul(a.float(), b.float(), policy=policy)
         ops.matmul(a, b, policy=policy, out_dtype=torch.float32)
-    assert (mm.matmul.launches, mm.matmul.tc_launches) == before
+    assert _launches() == before
 
 
 # --------------------------------------------------------------------------- #

@@ -105,8 +105,8 @@ def test_tile_stops_at_bn_128():
     """A thread keeps a step's partial and the sum, BN f32: Eq. 1's 500
     outputs a thread is legalised to 64 (BN 128), where the bf16 kernel
     takes 128 (BN 256)."""
-    f = matmul_plan_for_blocks(8192, 8192, 64, H100, 500, 32, kernel=TF32)
-    t = matmul_plan_for_blocks(8192, 8192, 64, H100, 500, 32,
+    f = matmul_plan_for_blocks(8192, 8192, 64, H100, 500, kernel=TF32)
+    t = matmul_plan_for_blocks(8192, 8192, 64, H100, 500,
                                kernel="tensor_core")
     assert (f.lws, f.bn, t.bn) == (64, 128, 256)
 
@@ -148,13 +148,14 @@ def test_route_sends_every_float32_pair_to_tf32x3(case, monkeypatch):
                         lambda a, b, *, plan, out_dtype: seen.append(plan))
     ops.matmul(a, b, policy="auto")
     assert seen[0].kernel == TF32 and seen[0].bk == 32
-    assert mm.route(a.bfloat16(), b) == "cuda_core"       # mixed dtypes
+    with pytest.raises(TypeError, match="one dtype"):     # mixed dtypes
+        mm.route(a.bfloat16(), b)
 
 
 @pytest.mark.parametrize("policy", POLICIES)
 def test_cpu_tensors_launch_neither_part(policy):
     before = (mm.matmul.split_launches, mm.matmul.tf32_launches,
-              mm.matmul.launches)
+              mm.matmul.tc_launches)
     rng = np.random.default_rng(7)
     a, b = _f32(rng, (24, 40)), _f32(rng, (40, 18))
     got = ops.matmul(a, b, policy=policy)
@@ -163,7 +164,7 @@ def test_cpu_tensors_launch_neither_part(policy):
                                rtol=0, atol=0)
     mm.tf32_product(*mm.tf32_split(a, b, plan), 18, plan)
     assert (mm.matmul.split_launches, mm.matmul.tf32_launches,
-            mm.matmul.launches) == before
+            mm.matmul.tc_launches) == before
 
 
 def _no_build(name):
