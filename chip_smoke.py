@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
            GpuParams ``detect()`` read and Eq. 1's ``hp``;
   build    nvcc seconds for every kernel in ``src/repro_torch/csrc``
            (all compiled in parallel) and, per source, each kernel
-           entry function's registers and spills from ptxas;
+           entry function's registers and spills and the compiler's
+           warnings from ptxas;
   kernels  each serving kernel against its plain PyTorch version on the
            same inputs at smollm-135m's serving shapes (8 rows, a pool of
            1024, the ragged lengths of ``decode_case`` and, for the three
@@ -42,18 +43,22 @@ Phases, each printing one JSON line:
            ``plan_ssd_chunk(L, hw, policy)``) at the cases of
            ``SUITE_CASES``: each op driven once per policy with its
            launch counts reset just before and read just after (all
-           eleven counts must be above 0; the matmul's routes count
+           twelve counts must be above 0; the matmul's routes count
            apart: every f32 case must launch the split pass and the
            3xTF32 product once each, every bf16 case, odd shapes and
            pointers included, the tensor-core kernel once, and nothing
-           else); then per case and policy the plan (for matmul its
+           else; nn_search's prep pass and product count apart too);
+           then per case and policy the plan (for matmul its
            route, its counts, the bytes of each operand's copies (16:
            TMA) and the host's time to enqueue a call; for f32 the split
            pass held bit for bit against its plain version, the split
            and the product timed apart, and the route's and
            ``torch.matmul``'s max error against an f64 product; for
-           vecadd the 16-byte vectors a thread takes (0: scalars); for
-           rmsnorm the row path),
+           vecadd and saxpy the 16-byte vectors a thread takes (0:
+           scalars); for rmsnorm the row path; for nn_search the tiles,
+           the split and the grid, the prep pass and the product timed
+           apart, what the prep pass writes (``layout``), and the
+           bound of the CUDA-core kernel it replaced beside its own),
            the launches of the case's own drive, the resident CTAs per SM
            that the CUDA runtime reports beside the plan's full-residency
            assumption, the error against the plain version
@@ -72,7 +77,11 @@ Phases, each printing one JSON line:
            (``tc_loader_check``): at every tile the same operands 2, 4
            and 8 bytes off a 16-byte boundary (A, B, both) bit for bit
            equal to TMA's product, and odd K and N against the plain
-           version;
+           version; and nn_search's ties across its ref splits
+           (``nn_split_ties``: exact copies of a ref at the end of split
+           0, the start of split 1 and the end of the last split, and two
+           refs at equal distance from a query in split 0 and the last
+           split: the lower index, as the plain version);
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
            requests in bf16 on each path of ``ENGINE_RUNS``: the default
            (fused paged decode) with chunked and with whole-prompt
@@ -689,6 +698,9 @@ BLUR_SIGMA = 1.0
 # (gws under hp) and at the workload's default 4 dims (gws ~1.9x hp);
 # GCN aggregation (nodes, features, edges) at Cora's and Pubmed's sizes.
 # Mamba-2's SSD at one mamba2-1.3b layer (f32 and bf16) and a ragged L.
+# nn_search also at (1000, 3001, 36), which no tile divides, whose bf16
+# rows (72 bytes) are not whole 16-byte vectors (the prep pass copies
+# them for TMA), with 12 to 24 ref splits.
 # Then an f32 product of odd sizes (130, 70, 300) (the 3xTF32 route pads
 # it), and rmsnorm rows of 999 (not whole 16-byte vectors) and rows whose
 # x starts 2 bytes past a 16-byte boundary (``RMS_MISALIGNED``): the
@@ -722,11 +734,13 @@ SUITE_CASES = (
     + [("rmsnorm", s, BF16) for s in ((37, 999), RMS_MISALIGNED)]
     + [("matmul", s, BF16) for s in ((130, 70, 300), (130, 1001, 257),
                                      MM_MISALIGNED, (4096, 4092, 4096),
-                                     (4096, 4095, 4096))])
+                                     (4096, 4095, 4096))]
+    + [("nn_search", (1000, 3001, 36), dt) for dt in (F32, BF16)])
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
 # tolerances against JAX (tests/test_torch_suite.py,
-# tests/test_torch_suite_atypical.py).  vecadd and saxpy round where
-# their plain versions round; matmul's inputs are scaled by k^-1/4 so its
+# tests/test_torch_suite_atypical.py); vecadd and saxpy round where
+# their plain versions round and are held bitwise.  matmul's inputs are
+# scaled by k^-1/4 so its
 # outputs are O(1) and float32 sums over k = 4096 stay within 1e-4 (the
 # 3xTF32 route keeps ~21 bits of each operand; one TF32 product would
 # not: tests/test_torch_tf32x3.py).  The
@@ -735,8 +749,8 @@ SUITE_CASES = (
 SUITE_TOL = {
     ("vecadd", F32): (0.0, 0.0),
     ("vecadd", BF16): (0.0, 0.0),
-    ("saxpy", F32): (1e-6, 1e-6),
-    ("saxpy", BF16): (0.0, 8e-3),
+    ("saxpy", F32): (0.0, 0.0),
+    ("saxpy", BF16): (0.0, 0.0),
     ("rmsnorm", F32): (1e-5, 1e-5),
     ("rmsnorm", BF16): (0.0, 8e-3),
     ("matmul", F32): (1e-4, 1e-4),
@@ -752,6 +766,9 @@ SUITE_TOL = {
 # the plain version's distance at the kernel's index is within that
 # tolerance of its minimum (a near-tie: counted and printed).
 NN_DIST_TOL = 2.0 ** -18
+# nn_split_ties's shapes: 3 query tiles and 24 to 63 ref splits; d 36
+# (bf16 copied by the prep pass) and 128 (bf16 read by TMA in place)
+NN_TIE_SHAPES = ((300, 3001, 36), (300, 4000, 128))
 SAXPY_A = 1.7
 SWEEP_EXPONENTS = range(12, 27)      # vecadd sweep: n = 2^12 ... 2^26
 RMS_EPS = 1e-6
@@ -916,7 +933,7 @@ def suite_plan(op, shape, dtype, policy, hw, ins):
     if op == "gaussian_blur":
         return plan_stencil(*shape, hw, policy)
     if op == "nn_search":
-        return plan_nn(*shape, hw, policy)
+        return plan_nn(*shape, hw, policy, elem_bytes=es)
     if op == "gcn_aggregate":
         return plan_gcn(shape[0], shape[1], hw, policy)
     if op == "ssd":
@@ -952,9 +969,7 @@ def suite_bound(op, shape, dtype, hw, ins):
         h, w, k = shape
         return bound(2 * 2 * h * w * es, 2 * 2 * k * h * w, dtype, hw)
     if op == "nn_search":
-        nq, nr, d = shape
-        return bound((nq + nr) * d * es + 8 * nq,
-                     2 * nq * nr * d + 3 * nq * nr, dtype, hw)
+        return nn_bounds(shape, dtype, hw)[:2]
     if op == "gcn_aggregate":        # A read once (the occupancy pass)
         n, f, _ = shape
         nnz = int(torch.count_nonzero(ins[0]))
@@ -963,6 +978,27 @@ def suite_bound(op, shape, dtype, hw, ins):
         return ssd_bound(shape, dtype, hw)
     t, d = shape
     return bound((2 * t * d + d) * es, 4 * t * d, dtype, hw)
+
+
+def nn_bounds(shape, dtype, hw):
+    """(ms, by, CUDA-core ms) of nn_search.  The least time is the
+    longest of the bytes (queries and refs read once, idx and dist
+    written once), the dots on the tensor cores (float32 as three TF32
+    products, 3 x 2 nq nr d at the TF32 rate; bf16 2 nq nr d at its
+    rate) and the epilogue's 3 nq nr f32 operations on the CUDA cores.
+    The third number is the bound of the CUDA-core kernel this row had
+    before: (2 d + 3) nq nr operations at the dtype's peak
+    (``bound``)."""
+    nq, nr, d = shape
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = (nq + nr) * d * es + 8 * nq
+    t_bytes = nbytes / hw.mem_bw * 1e3
+    t_dot = (3 * 2 * nq * nr * d / hw.peak_flops_tf32 if dtype == F32
+             else 2 * nq * nr * d / hw.peak_flops(dtype)) * 1e3
+    t_epi = 3 * nq * nr / hw.peak_flops(F32) * 1e3
+    t = max(t_bytes, t_dot, t_epi)
+    old, _ = bound(nbytes, 2 * nq * nr * d + 3 * nq * nr, dtype, hw)
+    return t, "bytes" if t == t_bytes else "operations", old
 
 
 def ssd_bound(shape, dtype, hw):
@@ -1003,7 +1039,7 @@ def suite_occupancy(op, plan, dtype, shape, ins):
     if op == "gaussian_blur":
         return {p: stencil.occupancy(p, plan, dtype) for p in ("rows", "cols")}
     if op == "nn_search":
-        return nn_search.occupancy(plan, shape[2], dtype)
+        return nn_search.occupancy(plan)
     if op == "gcn_aggregate":
         return gcn_agg.occupancy(plan, dtype)
     if op == "ssd":
@@ -1012,7 +1048,7 @@ def suite_occupancy(op, plan, dtype, shape, ins):
         return rmsnorm.occupancy(*ins)
     if op == "vecadd":
         return vecadd.occupancy(dtype, vecadd.vector_steps(plan, *ins) > 0)
-    return saxpy.occupancy(dtype)
+    return saxpy.occupancy(dtype, vecadd.vector_steps(plan, *ins) > 0)
 
 
 def nn_compare(got, want, ins):
@@ -1224,6 +1260,72 @@ def tc_loader_check(hw, device):
                 odd_max_abs_err=odd_err, atol=atol, rtol=rtol)
 
 
+def nn_parts(ins, plan, timer):
+    """nn_search's two launches apart: what the prep pass writes for the
+    product (``layout``: the TF32 split, a bf16 copy, or the norms
+    alone), the prep pass and the product each timed."""
+    from repro_torch.kernels import nn_search as nn
+
+    q, r = ins
+    ws, norms = nn.prep(q, r, plan)
+    return dict(
+        layout=nn.layout(q, r)[0],
+        prep_ms=timer.ms(lambda: nn.prep(q, r, plan), head_start=True),
+        product_ms=timer.ms(lambda: nn.product(q, r, ws, norms, plan),
+                            head_start=True))
+
+
+def nn_split_ties(hw, device):
+    """Ties across nn_search's ref splits, in float32 and bf16 under each
+    policy at ``NN_TIE_SHAPES`` (every plan at least 3 splits of W refs):
+    a ref copied exactly to the end of split 0 (W - 1), the start of
+    split 1 (W) and the last ref, with query 0 a small step from it;
+    refs +e0 at W - 2 and -e0 at the last but one, with the last query
+    at the origin (both distances exactly 1).  The kernel must return W
+    - 1 and W - 2, the lower index of each tie.  Returns the cases
+    checked and how many of them the plain version (cuBLAS's dots, then
+    ``argmin``) answered the same.  These launches come after the
+    suite's counts were read."""
+    from repro_torch import kernels
+    from repro_torch.core.mapper import plan_nn
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 2)
+    checked = plain_agrees = 0
+    for nq, nr, d in NN_TIE_SHAPES:
+        base = rng.standard_normal((nr, d)).astype(np.float32) + 8.0
+        queries = rng.standard_normal((nq, d)).astype(np.float32) + 8.0
+        for dtype in (F32, BF16):
+            es = torch.empty((), dtype=dtype).element_size()
+            for policy in POLICIES:
+                plan = plan_nn(nq, nr, d, hw, policy, elem_bytes=es)
+                w = plan.split
+                if plan.grid[1] < 3:
+                    raise AssertionError(f"nn_split_ties: {plan} has fewer "
+                                         f"than 3 splits")
+                refs, qs = base.copy(), queries.copy()
+                refs[[w, nr - 1]] = refs[w - 1]
+                qs[0] = refs[w - 1] + 1e-3
+                refs[[w - 2, nr - 2]] = 0.0
+                refs[w - 2, 0], refs[nr - 2, 0] = 1.0, -1.0
+                qs[-1] = 0.0
+                q, r = (torch.from_numpy(t).to(device=device, dtype=dtype)
+                        for t in (qs, refs))
+                idx, _ = ops.nn_search(q, r, policy=policy)
+                with kernels.force("plain"):
+                    want, _ = ops.nn_search(q, r, policy=policy)
+                got = [int(idx[0]), int(idx[-1])]
+                if got != [w - 1, w - 2]:
+                    raise AssertionError(
+                        f"nn_split_ties: ({nq}, {nr}, {d}) {dtype} {policy} "
+                        f"(W {w}, {plan.grid[1]} splits): kernel {got}, "
+                        f"expected {[w - 1, w - 2]}")
+                checked += 1
+                plain_agrees += [int(want[0]), int(want[-1])] == got
+    torch.cuda.synchronize()
+    return dict(cases=checked, plain_agrees=plain_agrees)
+
+
 def gcn_parts(ins, plan, timer):
     """The occupied share of the plan's tiles, and the op's two parts
     timed apart: the occupancy pass and the kernel alone."""
@@ -1259,7 +1361,8 @@ def suite_phase(hw, timer, device):
                                      saxpy, ssd, stencil, vecadd)
 
     # kernel name -> (wrapper, attribute of its launch count); the two
-    # matmul routes count apart, the 3xTF32 route's split and product too
+    # matmul routes count apart, the 3xTF32 route's split and product
+    # too, and nn_search's prep pass and product
     counters = {"vecadd": (vecadd.vecadd, "launches"),
                 "saxpy": (saxpy.saxpy, "launches"),
                 "matmul_tc": (matmul.matmul, "tc_launches"),
@@ -1269,6 +1372,7 @@ def suite_phase(hw, timer, device):
                 "stencil_rows": (stencil.stencil_rows, "launches"),
                 "stencil_cols": (stencil.stencil_cols, "launches"),
                 "nn_search": (nn_search.nn_search, "launches"),
+                "nn_search_prep": (nn_search.nn_search, "prep_launches"),
                 "gcn_agg": (gcn_agg.gcn_agg, "launches"),
                 "ssd": (ssd.ssd, "launches")}
     cases = [(op, (hw.hp(),) if shape == ("hp",) else shape, dtype)
@@ -1359,8 +1463,11 @@ def suite_phase(hw, timer, device):
             elif op == "rmsnorm":
                 from repro_torch.kernels.rmsnorm import row_path
                 extra["row_path"] = row_path(*ins)
-            elif op == "vecadd":
+            elif op in ("vecadd", "saxpy"):
                 extra["vector_steps"] = vecadd.vector_steps(plan, *ins)
+            elif op == "nn_search":
+                extra.update(nn_parts(ins, plan, timer))
+                extra["bound_cuda_core_ms"] = nn_bounds(shape, dtype, hw)[2]
 
             def plain():
                 with kernels.force("plain"):
@@ -1394,6 +1501,7 @@ def suite_phase(hw, timer, device):
          kernel_ms={str(n): v for n, v in sweep.items()})
     emit("tf32x3_split_edges", values=tf32x3_split_edges(hw, device))
     emit("matmul_tc_loaders", **tc_loader_check(hw, device))
+    emit("nn_split_ties", **nn_split_ties(hw, device))
     emit("suite_done", seconds=time.perf_counter() - t0)
     total = {k: sum(launches[p][k] for p in POLICIES) for k in counters}
     return results, total
@@ -1704,7 +1812,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, per_source=secs,
          ptxas={n: [ln for ln in _build.ptxas_report(n).splitlines()
                     if "entry function" in ln or "registers" in ln
-                    or "spill" in ln]
+                    or "spill" in ln or "arning" in ln]
                 for n in _build.SOURCES})
 
     cfg = get_config("smollm-135m")
@@ -1788,6 +1896,11 @@ def main() -> int:
                                "library_f64_max_abs_err"])
         elif name == "rmsnorm":
             row["shape"] += f", {e['row_path']} path"
+        elif name == "nn_search":          # ms: the prep pass + the product
+            row.update(prep_ms=e["prep_ms"], product_ms=e["product_ms"],
+                       prep_launches=suite_launches["nn_search_prep"],
+                       bound_cuda_core_ms=e["bound_cuda_core_ms"],
+                       grid=e["plan"]["grid"])
         src = "stencil" if name.startswith("stencil_") else name
         summary.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{src}.cu",

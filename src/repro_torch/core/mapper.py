@@ -64,18 +64,31 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     column tiles (65,536 CTAs for NAIVE at 4096^2).  The legaliser
     clamps ``lws`` to ``[1, h]`` and keeps the staged f32 tile within
     ``smem_per_block``.
-  * nn_search: a work item is one query, ``gws = nq``,
-    ``hp = GpuParams.hp()``; a thread keeps the running ``(min d^2,
-    argmin)`` of ``lws`` queries (in shared memory, one slot per query,
-    read and written only by its thread), so a CTA owns ``256 lws``
-    queries and sweeps every ref once per CTA in blocks of ``block_r``
-    refs staged in shared memory with their ``|r|^2``: a larger ``lws``
-    streams the refs through fewer CTAs (the reuse the paper flags).
-    ``block_r`` is the same for every policy: the JAX default 512 halved
-    until the staged refs (and, for ``d`` over one 32-dim chunk, each
-    thread's partial dots) take at most half of ``smem_per_block`` (64
-    at d = 128, 512 at d = 4); the legaliser then caps ``lws`` so the
-    per-query slots fit the other half.
+  * nn_search (``csrc/nn_search.cu``): a work item is one query,
+    ``gws = nq``, ``hp = GpuParams.hp()``.  A CTA's two warpgroups
+    compute the dots of a ``bm``-query x ``bn``-ref tile with ``wgmma``
+    (queries as A, refs as B, both K-major as they arrive), and each
+    thread keeps the running ``(min d^2, argmin)`` of the query rows its
+    accumulators hold: 2 rows of each 64-row ``wgmma`` tile, each shared
+    by the 4 lanes of a quad over a quarter of the ref columns.  So
+    ``lws`` = query rows a thread holds, legalised to ``2 mt`` with ``mt
+    = ceil(lws / 2)`` in [1, 2] (1 when 128 queries cover ``nq``), and
+    the query tile is ``bm = 128 mt``: how many queries share one staged
+    ref tile, the reuse the JAX planner's ``block_q`` expresses.  The
+    ref tile and the split follow one rule for every policy: ``bn = 128
+    / mt`` (a thread holds ``mt bn`` f32 for a K step's partial and the
+    sum, at most 128); K in steps of 128 bytes (32 f32, 64 bf16; 128B
+    swizzle), or 32 bytes when ``d`` fits in them (d up to 8 in f32, 16
+    in bf16); ``stages`` as many as fit, 2 to 4.  The grid is (query
+    tiles, S ref splits), the splits merged by the last CTA of a query
+    tile: the split width W is
+    Eq. 1 over the (query tile, ref) pairs and the resident CTA slots
+    (SMs x ``NN_CTAS_PER_SM``, the kernel's register bound), ``W =
+    ceil(tiles nr / slots)`` rounded up to whole ref tiles, ``S =
+    ceil(nr / W)``, so one round of CTAs covers the search, as
+    ``plan_decode_split`` does for decode.  At 4,096 x 65,536 x 128 on
+    an H100: NAIVE and AUTO (``lws`` 1) plan 128 x 128 tiles and 5
+    splits, 160 CTAs; FIXED (32) 256 x 64 and 9 splits, 144 CTAs.
   * gcn_aggregate: a node's output row is one warp's work (lanes over
     features, as rmsnorm's row per warp), ``gws = n``, ``hp = SMs x
     warps_per_sm``; ``lws`` = node rows per warp, a CTA's 8 warps own
@@ -148,7 +161,8 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "matmul_tc_smem_bytes",
            "matmul_tf32x3_smem_bytes", "StencilPlan",
            "plan_stencil", "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
-           "plan_nn", "nn_plan_for_block", "nn_block_r", "nn_smem_bytes",
+           "plan_nn", "nn_plan_for_block", "nn_smem_bytes",
+           "nn_step_bytes",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
            "plan_attention_blocks",
            "attention_plan_for_blocks", "flash_smem_bytes",
@@ -170,8 +184,9 @@ MM_TF32_BK = 32           # 3xTF32 matmul: 128 bytes of f32 a K step
 MM_TF32_LWS = (4, 64)     # BN 8 to 128: a partial and a sum a thread
 STENCIL_TILE_W = 256      # blur CTA: 256 columns, one per thread
 MAX_KSIZE = 63            # blur taps passed by value (csrc/stencil.cu)
-NN_BLOCK_R = 512          # the JAX default ref block, cut to fit on Hopper
-NN_MAX_CHUNK = 32         # query dims held in registers at a time
+NN_MAX_MT = 2             # nn_search: 64-row query tiles a warpgroup
+NN_ACC = 128              # f32 a thread holds for the partial and the sum
+NN_CTAS_PER_SM = 1        # nn_search's registers: one 256-thread CTA an SM
 GCN_BLOCK_S = 256         # source-tile width, every policy
 GCN_MAX_FPL = 16          # feature accumulators per lane
 
@@ -498,85 +513,103 @@ def stencil_plan_for_block(h: int, w: int, ksize: int, hw: GpuParams,
 
 @dataclasses.dataclass(frozen=True)
 class NNPlan:
-    """``grid`` CTAs of ``threads`` threads; a thread owns ``lws``
-    queries, a CTA ``threads * lws``; refs are swept in ``block_r``
-    blocks; query dims are taken ``chunk`` at a time in registers."""
+    """``csrc/nn_search.cu``'s launch: ``grid`` = (query tiles, ref
+    splits) CTAs of ``threads`` threads (two warpgroups); a CTA owns a
+    ``bm``-query tile and sweeps ``split`` refs (whole ``bn``-ref tiles)
+    in K steps of ``bk`` elements through ``stages`` shared-memory
+    stages; a thread holds ``lws`` query rows.  ``elem_bytes`` is the
+    inputs' element size (4: float32 as 3xTF32, 2: bfloat16)."""
 
     policy: MappingPolicy
     lws: int
     threads: int
-    grid: int
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    split: int
+    grid: tuple[int, int]
     rounds: int
     regime: Regime
-    block_r: int
-    chunk: int
     smem_bytes: int
+    elem_bytes: int
 
 
-def nn_chunk(d: int) -> int:
-    """Query dims held in registers at a time (a template parameter of
-    ``csrc/nn_search.cu``): the least of 4, 8, 16, 32 covering ``d``,
-    else 32."""
-    for c in (4, 8, 16):
-        if d <= c:
-            return c
-    return NN_MAX_CHUNK
+def nn_step_bytes(d: int, elem_bytes: int) -> int:
+    """Bytes of K a stage holds a row: 32 (the 32-byte swizzle) when
+    ``d`` fits in them, else 128 (the 128-byte swizzle)."""
+    return 32 if d * elem_bytes <= 32 else 128
 
 
-def nn_smem_bytes(block_r: int, d: int, lws: int) -> int:
-    """Dynamic shared memory of ``csrc/nn_search.cu``: the f32 ref block
-    (rows zero-padded to whole chunks) and its ``|r|^2``; each thread's
-    partial dots over the block when ``d`` spans several chunks; one
-    ``(min, argmin)`` slot per owned query."""
-    c = nn_chunk(d)
-    dp = round_up(max(d, 1), c)
-    partial = block_r * CTA_THREADS if dp > c else 0
-    return 4 * (block_r * (dp + 1) + partial) + 8 * CTA_THREADS * lws
-
-
-def nn_block_r(d: int, hw: GpuParams) -> int:
-    """The ref block, the same for every policy: the JAX default 512
-    halved until the staged refs take at most half of shared memory."""
-    br = NN_BLOCK_R
-    while br > 1 and nn_smem_bytes(br, d, 0) > hw.smem_per_block // 2:
-        br //= 2
-    return br
+def nn_smem_bytes(bm: int, bn: int, step_bytes: int, stages: int,
+                  elem_bytes: int) -> int:
+    """Dynamic shared memory of ``csrc/nn_search.cu``'s product:
+    ``stages`` x (a bm-row query tile and a bn-row ref tile, each
+    ``step_bytes`` of K a row; float32 keeps a big and a small TF32 half
+    of each), two mbarriers a stage (room for 4), the merge's flag (16
+    bytes), and 1024 bytes to align the tiles on the swizzle atom."""
+    halves = 2 if elem_bytes == 4 else 1
+    return stages * halves * (bm + bn) * step_bytes \
+        + 2 * MM_TC_MAX_STAGES * 8 + 16 + 1024
 
 
 def plan_nn(nq: int, nr: int, d: int, hw: GpuParams,
-            policy: MappingPolicy = MappingPolicy.AUTO) -> NNPlan:
-    """Map a search of ``nq`` queries over ``nr`` refs of ``d`` dims.
+            policy: MappingPolicy = MappingPolicy.AUTO, *,
+            elem_bytes: int = 4) -> NNPlan:
+    """Map a search of ``nq`` queries over ``nr`` refs of ``d`` dims
+    (elements of ``elem_bytes``) onto the card.
 
     Example::
 
         >>> from repro_torch.core.hw import GPU_REGISTRY
-        >>> p = plan_nn(4096, 65536, 128, GPU_REGISTRY["h100_sxm"], "fixed")
-        >>> p.lws, p.grid, p.block_r
-        (16, 1, 64)
+        >>> h100 = GPU_REGISTRY["h100_sxm"]
+        >>> p = plan_nn(4096, 65536, 128, h100)
+        >>> (p.bm, p.bn), p.split, p.grid, p.stages
+        ((128, 128), 16000, (32, 5), 3)
+        >>> f = plan_nn(4096, 65536, 128, h100, "fixed")
+        >>> (f.bm, f.bn), f.grid
+        ((256, 64), (16, 9))
     """
     gws = nearest_neighbor(nq, nr, d).gws
     lws = _policy_lws(policy, gws, hw.hp())
-    return nn_plan_for_block(nq, d, hw, lws, policy)
+    return nn_plan_for_block(nq, nr, d, hw, lws, policy,
+                             elem_bytes=elem_bytes)
 
 
-def nn_plan_for_block(nq: int, d: int, hw: GpuParams, lws: int,
-                      policy: MappingPolicy = MappingPolicy.AUTO) -> NNPlan:
-    """Legalise queries per thread: at least 1, at most what one CTA
-    needs to cover every query, and no more slots than shared memory
-    holds beside the ref block."""
-    br = nn_block_r(d, hw)
-    lws = max(1, min(int(lws), ceil_div(nq, CTA_THREADS)))
-    while lws > 1 and nn_smem_bytes(br, d, lws) > hw.smem_per_block:
-        lws -= 1
-    smem = nn_smem_bytes(br, d, lws)
+def nn_plan_for_block(nq: int, nr: int, d: int, hw: GpuParams, lws: int,
+                      policy: MappingPolicy = MappingPolicy.AUTO, *,
+                      elem_bytes: int = 4) -> NNPlan:
+    """Legalise query rows per thread onto the kernel's tiles (the module
+    docstring's rule): ``mt = ceil(lws / 2)`` in [1, 2] 64-row tiles a
+    warpgroup (1 when 128 queries cover ``nq``), the ref tile, the K
+    step, the stages that fit, and the split of the refs."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"nn_search takes float32 or bfloat16 elements, "
+                         f"got {elem_bytes} bytes")
+    mt = min(max(1, ceil_div(int(lws), 2)), NN_MAX_MT)
+    if nq <= CTA_THREADS // 2:
+        mt = 1
+    bm, bn = 2 * 64 * mt, NN_ACC // mt
+    step = nn_step_bytes(d, elem_bytes)
+    stages = MM_TC_MAX_STAGES
+    while stages > 2 and nn_smem_bytes(bm, bn, step, stages, elem_bytes) \
+            > hw.smem_per_block:
+        stages -= 1
+    smem = nn_smem_bytes(bm, bn, step, stages, elem_bytes)
     if smem > hw.smem_per_block:
-        raise ValueError(f"no legal nn_search block for d={d}: {smem} B of "
-                         f"shared memory")
-    grid = ceil_div(nq, CTA_THREADS * lws)
-    return NNPlan(policy=MappingPolicy(policy), lws=lws,
-                  threads=CTA_THREADS, grid=grid, rounds=_rounds(grid, hw),
-                  regime=classify_regime(lws, nq, hw.hp()), block_r=br,
-                  chunk=nn_chunk(d), smem_bytes=smem)
+        raise ValueError(f"no legal nn_search tile: {smem} B of shared "
+                         f"memory")
+    tiles = ceil_div(max(nq, 1), bm)
+    whole = round_up(max(nr, 1), bn)
+    slots = hw.sm_count * NN_CTAS_PER_SM
+    split = min(whole, round_up(resolve_lws(tiles * max(nr, 1), slots), bn))
+    grid = (tiles, ceil_div(max(nr, 1), split))
+    return NNPlan(policy=MappingPolicy(policy), lws=2 * mt,
+                  threads=CTA_THREADS, bm=bm, bn=bn,
+                  bk=step // elem_bytes, stages=stages, split=split,
+                  grid=grid, rounds=ceil_div(grid[0] * grid[1], slots),
+                  regime=classify_regime(2 * mt, nq, hw.hp()),
+                  smem_bytes=smem, elem_bytes=elem_bytes)
 
 
 # --------------------------------------------------------------------------- #

@@ -60,7 +60,8 @@
 // (cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint so no
 // -lcuda is needed) and passed as __grid_constant__ parameters; the TMA,
 // mbarrier and wgmma helpers are csrc/tma_wgmma.cuh's, shared with
-// csrc/matmul_tc.cu.
+// csrc/matmul_tc.cu and csrc/nn_search.cu; the split's rounding is
+// csrc/tf32_split.cuh's, shared with csrc/nn_search.cu.
 //
 // Takes: A (M, K) and B (K, N) row-major float32 (any 4-byte-aligned
 // pointers); C (M, N) float32 or bfloat16.
@@ -73,11 +74,13 @@
 #include <atomic>
 
 #include "smem_optin.cuh"
+#include "tf32_split.cuh"
 #include "tma_wgmma.cuh"
 
 namespace {
 
 using namespace tma_wgmma;
+using tf32_split::split_store;
 
 constexpr int kBK = 32;            // K step: 128 bytes of f32
 constexpr int kMaxStages = 4;
@@ -86,32 +89,6 @@ constexpr int kTile = 32;          // split pass: 32 x 32 tiles
 constexpr int kSplitThreads = 256; // 32 columns x 8 rows
 
 // ------------------------------------------------------------------ split
-
-// x rounded to TF32, nearest with ties away from zero; the 13 low bits
-// cleared, so the value is exact in f32 and x - big is exact too
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r & 0xffffe000u);
-}
-
-// big and small of x.  A finite x whose rounding would overflow to
-// infinity (within half a TF32 step of FLT_MAX) is cut toward zero
-// instead, so a finite operand stays finite.  An infinity is its own big
-// part and a NaN the quiet NaN 0x7fffe000; their small part is 0, not
-// x - big (inf - inf, a NaN).
-__device__ __forceinline__ void split_store(float x, float* big,
-                                            float* small) {
-  float hi = tf32_rna(x), lo = 0.f;
-  if (isfinite(x)) {
-    if (!isfinite(hi)) hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-    lo = tf32_rna(x - hi);
-  } else {
-    hi = isnan(x) ? __uint_as_float(0x7fffe000u) : x;
-  }
-  *big = hi;
-  *small = lo;
-}
 
 // One CTA a 32 x 32 tile: the first a_tiles CTAs tile A (M, Kp), the rest
 // tile B^T (Np, Kp).  Reads past K or N are zeros.

@@ -1,6 +1,7 @@
-// TMA, mbarrier and wgmma helpers shared by the port's two tensor-core
-// matmuls (csrc/matmul_tc.cu: bf16; csrc/matmul_tf32x3.cu: 3xTF32 for
-// f32), for Hopper (sm_90a).  Every device helper is __forceinline__, so
+// TMA, mbarrier and wgmma helpers shared by the port's tensor-core
+// kernels (csrc/matmul_tc.cu: bf16 matmul; csrc/matmul_tf32x3.cu: 3xTF32
+// matmul for f32; csrc/nn_search.cu: the distance products), for Hopper
+// (sm_90a).  Every device helper is __forceinline__, so
 // each kernel's code is what it was with its own copy.
 //
 //  * smem_u32, desc: a shared-memory address as the 32-bit value PTX

@@ -128,7 +128,8 @@ def gaussian_blur(img, *, ksize: int = 5, sigma: float = 1.0, policy=None,
 def nn_search(queries, refs, *, policy=None, hw: Optional[GpuParams] = None):
     """queries (Q, D), refs (R, D) -> (idx int32 (Q,), sq-dist f32 (Q,))."""
     plan = plan_nn(queries.shape[0], refs.shape[0], queries.shape[1],
-                   _hw(queries, hw), _resolve(policy))
+                   _hw(queries, hw), _resolve(policy),
+                   elem_bytes=queries.element_size())
     return _nn_search.nn_search(queries, refs, plan=plan)
 
 

@@ -2,8 +2,11 @@
 
 The CUDA kernel (``csrc/saxpy.cu``) replaces the JAX package's
 ``kernels/saxpy.py::_saxpy_kernel``, with ``kernels/vecadd.py``'s
-mapping (``core.mapper.plan_vector_blocks``).  The scalar ``a`` is
-rounded to x's dtype first, as ``saxpy_pallas`` does.
+mapping (``core.mapper.plan_vector_blocks``) and vector design
+(``csrc/vector_map.cuh``): ``vecadd.vector_steps`` 16-byte vectors a
+thread where ``lws >= v`` and every operand starts on 16 bytes, else
+``lws`` scalars.  The scalar ``a`` is rounded to x's dtype first, as
+``saxpy_pallas`` does.
 
 ``saxpy_plain`` is the plain version: the product and the sum in
 float32, rounded once to x's dtype, which is what the kernel computes.
@@ -18,12 +21,13 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.mapper import BlockPlan
 from repro_torch.kernels import _build
-from repro_torch.kernels.vecadd import DTYPES, check_vector_args
+from repro_torch.kernels.vecadd import DTYPES, check_vector_args, \
+    vector_steps
 
 __all__ = ["saxpy", "saxpy_plain", "occupancy"]
 
 _ARGTYPES = [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _scalar(a, dtype: torch.dtype) -> float:
@@ -50,7 +54,8 @@ def saxpy(a, x: torch.Tensor, y: torch.Tensor, *,
     fn = _build.load("saxpy").saxpy
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(_scalar(a, x.dtype), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            x.numel(), plan.lws, plan.grid, DTYPES[x.dtype],
+            x.numel(), plan.lws, plan.grid, vector_steps(plan, x, y, out),
+            DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "saxpy")
     saxpy.launches += 1
@@ -60,10 +65,13 @@ def saxpy(a, x: torch.Tensor, y: torch.Tensor, *,
 saxpy.launches = 0
 
 
-def occupancy(dtype: torch.dtype) -> int:
-    """Resident CTAs per SM that the CUDA runtime reports for the kernel."""
+def occupancy(dtype: torch.dtype, vector: bool) -> int:
+    """Resident CTAs per SM that the CUDA runtime reports for the vector
+    or the scalar kernel."""
     fn = _build.load("saxpy").saxpy_occupancy
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    _build.check(fn(DTYPES[dtype], ctypes.byref(blocks)), "saxpy_occupancy")
+    _build.check(fn(DTYPES[dtype], int(vector), ctypes.byref(blocks)),
+                 "saxpy_occupancy")
     return blocks.value

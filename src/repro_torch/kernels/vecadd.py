@@ -1,6 +1,7 @@
 """vecadd — ``x + y`` over a 1-D vector, the paper's Fig. 1 kernel.
 
-The CUDA kernel (``csrc/vecadd.cu``) replaces the JAX package's
+The CUDA kernel (``csrc/vecadd.cu``, on ``csrc/vector_map.cuh``, which
+``csrc/saxpy.cu`` shares) replaces the JAX package's
 ``kernels/vecadd.py::_vecadd_kernel``.  Its launch — ``plan.lws``
 elements per thread over ``plan.grid`` CTAs of 256 threads — comes from
 ``core.mapper.plan_vector_blocks`` under one of the mapping policies

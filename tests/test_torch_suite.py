@@ -92,29 +92,73 @@ def test_vecadd_matches_pallas(n, policy, dtype):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
+class _Recorder:
+    """Stands in for a kernel's C entry point: keeps the arguments of
+    each call and reports a launch that succeeded."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _launch_args(monkeypatch, op, plan, x, y):
+    """``(n, lws, grid, steps)`` that the ``op`` wrapper (vecadd or saxpy)
+    passes to its kernel under ``plan`` for CPU tensors ``x``, ``y``: the
+    kernel path
+    is entered with ``use_plain`` patched off and the library replaced
+    by a recorder, so nothing is built or launched."""
+    from types import SimpleNamespace
+
+    from repro_torch import kernels
+
+    rec = _Recorder()
+    monkeypatch.setattr(kernels, "use_plain", lambda t: False)
+    monkeypatch.setattr(_build, "load",
+                        lambda name: SimpleNamespace(**{name: rec}))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    if op == "vecadd":
+        va.vecadd(x, y, plan=plan)
+    else:
+        sx.saxpy(1.7, x, y, plan=plan)
+    (args,) = rec.calls
+    if op == "saxpy":
+        args = args[1:]                          # the scalar a first
+    return args[3:7]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("n", [1, 5, 4097, (1 << 20) + 3])
-def test_vecadd_launch_takes_each_element_once(n, policy, dtype):
-    """The launch the wrapper gives the kernel on the H100's plan: with
-    ``vector_steps`` > 0, thread t of T takes 16-byte vectors t, t + T,
-    ... below n // v for that many steps and threads 0 ... n % v - 1 one
-    element each of the tail; with 0, lws scalars at stride T.  Modelled
-    item by item: every element is taken once and no vector runs past
-    n.  A pointer off 16 bytes takes the scalars."""
+@pytest.mark.parametrize("op", ["vecadd", "saxpy"])
+def test_vecadd_launch_takes_each_element_once(op, n, policy, dtype,
+                                               monkeypatch):
+    """The launch each wrapper (vecadd's and saxpy's, one schedule,
+    ``csrc/vector_map.cuh``) gives its kernel on the H100's plan, read
+    from the arguments it passes: with ``steps`` > 0, thread t of T
+    takes 16-byte vectors t, t + T, ... below n // v for that many steps
+    and threads 0 ... n % v - 1 one element each of the tail; with 0,
+    lws scalars at stride T.  Modelled item by item: every element is
+    taken once and no vector runs past n.  A pointer off 16 bytes takes
+    the scalars."""
     x = torch.zeros(n + 1, dtype=DTYPES[dtype][0])[:n]
-    plan = plan_vector_blocks(workload.vecadd(n, x.element_size()), H100,
-                              policy)
-    steps = va.vector_steps(plan, x, x, x)
+    plan = plan_vector_blocks(getattr(workload, op)(n, x.element_size()),
+                              H100, policy)
+    got_n, lws, grid, steps = _launch_args(monkeypatch, op, plan, x, x)
+    assert (got_n, lws, grid) == (n, plan.lws, plan.grid)
+    assert steps == va.vector_steps(plan, x, x, x)
     v = 16 // x.element_size()
-    t = np.arange(plan.grid * plan.threads, dtype=np.int64)
+    t = np.arange(grid * plan.threads, dtype=np.int64)
     if steps == 0:
-        assert plan.lws < v
-        items = (t + np.arange(plan.lws)[:, None] * t.size).ravel()
+        assert lws < v
+        items = (t + np.arange(lws)[:, None] * t.size).ravel()
         taken = items[items < n]
     else:
-        assert steps == -(-plan.lws // v)
-        assert plan.grid * plan.threads * steps * v >= n
+        assert steps == -(-lws // v)
+        assert grid * plan.threads * steps * v >= n
         vec = (t + np.arange(steps)[:, None] * t.size).ravel()
         vec = vec[vec < n // v]
         assert (vec.max() + 1) * v <= n
@@ -123,7 +167,7 @@ def test_vecadd_launch_takes_each_element_once(n, policy, dtype):
                                 tail[tail < n]])
     np.testing.assert_array_equal(np.sort(taken), np.arange(n))
     off = torch.zeros(n + 1, dtype=x.dtype)[1:]
-    assert va.vector_steps(plan, x, off, x) == 0
+    assert _launch_args(monkeypatch, op, plan, x, off)[3] == 0
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

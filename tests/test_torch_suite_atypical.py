@@ -21,7 +21,8 @@ Tolerances (port vs JAX):
            may be smaller than it;
   search   idx equal (no near-ties in these seeded inputs; a built tie
            must give the lowest index); dist atol = rtol = 1e-5 (float32
-           dot products in another order);
+           dot products in another order); the kernel's schedule (tiles,
+           splits, merge) is modelled in tests/test_torch_nn_split.py;
   gcn      float32 atol = rtol = 1e-5 (summation order); bfloat16 atol
            1e-5, rtol 8e-3 (one ulp of one rounding from float32);
   tile_occupancy  equal.
@@ -43,10 +44,11 @@ from repro.kernels.nn_search import nn_search_pallas
 from repro.kernels.ref import gaussian_kernel_1d as jax_taps
 from repro.kernels.stencil import gaussian_blur_pallas
 
-from repro_torch.core.hw import GPU_REGISTRY
-from repro_torch.core.mapper import (FIXED_LWS, GCN_BLOCK_S, Regime,
-                                     gcn_plan_for_block, nn_block_r,
-                                     nn_smem_bytes, plan_gcn, plan_nn,
+from repro_torch.core.hw import GPU_REGISTRY, round_up
+from repro_torch.core.mapper import (FIXED_LWS, GCN_BLOCK_S, NN_CTAS_PER_SM,
+                                     Regime, gcn_plan_for_block,
+                                     nn_plan_for_block, nn_smem_bytes,
+                                     nn_step_bytes, plan_gcn, plan_nn,
                                      plan_stencil, stencil_plan_for_block,
                                      stencil_smem_bytes)
 from repro_torch.kernels import _build, ops
@@ -228,10 +230,18 @@ def test_auto_is_eq1_and_regimes_equal_the_jax_mapper(hw):
         assert p.regime.value == \
             jax_classify_regime(p.lws, h * w, hw.hp()).value
     for nq, nr, d in NN_SHAPES:
+        # Eq. 1's queries a thread, legalised to the rows a thread's
+        # wgmma fragment holds: 2 of each of mt 64-row tiles, mt in [1, 2]
         p = plan_nn(nq, nr, d, hw, "auto")
-        assert p.lws <= jax_resolve_lws(nq, hw.hp())
+        mt = 1 if nq <= 128 else min(2, -(-jax_resolve_lws(nq, hw.hp())
+                                           // 2))
+        assert p.lws == 2 * mt and p.bm == 128 * mt
         assert p.regime.value == jax_classify_regime(p.lws, nq,
                                                      hw.hp()).value
+        # the split: Eq. 1 over (query tile, ref) pairs and the CTA slots
+        slots = hw.sm_count * NN_CTAS_PER_SM
+        w = jax_resolve_lws(p.grid[0] * nr, slots)
+        assert p.split == min(round_up(nr, p.bn), round_up(w, p.bn))
     rows_hp = hw.sm_count * hw.warps_per_sm
     for n, f in GCN_SHAPES:
         p = plan_gcn(n, f, hw, "auto")
@@ -252,15 +262,27 @@ def test_atypical_plans_cover_gws_and_are_legal(policy, hw):
         assert p.halo == (k - 1) // 2
         assert p.smem_bytes == stencil_smem_bytes(p.lws, p.halo) \
             <= hw.smem_per_block
-    for nq, nr, d in NN_SHAPES:
-        p = plan_nn(nq, nr, d, hw, policy)
-        assert p.threads == 256 and p.lws >= 1
-        assert p.grid * p.threads * p.lws >= nq
-        assert (p.grid - 1) * p.threads * p.lws < nq      # no idle CTA
-        assert p.block_r == nn_block_r(d, hw)             # every policy
-        assert p.chunk in (4, 8, 16, 32) and p.chunk >= min(d, 32)
-        assert p.smem_bytes == nn_smem_bytes(p.block_r, d, p.lws) \
-            <= hw.smem_per_block
+    for (nq, nr, d), es in ((s, e) for s in NN_SHAPES for e in (4, 2)):
+        p = plan_nn(nq, nr, d, hw, policy, elem_bytes=es)
+        tiles, splits = p.grid
+        assert p.threads == 256 and p.lws in (2, 4) and p.elem_bytes == es
+        assert p.bm == 64 * p.lws and p.bm * p.bn == 128 * 128
+        assert tiles * p.bm >= nq > (tiles - 1) * p.bm     # no idle tile
+        assert p.split % p.bn == 0 and splits <= 65535
+        assert (splits - 1) * p.split < nr <= splits * p.split
+        # the ref tile, the K step and the split: one rule, any policy
+        assert p == nn_plan_for_block(nq, nr, d, hw, p.lws, policy,
+                                      elem_bytes=es)
+        assert p.bk * es == nn_step_bytes(d, es) == (32 if d * es <= 32
+                                                     else 128)
+        assert 2 <= p.stages <= 4
+        step = p.bk * es
+        assert p.smem_bytes == nn_smem_bytes(p.bm, p.bn, step, p.stages,
+                                             es) <= hw.smem_per_block
+        assert p.stages == 4 or nn_smem_bytes(
+            p.bm, p.bn, step, p.stages + 1, es) > hw.smem_per_block
+        assert p.rounds == -(-tiles * splits
+                             // (hw.sm_count * NN_CTAS_PER_SM))
     for n, f in GCN_SHAPES:
         p = plan_gcn(n, f, hw, policy)
         assert p.threads == 256 and p.block_n == 8 * p.lws
@@ -271,19 +293,34 @@ def test_atypical_plans_cover_gws_and_are_legal(policy, hw):
 
 def test_policies_translate_eq1_to_hopper_for_the_atypical_kernels():
     """The H100 plans of the smoke's suite cases: NAIVE one item per thread,
-    FIXED 32, AUTO Eq. 1; block_r and feature tiles fixed per shape."""
+    FIXED 32, AUTO Eq. 1; nn's query tile from lws, its ref tile and split
+    by one rule, and the feature tiles fixed per shape."""
     blur = {p: plan_stencil(4096, 4096, 5, H100, p) for p in POLICIES}
     assert blur["naive"].lws == 1 and blur["naive"].grid == 65536
     assert blur["fixed"].lws == FIXED_LWS
     assert blur["auto"].lws == 63 and blur["auto"].grid == 66 * 16
     assert blur["naive"].regime is Regime.OVERSUBSCRIBED
-    sift = {p: plan_nn(4096, 65536, 128, H100, p) for p in POLICIES}
-    assert sift["naive"].grid == sift["auto"].grid == 16
-    assert sift["fixed"].grid == 1                  # one CTA: 16 a thread
-    assert {p.block_r for p in sift.values()} == {64}
-    wide = {p: plan_nn(524288, 4096, 4, H100, p) for p in POLICIES}
-    assert [wide[p].lws for p in POLICIES] == [1, 32, 2]
-    assert {p.block_r for p in wide.values()} == {512}
+    # nn: query rows a thread 2 (one 64-row tile a warpgroup) or 4 (two),
+    # the ref tile 128 / mt, the refs split so every policy fills the card
+    for es in (4, 2):
+        sift = {p: plan_nn(4096, 65536, 128, H100, p, elem_bytes=es)
+                for p in POLICIES}
+        assert [sift[p].lws for p in POLICIES] == [2, 4, 2]
+        for p in ("naive", "auto"):
+            assert (sift[p].bm, sift[p].bn) == (128, 128)
+            assert sift[p].split == 16000 and sift[p].grid == (32, 5)
+        assert (sift["fixed"].bm, sift["fixed"].bn) == (256, 64)
+        assert sift["fixed"].split == 8000
+        assert sift["fixed"].grid == (16, 9)
+        assert all(p.grid[0] * p.grid[1] >= H100.sm_count
+                   for p in sift.values())
+        assert {p.bk * es for p in sift.values()} == {128}
+        wide = {p: plan_nn(524288, 4096, 4, H100, p, elem_bytes=es)
+                for p in POLICIES}
+        assert [wide[p].lws for p in POLICIES] == [2, 4, 2]
+        assert [wide[p].grid for p in POLICIES] == [(4096, 1), (2048, 1),
+                                                    (4096, 1)]
+        assert {p.bk * es for p in wide.values()} == {32}   # 32-byte K
     cora = plan_gcn(2708, 1433, H100, "auto")
     assert cora.lws == 1 and cora.fpl == 16 and cora.grid == (339, 3)
     pubmed = {p: plan_gcn(19717, 500, H100, p) for p in POLICIES}
@@ -310,14 +347,15 @@ def test_legalisers_clamp_to_the_image_and_shared_memory():
 
 def test_cpu_tensors_launch_nothing():
     fns = (st.stencil_rows, st.stencil_cols, nn.nn_search, gc.gcn_agg)
-    before = [f.launches for f in fns]
+    before = [f.launches for f in fns] + [nn.nn_search.prep_launches]
     img = torch.randn(20, 30)
     adj = torch.from_numpy(_graph(40, 1))
     for policy in POLICIES:
         ops.gaussian_blur(img, policy=policy)
         ops.nn_search(img, img[:7].contiguous(), policy=policy)
         ops.gcn_aggregate(adj, torch.randn(40, 5), policy=policy)
-    assert [f.launches for f in fns] == before
+    assert [f.launches for f in fns] + [nn.nn_search.prep_launches] \
+        == before
 
 
 @pytest.mark.parametrize("op", ["stencil_rows", "stencil_cols",
@@ -351,8 +389,9 @@ def test_empty_inputs_count_no_launch(op, monkeypatch):
 
 @pytest.mark.parametrize("case", ["blur_dtype", "blur_shape", "blur_taps",
                                   "blur_plan", "nn_dtype", "nn_dims",
-                                  "nn_empty", "nn_plan", "gcn_square",
-                                  "gcn_dtype", "gcn_occ", "gcn_plan"])
+                                  "nn_empty", "nn_plan", "nn_split",
+                                  "nn_elem", "gcn_square", "gcn_dtype",
+                                  "gcn_occ", "gcn_plan"])
 def test_kernel_input_checks_raise(case):
     """The checks run before a launch; they raise on what the kernels do
     not take."""
@@ -379,8 +418,12 @@ def test_kernel_input_checks_raise(case):
             nn._check(q, torch.zeros(50, 8), nplan)
         elif case == "nn_empty":
             nn._check(q, torch.zeros(0, 16), nplan)
-        elif case == "nn_plan":
+        elif case == "nn_plan":                 # queries past the tiles
             nn._check(torch.zeros(100_000, 16), r, nplan)
+        elif case == "nn_split":                # refs past the splits
+            nn._check(q, torch.zeros(50_000, 16), nplan)
+        elif case == "nn_elem":                 # a float32 plan, bf16 in
+            nn._check(q.bfloat16(), r.bfloat16(), nplan)
         elif case == "gcn_square":
             gc._check(torch.zeros(30, 31), x, occ, gplan)
         elif case == "gcn_dtype":
