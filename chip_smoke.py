@@ -35,7 +35,17 @@ Phases, each printing one JSON line:
            plain at ``DECODE_SHAPES`` (odd head_dims, R 8, pages of 8 and
            32, 128 splits of one row, one split of 512), each fp launch
            just after the same kernel left NaN in every SM's shared
-           memory, the merge tickets back at 0 after;
+           memory, the merge tickets back at 0 after; the two gathers
+           also at ``GATHER_LARGE`` (8, 4096, 8, 128), every page mapped,
+           and at one page (1, 16, 3, 64), the launch's floor, each with
+           the plan that launched (item width, gws, lws, grid); and a
+           ``gather_shapes`` line: both gathers bit for bit against plain
+           at ``GATHER_SHAPES`` (pages 1, 8, 32; D 6, 32, 100; G 1, 8;
+           B 1; nb 1; -1 and repeated ids; tables wider than nb) with the
+           cache at its buffer's start and at ``GATHER_OFFSETS`` past
+           it, every item width of each launched by the wrappers' own
+           plans, and at ``GATHER_WIDE`` (2.15 GB of int8 codes: the
+           64-bit index path);
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
@@ -336,6 +346,34 @@ def gather_case(cfg, device, dtype, quant):
                 out_bytes=c["k_cache"].element_size())
 
 
+#: the gathers' large case: qwen3-8b's KV heads (8 groups of 128) over
+#: 8 rows of 4,096, every page mapped: 67 MB a cache in bf16
+GATHER_LARGE = (8, 4096, 8, 128)
+
+
+def pool_gather_case(shape, device, dtype, quant, seed):
+    """A cache of ``shape`` (B, T, G, D), pages of 16 all mapped through a
+    permuted table, made on the card (the int8 gather: codes and scales,
+    out in ``dtype``)."""
+    b, t, g, d = shape
+    pb = 16
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(rng.permutation(b * (t // pb)).astype(
+        np.int32).reshape(b, t // pb)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if quant:
+        return dict(
+            cache=torch.randint(-127, 128, shape, generator=gen,
+                                device=device, dtype=torch.int8),
+            scale=torch.rand((b, t // pb, g), generator=gen,
+                             device=device) * 0.05 + 1e-3,
+            tables=tables, block_size=pb, out_dtype=dtype,
+            out_bytes=torch.empty((), dtype=dtype).element_size())
+    return dict(cache=torch.randn(shape, generator=gen, device=device)
+                .to(dtype), tables=tables, block_size=pb,
+                out_bytes=torch.empty((), dtype=dtype).element_size())
+
+
 def flash_bound(case, hw):
     q, k = case["q"], case["k"]
     b, sq, g, r, d = q.shape
@@ -427,6 +465,157 @@ DECODE_SHAPES = (
     (1, 2048, 1, 3, 64, 16, 16, 16, (2000,)),
     (2, 512, 3, 3, 64, 16, 16, 512, (512, 300)),
 )
+
+
+#: shapes the gather wrappers take beyond the serving one: (B, T, G, D,
+#: page).  Pages of 1, 8 and 32; D 6 (bf16 rows of 12 bytes: 4-byte
+#: copies at page 1, and the dequant gather's scalar route), D 100 (its
+#: char4 route) and D 32 (8 codes behind a bf16 store, 4 behind an f32
+#: one); G 1 and 8; B 1; nb 1.  Every table holds -1 entries, repeated
+#: ids and 2 columns past nb (``gather_tables``); every case runs with
+#: the cache at the start of its buffer and at each offset of
+#: ``GATHER_OFFSETS`` past it (bytes: a contiguous slice of a larger
+#: buffer), so the wrappers' own plans launch copy items of 16, 8, 4, 2
+#: and 1 bytes and dequant items of each of ``DEQUANT_WIDTHS``
+GATHER_SHAPES = (
+    (2, 8, 1, 6, 1),
+    (3, 64, 8, 100, 8),
+    (1, 96, 8, 32, 32),
+    (4, 32, 1, 6, 32),
+)
+GATHER_OFFSETS = {torch.float32: (0, 4), torch.bfloat16: (0, 2),
+                  torch.int8: (0, 1, 2, 4)}
+#: an int8 cache of 2.15 GB (B, T, G, D), pages of 16, one byte past 16:
+#: items of one byte or one code, more of them than 32-bit item math
+#: covers, so both gathers launch their 64-bit index path
+GATHER_WIDE = (8, 16384, 16, 1025)
+
+
+def gather_tables(rng, b, nb):
+    """(B, nb + 2) ids drawn with repeats from the pool's B nb pages and
+    -1; the first entry -1, the last used one a repeat of the second."""
+    tables = rng.integers(-1, b * nb, size=(b, nb + 2)).astype(np.int32)
+    used = tables[:, :nb].reshape(-1)
+    used[0], used[1] = -1, rng.integers(b * nb)
+    used[-1] = used[1]
+    tables[:, :nb] = used.reshape(b, nb)
+    return tables
+
+
+def gather_row(name, dtype, out, shape, off, plan):
+    """The ``gather_shapes`` line's record of one case and its plan."""
+    return dict(kernel=name, dtype=str(dtype).split(".")[1],
+                out=str(out or dtype).split(".")[1],
+                shape=dict(zip(("B", "T", "G", "D", "page"), shape)),
+                offset_bytes=off, width=plan.width, lws=plan.lws,
+                grid=plan.grid)
+
+
+def check_gather(name, call, what):
+    """Run ``call`` on the kernel and on the plain version: bit for bit,
+    or raise."""
+    from repro_torch import kernels
+
+    got = call()
+    with kernels.force("plain"):
+        want = call()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {what}: not bit-exact against the "
+                             f"plain version")
+
+
+def gather_shapes_check(device):
+    """Both gathers against their plain versions, bit for bit, at
+    ``GATHER_SHAPES`` x ``GATHER_OFFSETS``: the copy of float32, bfloat16
+    and int8 caches under the wrapper's plan, the dequant gather of the
+    int8 codes into float32 and bfloat16 under the wrapper's plan and at
+    each narrower legal item width; the wrappers' own plans must have
+    launched every item width of each (``GATHER_WIDTHS``, and
+    ``DEQUANT_WIDTHS`` of each output).  Then both at ``GATHER_WIDE``,
+    whose plans must take the 64-bit path."""
+    from repro_torch.core.hw import detect
+    from repro_torch.core.mapper import (DEQUANT_WIDTHS, GATHER_THREADS,
+                                         GATHER_WIDTHS, plan_gather)
+    from repro_torch.kernels.paged_gather import (paged_dequant_gather,
+                                                  paged_gather)
+
+    hw = detect(device)
+    outs = (torch.float32, torch.bfloat16)
+    rows, widths = [], {k: set() for k in [None, *outs]}
+    for b, t, g, d, pb in GATHER_SHAPES:
+        nb, n = t // pb, b * t * g * d
+        tab = torch.from_numpy(gather_tables(
+            np.random.default_rng(SEED + t + d), b, nb)).to(device)
+        gen = torch.Generator().manual_seed(SEED + d)
+        scale = (torch.rand((b, nb, g), generator=gen) * 0.05
+                 + 1e-3).to(device)
+        for dtype, offsets in GATHER_OFFSETS.items():
+            es = torch.empty((), dtype=dtype).element_size()
+            for off in offsets:
+                if dtype == torch.int8:
+                    buf = torch.randint(-127, 128, (n + off,), generator=gen,
+                                        dtype=dtype)
+                else:
+                    buf = torch.randn(n + off // es, generator=gen).to(dtype)
+                cache = buf.to(device)[off // es:].view(b, t, g, d)
+                calls = [("paged_gather", None, None, paged_gather,
+                          lambda: paged_gather(cache, tab, pb))]
+                for out in outs if dtype == torch.int8 else ():
+                    # the wrapper's own plan (the widest legal width),
+                    # then each narrower legal width
+                    legal = [w for w in DEQUANT_WIDTHS[out.itemsize]
+                             if d % w == 0 and off % w == 0]
+                    for plan in [None] + [plan_gather(n, w, hw)
+                                          for w in legal[1:]]:
+                        calls.append((
+                            "paged_dequant_gather", out, plan,
+                            paged_dequant_gather,
+                            lambda out=out, plan=plan: paged_dequant_gather(
+                                cache, scale, tab, pb, out_dtype=out,
+                                plan=plan)))
+                for name, out, plan, fn, call in calls:
+                    check_gather(name, call, (
+                        f"{dtype} -> {out or dtype} at B {b} T {t} G {g} "
+                        f"D {d} page {pb}, cache {off} bytes past its "
+                        f"buffer"))
+                    if plan is None:
+                        widths[out].add(fn.last_plan.width)
+                    rows.append(gather_row(name, dtype, out,
+                                           (b, t, g, d, pb), off,
+                                           fn.last_plan))
+    for out, want in ((None, GATHER_WIDTHS),
+                      *((o, DEQUANT_WIDTHS[o.itemsize]) for o in outs)):
+        if widths[out] != set(want):
+            raise AssertionError(f"gathers into {out}: the wrappers' plans "
+                                 f"launched items of {sorted(widths[out])}, "
+                                 f"not {want}")
+    b, t, g, d = GATHER_WIDE
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    buf = torch.randint(-127, 128, (b * t * g * d + 1,), generator=gen,
+                        device=device, dtype=torch.int8)
+    cache = buf[1:].view(b, t, g, d)
+    tab = torch.from_numpy(gather_tables(np.random.default_rng(SEED + 7), b,
+                                         t // 16)).to(device)
+    scale = torch.rand((b, t // 16, g), generator=gen, device=device) \
+        * 0.05 + 1e-3
+    for name, fn, call in (
+            ("paged_gather", paged_gather,
+             lambda: paged_gather(cache, tab, 16)),
+            ("paged_dequant_gather", paged_dequant_gather,
+             lambda: paged_dequant_gather(cache, scale, tab, 16,
+                                          out_dtype=torch.bfloat16))):
+        check_gather(name, call, f"int8 at {GATHER_WIDE}, 1 byte past 16")
+        plan = fn.last_plan
+        if plan.grid * GATHER_THREADS * plan.lws < 2 ** 31:
+            raise AssertionError(f"{name} at {GATHER_WIDE}: {plan} is "
+                                 f"inside the 32-bit item math")
+        rows.append(gather_row(name, torch.int8, None if name ==
+                               "paged_gather" else torch.bfloat16,
+                               (b, t, g, d, 16), 1, plan))
+    del buf, cache
+    torch.cuda.empty_cache()
+    return rows
 
 
 def poison_decode_smem(call, g, r, d, pb, dtype, device):
@@ -655,17 +844,32 @@ def kernels_phase(cfg, hw, timer, device):
                                          cache_split, lens),
         cache_block, cache_split, sdpa_decode_call, "contiguous rows of 1024")
     emit("decode_shapes", cases=decode_shapes_check(device, hw))
-    results["paged_gather"] = [dict(
-        shape="one cache of the pool (8, 1024, 3, 64), page 16",
-        **measure("paged_gather", paged_gather,
-                  lambda dt: gather_case(cfg, device, dt, False),
-                  gather_bound, index_select_call, exact=True,
-                  head_start=True))]
-    results["paged_dequant_gather"] = [dict(
-        shape="int8 codes (8, 1024, 3, 64), page 16, out in the dtype",
-        **measure("paged_dequant_gather", paged_dequant_gather,
-                  lambda dt: gather_case(cfg, device, dt, True),
-                  gather_bound, None, exact=True, head_start=True))]
+
+    def gather_entries(name, fn, quant, library):
+        """The serving shape, the large case and one page (the launch's
+        floor), each with the plan that launched the bf16 timing."""
+        out = []
+        for label, case in (
+                ("one cache of the pool (8, 1024, 3, 64), page 16",
+                 lambda dt: gather_case(cfg, device, dt, quant)),
+                (f"{GATHER_LARGE}, page 16, every page mapped",
+                 lambda dt: pool_gather_case(GATHER_LARGE, device, dt,
+                                             quant, SEED + 4)),
+                ("one page (1, 16, 3, 64)",
+                 lambda dt: pool_gather_case((1, 16, g, d), device, dt,
+                                             quant, SEED + 5))):
+            entry = measure(name, fn, case, gather_bound, library,
+                            exact=True, head_start=True)
+            out.append(dict(shape=("int8 codes " if quant else "") + label,
+                            plan=dataclasses.asdict(fn.last_plan),
+                            **entry))
+        return out
+
+    results["paged_gather"] = gather_entries(
+        "paged_gather", paged_gather, False, index_select_call)
+    results["paged_dequant_gather"] = gather_entries(
+        "paged_dequant_gather", paged_dequant_gather, True, None)
+    emit("gather_shapes", cases=gather_shapes_check(device))
     return results
 
 
@@ -1800,7 +2004,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     smi = nvidia_smi()
     hw = detect(device)
-    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], nvcc=nvcc.strip().splitlines()[-1],
@@ -1855,6 +2059,15 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "shape": main_case["shape"]})
+        if name in ("paged_gather", "paged_dequant_gather"):
+            # the large case and one page (the launch's floor)
+            large, page = cases[1], cases[2]
+            summary[-1].update(
+                plan=main_case["plan"], large_shape=large["shape"],
+                large_ms=large["kernel_ms"], large_plain_ms=large["plain_ms"],
+                large_bound_ms=large["bound_ms"],
+                large_library_ms=large["library_ms"], large_plan=large["plan"],
+                one_page_ms=page["kernel_ms"])
     # the suite's row per kernel: AUTO (the default policy) at its
     # largest case
     for name, op, shape, dt in (

@@ -140,7 +140,18 @@ cache) comes with the tuner slice and raises here.
     smollm-135m's 8 slots x 3 groups over a 1024 pool on an H100).  NAIVE is one split (the row swept whole, B G CTAs), FIXED
     the JAX package's 512-position block;
   * each kernel's staged tiles fit the block's opt-in shared memory
-    (227 KB on an H100).
+    (227 KB on an H100);
+  * the block-table gathers (``plan_gather``): a work item is one copy
+    unit of the view, the widest of 16, 8, 4, 2 or 1 bytes that divides
+    the page's bytes and both pointers (the dequant gather: the int8
+    codes behind one 16-byte store, 8 for a bf16 output and 4 for f32,
+    else 4 or 1, by D and the codes' pointer), ``gws`` the view's items and
+    ``hp = GpuParams.hp()``; ``lws = ceil(gws / hp)`` items a thread,
+    taken at a stride of the grid's threads (coalesced), over
+    ``ceil(gws / (256 lws))`` CTAs of 256 threads.  One cache of
+    smollm-135m's pool (8, 1024, 3, 64) bf16 is 196,608 vectors, ``lws``
+    1, 768 CTAs; (8, 4096, 8, 128) bf16 is 4,194,304, ``lws`` 16, 1,024
+    CTAs.
 """
 
 from __future__ import annotations
@@ -168,7 +179,9 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "attention_plan_for_blocks", "flash_smem_bytes",
            "decode_smem_bytes", "decode_block_for", "plan_cache_block",
            "plan_paged_block", "decode_chunk", "decode_ctas_per_sm",
-           "plan_decode_split", "decode_splits"]
+           "plan_decode_split", "decode_splits", "GatherPlan",
+           "GATHER_WIDTHS", "DEQUANT_WIDTHS", "gather_width",
+           "plan_gather", "gather_plan_for_block"]
 
 MAX_BLOCK_Q = 128         # 16 rows a warp (bf16), a row a thread (f32)
 MAX_BLOCK_K = 128
@@ -911,3 +924,80 @@ def plan_decode_split(t: int, rows: int, block_s: int, head_dim: int,
 def decode_splits(t: int, split: int) -> int:
     """CTAs a (row, group) gets at split width ``split``: ceil(t / W)."""
     return max(1, ceil_div(int(t), int(split)))
+
+
+# --------------------------------------------------------------------------- #
+# Block-table gathers (the paged pool's logical view)
+# --------------------------------------------------------------------------- #
+
+GATHER_THREADS = 256          # both gathers' CTA: 8 warps
+GATHER_WIDTHS = (16, 8, 4, 2, 1)   # bytes a copy item moves, widest first
+#: int8 codes a dequant item takes, widest first, by the output's bytes
+#: a value: at most the codes behind one 16-byte store
+DEQUANT_WIDTHS = {2: (8, 4, 1), 4: (4, 1)}
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """Launch of a block-table gather: the view is ``gws`` items of
+    ``width`` (bytes for the copy, int8 codes for the dequant gather);
+    ``grid`` CTAs of ``threads`` threads, thread ``t`` of ``T = grid x
+    threads`` taking items ``t, t + T, ...``, ``lws`` of them at most;
+    ``rounds`` waves of CTAs at full residency."""
+
+    width: int
+    gws: int
+    lws: int
+    threads: int
+    grid: int
+    rounds: int
+
+
+def gather_width(unit: int, align: int, widths=GATHER_WIDTHS) -> int:
+    """The widest of ``widths`` dividing both ``unit`` (a page's bytes
+    for the copy, D for the dequant gather) and ``align`` (the pointers'
+    common alignment in bytes; any multiple of 16 for aligned ones).
+
+    Example::
+
+        >>> [gather_width(u, a) for u, a in ((6144, 256), (12, 256),
+        ...                                  (6144, 2))]
+        [16, 4, 2]
+    """
+    for w in widths:
+        if unit % w == 0 and align % w == 0:
+            return w
+    raise ValueError(f"no gather width of {widths} divides {unit} and "
+                     f"{align}")
+
+
+def plan_gather(size: int, width: int, hw: GpuParams) -> GatherPlan:
+    """Eq. 1 over a gather of ``size`` bytes (the copy) or codes (the
+    dequant gather) in items of ``width``: ``lws = ceil(gws / hp)``.
+
+    Example::
+
+        >>> from repro_torch.core.hw import GPU_REGISTRY
+        >>> p = plan_gather(8 * 1024 * 3 * 64 * 2, 16,
+        ...                 GPU_REGISTRY["h100_sxm"])
+        >>> p.gws, p.lws, p.grid
+        (196608, 1, 768)
+    """
+    if width < 1 or size % width:
+        raise ValueError(f"a gather of {size} in items of {width}")
+    return gather_plan_for_block(size, width, hw,
+                                 resolve_lws(size // width, hw.hp()))
+
+
+def gather_plan_for_block(size: int, width: int, hw: GpuParams,
+                          lws: int) -> GatherPlan:
+    """Legalise an ``lws`` decision (the tuner's candidate space): the
+    width must divide ``size``; ``lws`` at least 1, at most what one CTA
+    needs to cover every item; the grid covers the view once."""
+    if width < 1 or size < 1 or size % width:
+        raise ValueError(f"a gather of {size} in items of {width}")
+    gws = size // width
+    lws = max(1, min(int(lws), ceil_div(gws, GATHER_THREADS)))
+    grid = ceil_div(gws, GATHER_THREADS * lws)
+    return GatherPlan(width=width, gws=gws, lws=lws, threads=GATHER_THREADS,
+                      grid=grid, rounds=_rounds(grid, hw))

@@ -9,13 +9,11 @@
 // 3 elements moved).  Design: csrc/vector_map.cuh's map, as vecadd.cu
 // (16-byte vectors, four loads a batch before the arithmetic, where lws
 // >= v and the pointers lie on 16 bytes; the n mod v tail one element a
-// thread; scalars otherwise).  The product and the sum are done in fp32
-// with __fmul_rn / __fadd_rn, so no fused multiply-add contracts them:
-// the kernel rounds exactly where its plain PyTorch version does (the
-// product to fp32, the sum to fp32, then once to bf16 for bf16 inputs)
-// and gives its bits.  The JAX kernel does the bf16 case in bf16
-// arithmetic, rounding the product too; the two agree to within one bf16
-// ulp of |a x| + |y|.
+// thread; scalars otherwise).  The kernel rounds where the JAX kernel's
+// arithmetic in x's dtype rounds: the product with __fmul_rn, rounded to
+// bf16 and widened again for bf16 inputs, then the sum with __fadd_rn
+// rounded to x's dtype, so no fused multiply-add contracts them.  Its
+// plain PyTorch version rounds at the same places and gives its bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -24,10 +22,20 @@
 
 namespace {
 
+// a x + y for elements of T: the product rounded to T before the add
+template <typename T>
 struct Axpy {
   float a;
   __device__ __forceinline__ float operator()(float x, float y) const {
     return __fadd_rn(__fmul_rn(a, x), y);
+  }
+};
+
+template <>
+struct Axpy<__nv_bfloat16> {
+  float a;
+  __device__ __forceinline__ float operator()(float x, float y) const {
+    return __fadd_rn(__bfloat162float(__float2bfloat16(__fmul_rn(a, x))), y);
   }
 };
 
@@ -42,19 +50,21 @@ extern "C" int saxpy(float a, const void* x, const void* y, void* out,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vector_map::launch<float>(Axpy{a}, x, y, out, n, lws, grid,
-                                     steps, st);
+    return vector_map::launch<float>(Axpy<float>{a}, x, y, out, n, lws,
+                                     grid, steps, st);
   if (dtype == 1)
-    return vector_map::launch<__nv_bfloat16>(Axpy{a}, x, y, out, n, lws,
-                                             grid, steps, st);
+    return vector_map::launch<__nv_bfloat16>(Axpy<__nv_bfloat16>{a}, x, y,
+                                             out, n, lws, grid, steps, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Resident CTAs per SM that the CUDA runtime reports for the vector
 // (vector != 0) or the scalar kernel.
 extern "C" int saxpy_occupancy(int dtype, int vector, int* blocks) {
-  if (dtype == 0) return vector_map::occupancy<float, Axpy>(vector, blocks);
+  if (dtype == 0)
+    return vector_map::occupancy<float, Axpy<float>>(vector, blocks);
   if (dtype == 1)
-    return vector_map::occupancy<__nv_bfloat16, Axpy>(vector, blocks);
+    return vector_map::occupancy<__nv_bfloat16, Axpy<__nv_bfloat16>>(
+        vector, blocks);
   return (int)cudaErrorInvalidValue;
 }

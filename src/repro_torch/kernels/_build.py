@@ -34,7 +34,8 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "load", "check"]
+__all__ = ["SOURCES", "CSRC", "NVCC_FLAGS", "nvcc", "build_dir", "build_all",
+           "load", "check"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("paged_decode_attention", "flash_attention", "vecadd", "saxpy",
@@ -53,7 +54,8 @@ def build_dir() -> pathlib.Path:
     return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of ``nvcc``; raises where the CUDA toolkit is missing."""
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels are built on "
@@ -82,7 +84,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
             continue
         tmp = so.with_suffix(f".tmp{os.getpid()}.so")
         log = open(so.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT), tmp, so, log)
     secs = {name: 0.0 for name in names}

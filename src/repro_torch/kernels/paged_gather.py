@@ -19,20 +19,39 @@ kernels (``csrc/paged_gather.cu``) replace the JAX package's
 scale).  Both are bound by bytes: every page read once, the view written
 once.  Unmapped (-1) table entries clamp to block 0, as in the JAX
 reference, so the view holds block 0's data there; the decode that reads
-the view masks it by cache length.  ``*_plain`` are the plain PyTorch
-versions; the wrappers take them for CPU tensors and under
-``kernels.force("plain")``, and launch the kernel or raise for CUDA
-tensors.
+the view masks it by cache length.
+
+Each kernel takes a ``core.mapper.GatherPlan``: the view cut into items
+of ``width`` (the copy: the widest of 16, 8, 4, 2 or 1 bytes that
+divides a page's bytes and both pointers; the dequant gather: the int8
+codes behind one 16-byte store, 8 for a bfloat16 output and 4 for
+float32, else 4 or 1, by D and the codes' pointer: ``DEQUANT_WIDTHS``),
+``lws`` items a thread at a stride of the grid's threads over ``grid``
+CTAs of 256 threads, each thread's loads of a batch of four issued
+before its stores.
+``plan=None`` is Eq. 1 for the cache's device (``plan_gather`` under
+``detect``, legal by construction); a given plan is checked against the
+tensors.  The launched
+plan is ``fn.last_plan`` and its grid ``fn.last_grid``.
+
+``*_plain`` are the plain PyTorch versions; the wrappers take them for
+CPU tensors and under ``kernels.force("plain")``, and launch the kernel
+or raise for CUDA tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.hw import ceil_div
+from repro_torch.core.hw import ceil_div, detect
+from repro_torch.core.mapper import (DEQUANT_WIDTHS, GATHER_THREADS,
+                                     GATHER_WIDTHS, GatherPlan, gather_width,
+                                     plan_gather)
 from repro_torch.kernels import _build
 
 __all__ = ["flat_position", "paged_flat_indices", "paged_gather",
@@ -40,9 +59,9 @@ __all__ = ["flat_position", "paged_flat_indices", "paged_gather",
            "paged_dequant_gather_plain"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
-    + [ctypes.c_void_p]
-_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+_GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
     + [ctypes.c_void_p]
 
 
@@ -107,12 +126,49 @@ def _check_tables(b, t, tables, pb, what):
                          f"the table at least {t // pb} wide")
 
 
+def _pointer_alignment(*ts: torch.Tensor) -> int:
+    """The largest power of two up to 16 on which every tensor of ``ts``
+    starts."""
+    a = 16
+    for t in ts:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
+@functools.lru_cache(maxsize=64)
+def _auto_plan(size: int, unit: int, align: int, widths: tuple,
+               device: torch.device) -> GatherPlan:
+    """Eq. 1 for ``device`` (``plan_gather`` under ``detect``) at the
+    widest of ``widths`` that ``unit`` and ``align`` allow, worked out
+    once a shape: the serving loop gathers the same shapes every tick."""
+    return plan_gather(size, gather_width(unit, align, widths),
+                       detect(device))
+
+
+def _check_plan(plan, size, unit, align, widths, what):
+    """Raise on a plan the tensors do not allow: its width must be one of
+    ``widths`` dividing ``unit`` and ``align``, and it must cover the
+    ``size // width`` items of the view."""
+    if not isinstance(plan, GatherPlan) or plan.width not in widths \
+            or unit % plan.width or align % plan.width:
+        raise ValueError(f"{what}: plan {plan} does not fit items of "
+                         f"{widths} dividing {unit} with pointers on "
+                         f"{align} bytes")
+    if plan.gws != size // plan.width or plan.threads != GATHER_THREADS \
+            or min(plan.lws, plan.grid) < 1 \
+            or plan.grid * plan.threads * plan.lws < plan.gws:
+        raise ValueError(f"{what}: plan {plan} does not cover the view's "
+                         f"{size // plan.width} items")
+
+
 def paged_gather(cache: torch.Tensor, tables: torch.Tensor,
-                 block_size: int) -> torch.Tensor:
+                 block_size: int, *,
+                 plan: GatherPlan | None = None) -> torch.Tensor:
     """Gather the logical view of a paged cache (any dtype, bit-exact).
     CPU tensors (or ``kernels.force("plain")``) run the plain version;
-    CUDA tensors launch the kernel, whose launch count is
-    ``paged_gather.launches``."""
+    CUDA tensors launch the kernel under ``plan`` (None: Eq. 1 for the
+    device), whose launch count is ``paged_gather.launches``."""
     if kernels.use_plain(cache):
         return paged_gather_plain(cache, tables, block_size)
     b, t = cache.shape[:2]
@@ -125,24 +181,35 @@ def paged_gather(cache: torch.Tensor, tables: torch.Tensor,
     out = torch.empty_like(cache)
     if cache.numel() == 0:
         return out
+    page_bytes = pb * math.prod(cache.shape[2:]) * cache.element_size()
+    size = cache.numel() * cache.element_size()
+    align = _pointer_alignment(cache, out)
+    if plan is None:
+        plan = _auto_plan(size, page_bytes, align, GATHER_WIDTHS,
+                          cache.device)
+    else:
+        _check_plan(plan, size, page_bytes, align, GATHER_WIDTHS,
+                    "paged_gather")
     fn = _build.load("paged_gather").paged_gather
     fn.argtypes, fn.restype = _GATHER_ARGTYPES, ctypes.c_int
-    rc = fn(cache.data_ptr(), tables.data_ptr(), out.data_ptr(), b, t, pb,
-            cache[0, 0].numel(), cache.element_size(), tables.shape[1],
+    rc = fn(cache.data_ptr(), tables.data_ptr(), out.data_ptr(), b, t // pb,
+            tables.shape[1], page_bytes, plan.width, plan.lws, plan.grid,
             torch.cuda.current_stream(cache.device).cuda_stream)
     _build.check(rc, "paged_gather")
     paged_gather.launches += 1
+    paged_gather.last_plan, paged_gather.last_grid = plan, (plan.grid,)
     return out
 
 
 def paged_dequant_gather(cache: torch.Tensor, scale: torch.Tensor,
                          tables: torch.Tensor, block_size: int, *,
-                         out_dtype=torch.float32) -> torch.Tensor:
+                         out_dtype=torch.float32,
+                         plan: GatherPlan | None = None) -> torch.Tensor:
     """Gather and dequantise the int8 pool's logical view in
     ``out_dtype`` (float32 or bfloat16).  CPU tensors (or
     ``kernels.force("plain")``) run the plain version; CUDA tensors
-    launch the kernel, whose launch count is
-    ``paged_dequant_gather.launches``."""
+    launch the kernel under ``plan`` (None: Eq. 1 for the device), whose
+    launch count is ``paged_dequant_gather.launches``."""
     if kernels.use_plain(cache):
         return paged_dequant_gather_plain(cache, scale, tables, block_size,
                                           out_dtype=out_dtype)
@@ -165,16 +232,29 @@ def paged_dequant_gather(cache: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(cache.shape, dtype=out_dtype, device=cache.device)
     if cache.numel() == 0:
         return out
+    # the output is this call's own allocation, so only the codes'
+    # pointer can narrow the item
+    align = _pointer_alignment(cache)
+    widths = DEQUANT_WIDTHS[out.element_size()]
+    if plan is None:
+        plan = _auto_plan(cache.numel(), d, align, widths, cache.device)
+    else:
+        _check_plan(plan, cache.numel(), d, align, widths,
+                    "paged_dequant_gather")
     fn = _build.load("paged_gather").paged_dequant_gather
     fn.argtypes, fn.restype = _DEQUANT_ARGTYPES, ctypes.c_int
     rc = fn(cache.data_ptr(), scale.data_ptr(), tables.data_ptr(),
-            out.data_ptr(), b, t, pb, g, d, tables.shape[1],
-            _OUT_DTYPES[out_dtype],
+            out.data_ptr(), b, t // pb, tables.shape[1], pb, g, d,
+            plan.width, plan.lws, plan.grid, _OUT_DTYPES[out_dtype],
             torch.cuda.current_stream(cache.device).cuda_stream)
     _build.check(rc, "paged_dequant_gather")
     paged_dequant_gather.launches += 1
+    paged_dequant_gather.last_plan = plan
+    paged_dequant_gather.last_grid = (plan.grid,)
     return out
 
 
 paged_gather.launches = 0
+paged_gather.last_plan = paged_gather.last_grid = None
 paged_dequant_gather.launches = 0
+paged_dequant_gather.last_plan = paged_dequant_gather.last_grid = None

@@ -8,8 +8,11 @@ thread where ``lws >= v`` and every operand starts on 16 bytes, else
 ``lws`` scalars.  The scalar ``a`` is rounded to x's dtype first, as
 ``saxpy_pallas`` does.
 
-``saxpy_plain`` is the plain version: the product and the sum in
-float32, rounded once to x's dtype, which is what the kernel computes.
+``saxpy_plain`` is the plain version, rounding where the JAX kernel's
+arithmetic in x's dtype rounds and the CUDA kernel does: the product,
+computed in float32, rounded to x's dtype, then the sum, computed in
+float32, rounded to x's dtype (for float32 both roundings are float32's
+own).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ def _scalar(a, dtype: torch.dtype) -> float:
 
 
 def saxpy_plain(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return (_scalar(a, x.dtype) * x.float() + y.float()).to(x.dtype)
+    ax = (_scalar(a, x.dtype) * x.float()).to(x.dtype)
+    return (ax.float() + y.float()).to(x.dtype)
 
 
 def saxpy(a, x: torch.Tensor, y: torch.Tensor, *,

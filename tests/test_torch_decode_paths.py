@@ -4,7 +4,9 @@ the same seeded numpy inputs (the Pallas kernels in interpret mode, as
 the JAX package's own tests run them).
 
   * the block-table gather (bitwise, unmapped -1 entries included) and
-    the int8 dequant gather (bitwise in float32 and bfloat16);
+    the int8 dequant gather (bitwise in float32 and bfloat16), also at
+    ``chip_smoke.py``'s gather shapes (pages of 1, 8 and 32, D 6 and
+    100, G 1 and 8, repeated ids, tables wider than the row);
   * the contiguous grouped decode against ``pallas_decode_attention``
     and ``blocked_decode_attention`` (a cache_len-0 row included), and
     the suite's ``ops.decode_attention`` against the JAX op;
@@ -22,6 +24,8 @@ Tolerance: bitwise for the gathers and the int8 writes; atol = rtol =
 """
 
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -52,6 +56,10 @@ from repro_torch.kernels import paged_gather as pg
 from repro_torch.models import build_model
 from repro_torch.models.attention import paged_quant_write, paged_write_index
 from repro_torch.serve import get_adapter
+
+# the card's gather shapes and tables, (B, T, G, D, page)
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from chip_smoke import GATHER_SHAPES, gather_tables  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 H100 = GPU_REGISTRY["h100_sxm"]
@@ -114,6 +122,47 @@ def test_paged_dequant_gather_plain_is_the_pallas_gather_bitwise(out):
         torch.from_numpy(codes), torch.from_numpy(ks),
         torch.from_numpy(tables), bs, out_dtype=getattr(torch, out))
     assert got.dtype == getattr(torch, out)
+    pal = paged_dequant_gather_pallas(
+        jnp.asarray(codes), jnp.asarray(ks), jnp.asarray(tables), bs,
+        out_dtype=getattr(jnp, out), interpret=True)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(pal.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", GATHER_SHAPES, ids=str)
+def test_paged_gather_shapes_plain_is_the_pallas_gather_bitwise(shape,
+                                                                 dtype):
+    """Row 5 at the card's gather shapes: -1 entries (block 0's data),
+    repeated ids and a table wider than nb, bit for bit."""
+    b, t, g, d, bs = shape
+    rng = np.random.default_rng(t + d)
+    tables = gather_tables(rng, b, t // bs)
+    if dtype == "int8":
+        cache = rng.integers(-127, 128, (b, t, g, d)).astype(np.int8)
+        jc, tc = jnp.asarray(cache), torch.from_numpy(cache)
+    else:
+        cache = rng.standard_normal((b, t, g, d)).astype(np.float32)
+        jc = jnp.asarray(cache, dtype)
+        tc = torch.from_numpy(cache).to(getattr(torch, dtype))
+    got = pg.paged_gather(tc, torch.from_numpy(tables), bs)
+    pal = paged_gather_pallas(jc, jnp.asarray(tables), bs, interpret=True)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(pal.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GATHER_SHAPES, ids=str)
+def test_paged_dequant_gather_shapes_plain_is_the_pallas_gather_bitwise(
+        shape, out):
+    """Row 6 at the card's gather shapes, bit for bit."""
+    b, t, g, d, bs = shape
+    rng = np.random.default_rng(t + d + 1)
+    tables = gather_tables(rng, b, t // bs)
+    codes, ks = _int8_pool(rng, b, t, g, d, bs)
+    got = pg.paged_dequant_gather(
+        torch.from_numpy(codes), torch.from_numpy(ks),
+        torch.from_numpy(tables), bs, out_dtype=getattr(torch, out))
     pal = paged_dequant_gather_pallas(
         jnp.asarray(codes), jnp.asarray(ks), jnp.asarray(tables), bs,
         out_dtype=getattr(jnp, out), interpret=True)
