@@ -57,7 +57,9 @@ Phases, each printing one JSON line:
            apart: every f32 case must launch the split pass and the
            3xTF32 product once each, every bf16 case, odd shapes and
            pointers included, the tensor-core kernel once, and nothing
-           else; nn_search's prep pass and product count apart too);
+           else; nn_search's prep pass and product count apart too;
+           each gcn_aggregate and each ssd call launches once, and
+           nothing else);
            then per case and policy the plan (for matmul its
            route, its counts, the bytes of each operand's copies (16:
            TMA) and the host's time to enqueue a call; for f32 the split
@@ -68,7 +70,13 @@ Phases, each printing one JSON line:
            scalars); for rmsnorm the row path; for nn_search the tiles,
            the split and the grid, the prep pass and the product timed
            apart, what the prep pass writes (``layout``), and the
-           bound of the CUDA-core kernel it replaced beside its own),
+           bound of the CUDA-core kernel it replaced beside its own; for
+           ssd the grids one call launched (held against the plan's),
+           the workspace, its three steps' device times from a
+           torch.profiler trace that must hold them once a call and no
+           other kernel, and the CUDA-core kernel's bound beside its
+           own; for gcn_aggregate the device kernels of ten calls by
+           torch.profiler: one ``gcn_kernel`` a call and nothing else),
            the launches of the case's own drive, the resident CTAs per SM
            that the CUDA runtime reports beside the plan's full-residency
            assumption, the error against the plain version
@@ -78,8 +86,7 @@ Phases, each printing one JSON line:
            CUDA-event times of the op, its plain version and one PyTorch
            call computing the same function (none for nn_search and ssd), and
            the roofline bound; for the blur each pass held and timed
-           apart, for the aggregation the occupied share of the plan's
-           tiles and the occupancy pass and kernel timed apart; then the
+           apart; then the
            vecadd sweep (float32, n = 2^12 ... 2^26, the three policies),
            the split pass held bit for bit against its plain version
            on infinities, NaN, the largest floats, subnormals and ties,
@@ -129,6 +136,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1112,13 +1120,16 @@ def suite_library(op, ins):
 @dataclasses.dataclass(frozen=True)
 class SsdPlan:
     """What ``ops.ssd`` runs under a policy: the planned chunk, the chunk
-    after the wrapper's halving, and the launch (one CTA per head)."""
+    after the wrapper's halving, and its three launches (``grids`` of
+    ``threads``-thread CTAs and shared memory by step, the f32
+    workspace)."""
 
     chunk: int
     legal_chunk: int
-    grid: int
+    grids: dict
     threads: int
-    smem_bytes: int
+    smem_bytes: dict
+    workspace_bytes: int
 
 
 def suite_plan(op, shape, dtype, policy, hw, ins):
@@ -1144,9 +1155,12 @@ def suite_plan(op, shape, dtype, policy, hw, ins):
         from repro_torch.kernels import ssd
         from repro_torch.models.ssm import plan_ssd_chunk
 
-        chunk = plan_ssd_chunk(shape[0], hw, policy)
-        legal = ssd.legal_chunk(shape[0], chunk)
-        return SsdPlan(chunk, legal, shape[1], 256, ssd.smem_bytes(legal))
+        length, h, p, _, n = shape
+        chunk = plan_ssd_chunk(length, hw, policy)
+        legal = ssd.legal_chunk(length, chunk)
+        geo = ssd.launch_geometry(length, h, n, p, legal)
+        return SsdPlan(chunk, legal, geo.grids, geo.threads, geo.smem_bytes,
+                       geo.workspace_bytes)
     return plan_rows(shape[0], hw, policy)
 
 
@@ -1174,12 +1188,12 @@ def suite_bound(op, shape, dtype, hw, ins):
         return bound(2 * 2 * h * w * es, 2 * 2 * k * h * w, dtype, hw)
     if op == "nn_search":
         return nn_bounds(shape, dtype, hw)[:2]
-    if op == "gcn_aggregate":        # A read once (the occupancy pass)
+    if op == "gcn_aggregate":        # A read once
         n, f, _ = shape
         nnz = int(torch.count_nonzero(ins[0]))
         return bound((n * n + 2 * n * f) * es, 2 * nnz * f, dtype, hw)
     if op == "ssd":
-        return ssd_bound(shape, dtype, hw)
+        return ssd_bound(shape, dtype, hw)[:2]
     t, d = shape
     return bound((2 * t * d + d) * es, 4 * t * d, dtype, hw)
 
@@ -1206,32 +1220,43 @@ def nn_bounds(shape, dtype, hw):
 
 
 def ssd_bound(shape, dtype, hw):
-    """x read and y written in the dtype, a (f32) read, b and c read.
-    Operations: the least count over the chunks the wrapper takes, so
-    the bound does not follow the plan.  At chunk c the function needs,
-    a step and a head, the causal half of the scores and their product
-    with x (s <= t only: (c + 1)(N + P)) and the state products (4NP);
-    the least is at c = 1, the recurrence: L H (2(N + P) + 4NP).  The
-    score product C_t . B_s (2N of these) has both operands in the
-    inputs' dtype, its products exact in f32, and is held to that
-    dtype's rate; every other product has an f32 operand (a decay or the
-    state) and is held to the f32 rate.  In bf16 the two run on
-    different units side by side, so they take the longer of the two
-    times."""
+    """(ms, by, CUDA-core ms) of the SSD.  x read and y written in the
+    dtype, a (f32) read, b and c read.  Operations: the least count over
+    the chunks the wrapper takes, so the bound does not follow the plan.
+    At chunk c the function needs, a step and a head, the causal half of
+    the scores and their product with x (s <= t only: (c + 1)(N + P))
+    and the state products (4NP); the least is at c = 1, the recurrence:
+    L H (2(N + P) + 4NP).  The score product C_t . B_s (2N of these) has
+    both operands in the inputs' dtype; every other product has an f32
+    operand (a decay or the state).  On the tensor cores an f32-operand
+    product is three TF32 products at the TF32 rate, and so is the score
+    product in f32; in bf16 the score product runs at the bf16 rate, and
+    every other product has one operand that is a bf16 input, exact in
+    TF32, so it is two TF32 products (csrc/ssd.cu's ``warp_mma``).
+    The least time is the longest of those and the bytes.  The third
+    number is the bound of the CUDA-core kernel this row had before:
+    every f32-operand product at the f32 CUDA-core rate, the bf16 score
+    product beside it at the bf16 rate."""
     length, h, p, g, n = shape
     es = torch.empty((), dtype=dtype).element_size()
     nbytes = 2 * length * h * p * es + length * h * 4 + 2 * length * g * n * es
     f32_flops = length * h * (2 * p + 4 * n * p)
     score_flops = length * h * 2 * n
+    t_bytes = nbytes / hw.mem_bw * 1e3
+    if dtype == torch.float32:
+        t_ops = 3 * (f32_flops + score_flops) / hw.peak_flops_tf32 * 1e3
+    else:
+        t_ops = max(2 * f32_flops / hw.peak_flops_tf32,
+                    score_flops / hw.peak_flops(dtype)) * 1e3
     f32_rate = hw.peak_flops(torch.float32)
     if dtype == torch.float32:
-        t_ops = (f32_flops + score_flops) / f32_rate * 1e3
+        t_old = (f32_flops + score_flops) / f32_rate * 1e3
     else:
-        t_ops = max(f32_flops / f32_rate,
+        t_old = max(f32_flops / f32_rate,
                     score_flops / hw.peak_flops(dtype)) * 1e3
-    t_bytes = nbytes / hw.mem_bw * 1e3
     return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, t_old))
 
 
 def suite_occupancy(op, plan, dtype, shape, ins):
@@ -1530,20 +1555,81 @@ def nn_split_ties(hw, device):
     return dict(cases=checked, plain_agrees=plain_agrees)
 
 
-def gcn_parts(ins, plan, timer):
-    """The occupied share of the plan's tiles, and the op's two parts
-    timed apart: the occupancy pass and the kernel alone."""
-    from repro_torch.kernels import gcn_agg as gc
+#: calls of an op in one profiler trace (``traced_kernels``), and the
+#: idle seconds at each end of the trace
+TRACE_CALLS, TRACE_PAD_S = 10, 0.1
 
-    adj, x = ins
-    occ = gc.tile_occupancy(adj, plan.block_n, plan.block_s)
-    return dict(
-        occupied_tile_share=float(occ.float().mean()),
-        occupancy_pass_ms=timer.ms(
-            lambda: gc.tile_occupancy(adj, plan.block_n, plan.block_s),
-            head_start=True),
-        kernel_only_ms=timer.ms(lambda: gc.gcn_agg(adj, x, occ, plan=plan),
-                                head_start=True))
+
+def traced_kernels(call, per_call: int, tries: int = 3):
+    """``device_kernels`` of one torch.profiler trace of ``TRACE_CALLS``
+    calls of ``call``, each launching ``per_call`` kernels: what ran on
+    the card, which the launch counters cannot see (a torch op doing a
+    kernel's work).  The profiler keeps only the device events inside
+    its window and has come back short of them (five of ten, or none of
+    one), so the trace is padded with ``TRACE_PAD_S`` of idle at each
+    end, a trace with fewer events than launches is taken again, and
+    after ``tries`` such traces this raises; more events raise at once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = TRACE_CALLS * per_call
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(TRACE_CALLS):
+                call()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        rows = device_kernels(prof)
+        got = sum(n for _, _, n in rows)
+        if got > want:
+            raise AssertionError(f"{TRACE_CALLS} calls ran {rows}, over "
+                                 f"{per_call} kernels a call")
+        if got == want:
+            return rows
+    raise AssertionError(f"{tries} profiler traces held fewer than the "
+                         f"{want} kernels launched, the last {rows}")
+
+
+def gcn_device_kernels(call):
+    """The device kernels of ``TRACE_CALLS`` calls of the op, by name:
+    one launch of ``gcn_kernel`` a call and nothing else, no torch pass
+    over A."""
+    names = [(k, n) for k, _, n in traced_kernels(call, 1)]
+    if len(names) != 1 or "gcn_kernel" not in names[0][0] \
+            or names[0][1] != TRACE_CALLS:
+        raise AssertionError(f"gcn_aggregate ran {names} in {TRACE_CALLS} "
+                             f"calls, not one launch of gcn_kernel a call")
+    return {k[:80]: n for k, n in names}
+
+
+def ssd_parts(ins, plan):
+    """The grids one call launched (held against the plan's), and each
+    of its three steps' device time, the mean over ``TRACE_CALLS``
+    back-to-back calls in one profiler trace (the L2 not flushed: the
+    workspace alone outgrows it).  The trace must hold each step once a
+    call and no other kernel: no torch op does a step's work."""
+    from repro_torch.kernels import ssd
+
+    def call():
+        ssd.ssd(*ins, chunk=plan.legal_chunk)
+
+    rows = traced_kernels(call, len(ssd.STEPS))
+    if ssd.ssd.last_grids != plan.grids:
+        raise AssertionError(f"ssd launched {ssd.ssd.last_grids}, not the "
+                             f"plan's {plan.grids}")
+    step_ms = {}
+    for name, ms, n in rows:
+        step = re.search(r"::ssd_(states|pass|outputs)[<(]", name)
+        if step is None or n != TRACE_CALLS:
+            raise AssertionError(f"ssd ran {[(k, n) for k, _, n in rows]}, "
+                                 f"not its three steps once a call")
+        step_ms[step.group(1)] = ms / n
+    if sorted(step_ms) != sorted(ssd.STEPS):
+        raise AssertionError(f"ssd ran the steps {sorted(step_ms)}")
+    return dict(launched_grids={k: list(v) for k, v in
+                                ssd.ssd.last_grids.items()},
+                step_ms=step_ms, steps_sum_ms=sum(step_ms.values()))
 
 
 SUITE_REPLACES = {"vecadd": "src/repro/kernels/vecadd.py:20",
@@ -1579,6 +1665,8 @@ def suite_phase(hw, timer, device):
                 "nn_search_prep": (nn_search.nn_search, "prep_launches"),
                 "gcn_agg": (gcn_agg.gcn_agg, "launches"),
                 "ssd": (ssd.ssd, "launches")}
+    # the launches of one call of these ops, and nothing else
+    one_call = {"gcn_aggregate": {"gcn_agg": 1}, "ssd": {"ssd": 1}}
     cases = [(op, (hw.hp(),) if shape == ("hp",) else shape, dtype)
              for op, shape, dtype in SUITE_CASES]
     inputs = suite_inputs(cases, device)
@@ -1600,11 +1688,13 @@ def suite_phase(hw, timer, device):
             case_launches[case, policy] = {
                 k: n - before[k] for k, n in counts().items()
                 if n != before[k]}
+            want = one_call.get(case[0])
             if case[0] == "matmul":
                 want = matmul_route_launches(case[2])
+            if want is not None:
                 if case_launches[case, policy] != want:
                     raise AssertionError(
-                        f"suite: matmul {case[1]} {case[2]} {policy} "
+                        f"suite: {case[0]} {case[1]} {case[2]} {policy} "
                         f"launched {case_launches[case, policy]}, not "
                         f"{want}")
         torch.cuda.synchronize()
@@ -1653,7 +1743,10 @@ def suite_phase(hw, timer, device):
             if op == "gaussian_blur":
                 extra.update(blur_passes(ins, plan, timer))
             elif op == "gcn_aggregate":
-                extra.update(gcn_parts(ins, plan, timer))
+                extra["device_kernels"] = gcn_device_kernels(call)
+            elif op == "ssd":
+                extra.update(ssd_parts(ins, plan))
+                extra["bound_cuda_core_ms"] = ssd_bound(shape, dtype, hw)[2]
             elif op == "matmul":
                 launched = case_launches[case, policy]
                 extra.update(route=plan.kernel,
@@ -2095,9 +2188,12 @@ def main() -> int:
                        bound_ms=e["bound_ms"] / 2)
             row["shape"] += f", {p} pass"
         elif name == "gcn_agg":
-            row["shape"] += ", the op: occupancy pass + kernel"
-        elif name == "ssd":
+            row["shape"] += ", the op: one launch"
+        elif name == "ssd":                # ms: the op's three launches
             row["shape"] += f", chunk {e['plan']['legal_chunk']}"
+            row.update(step_ms=e["step_ms"], grids=e["launched_grids"],
+                       workspace_bytes=e["plan"]["workspace_bytes"],
+                       bound_cuda_core_ms=e["bound_cuda_core_ms"])
         elif name.startswith("matmul"):
             row["shape"] += f", {e['route']} route"
             row["loader_bytes"] = e["loader_bytes"]

@@ -92,12 +92,11 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
   * gcn_aggregate: a node's output row is one warp's work (lanes over
     features, as rmsnorm's row per warp), ``gws = n``, ``hp = SMs x
     warps_per_sm``; ``lws`` = node rows per warp, a CTA's 8 warps own
-    ``block_n = 8 lws`` consecutive rows, the node block whose
-    occupancy row decides which ``block_s = 256``-wide source tiles it
-    skips (256 = the JAX default: one coalesced 32-lane read of an A row
-    covers a tile in 8 steps).  Nothing is staged in shared memory: a
-    warp reads its A row segment coalesced, finds the non-zeros with a
-    ballot and gathers only those rows of X (from L2), so the feature
+    ``block_n = 8 lws`` consecutive rows.  Nothing is staged in shared
+    memory: a warp streams its A row once in 16-byte vectors, finds the
+    non-zeros with a ballot and gathers only those rows of X (from L2);
+    the JAX kernel's source tiles, which skip the MXU work of an empty
+    tile, have no counterpart on the GPU.  So the feature
     width is tiled by the register budget, not by shared memory: each
     lane holds ``fpl`` accumulators (a power of two up to 16), a feature
     tile is ``32 fpl`` wide and ``grid`` is (node blocks, feature
@@ -200,7 +199,6 @@ MAX_KSIZE = 63            # blur taps passed by value (csrc/stencil.cu)
 NN_MAX_MT = 2             # nn_search: 64-row query tiles a warpgroup
 NN_ACC = 128              # f32 a thread holds for the partial and the sum
 NN_CTAS_PER_SM = 1        # nn_search's registers: one 256-thread CTA an SM
-GCN_BLOCK_S = 256         # source-tile width, every policy
 GCN_MAX_FPL = 16          # feature accumulators per lane
 
 
@@ -634,8 +632,7 @@ def nn_plan_for_block(nq: int, nr: int, d: int, hw: GpuParams, lws: int,
 class GcnPlan:
     """``grid`` = (node blocks, feature tiles) CTAs of ``threads``
     threads; a warp owns ``lws`` node rows, a CTA ``block_n = 8 lws``;
-    source tiles are ``block_s`` wide; a lane holds ``fpl`` features of
-    a ``32 fpl`` feature tile."""
+    a lane holds ``fpl`` features of a ``32 fpl`` feature tile."""
 
     policy: MappingPolicy
     lws: int
@@ -644,7 +641,6 @@ class GcnPlan:
     rounds: int
     regime: Regime
     block_n: int
-    block_s: int
     fpl: int
 
 
@@ -682,7 +678,7 @@ def gcn_plan_for_block(n: int, f: int, hw: GpuParams, lws: int,
                    rounds=_rounds(grid[0] * grid[1], hw),
                    regime=classify_regime(lws, n,
                                           hw.sm_count * hw.warps_per_sm),
-                   block_n=warps * lws, block_s=GCN_BLOCK_S, fpl=fpl)
+                   block_n=warps * lws, fpl=fpl)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,7 @@
 // The TF32 split of a float32 operand for 3xTF32 products on Hopper's
 // tensor cores (sm_90a), shared by csrc/matmul_tf32x3.cu and
-// csrc/nn_search.cu: x = big + small, big = x rounded to TF32
+// csrc/nn_search.cu (csrc/ssd.cu takes tf32_rna alone for its big halves):
+// x = big + small, big = x rounded to TF32
 // (cvt.rna.tf32.f32, ties away from zero), small = the TF32 rounding of
 // x - big.  kernels/matmul.py::tf32_split_plain is its plain version.
 

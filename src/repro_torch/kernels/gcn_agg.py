@@ -1,18 +1,20 @@
 """GCN neighbourhood aggregation ``A_hat (N, N) @ X (N, F)`` over a dense
-normalised adjacency, skipping the source tiles that hold no edge.
+normalised adjacency, in one pass over ``A_hat``.
 
 The CUDA kernel (``csrc/gcn_agg.cu``) replaces the JAX package's
 ``kernels/gcn_agg.py::_gcn_kernel``.  Its launch — ``plan.lws`` node rows
-per warp, a ``block_n = 8 lws`` node block per CTA, ``block_s``-wide
-source tiles, feature tiles over the grid's second dimension — comes
-from ``core.mapper.plan_gcn`` under one of the mapping policies.
-``gcn_aggregate`` is the op: the tile occupancy of ``A_hat`` under the
-plan's tiles (``tile_occupancy``, torch ops on the input's device, as
-``gcn_aggregate_pallas`` computes it before its kernel), then the kernel.
+per warp, ``block_n = 8 lws`` node rows per CTA, feature tiles over the
+grid's second dimension — comes from ``core.mapper.plan_gcn`` under one
+of the mapping policies.  The kernel streams each A row once (per
+feature tile) in 16-byte vectors between a scalar head and tail, finds
+the non-zeros by ballot and gathers their X rows in ascending column
+order; it needs no tile-occupancy mask, the JAX wrapper's way to skip
+the MXU work of an empty tile.
 
 ``gcn_aggregate_plain`` is the plain version: ``A.float() @ X.float()``
-rounded once to X's dtype (``ref.gcn_aggregate``); skipping an empty
-tile changes nothing but the work.
+rounded once to X's dtype (``ref.gcn_aggregate``).  Skipping the zeros
+changes nothing but the work, and a NaN in A reaches its row's sums in
+both, where the JAX wrapper skips a tile whose ``sum |a|`` is NaN.
 """
 
 from __future__ import annotations
@@ -20,39 +22,15 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import kernels
-from repro_torch.core.hw import ceil_div
 from repro_torch.core.mapper import GcnPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.vecadd import DTYPES
 
-__all__ = ["gcn_aggregate", "gcn_aggregate_plain", "gcn_agg",
-           "tile_occupancy", "occupancy"]
+__all__ = ["gcn_agg", "gcn_aggregate_plain", "occupancy"]
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-
-
-def tile_occupancy(adj: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
-    """``(ceil(n / bm), ceil(m / bk))`` int32 mask: 1 where the adjacency
-    tile has any non-zero entry (``max |a| > 0``, which is the JAX
-    ``sum |a| > 0``, NaN included).  Reads ``adj`` once in place: the
-    column tiles are views, only the small per-row mask is padded."""
-    n, m = adj.shape
-    full = m // bk
-    cols = []
-    if full:
-        lo, hi = torch.aminmax(adj[:, :full * bk].unflatten(1, (full, bk)),
-                               dim=-1)
-        cols.append((hi > 0) | (lo < 0))
-    if m > full * bk:
-        lo, hi = torch.aminmax(adj[:, full * bk:], dim=-1)
-        cols.append(((hi > 0) | (lo < 0))[:, None])
-    rows = torch.cat(cols, dim=1).to(torch.int32)        # (n, tiles)
-    nb = ceil_div(n, bm)
-    rows = F.pad(rows, (0, 0, 0, nb * bm - n))
-    return rows.view(nb, bm, -1).amax(dim=1).contiguous()
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def gcn_aggregate_plain(adj: torch.Tensor, feats: torch.Tensor
@@ -60,7 +38,7 @@ def gcn_aggregate_plain(adj: torch.Tensor, feats: torch.Tensor
     return (adj.float() @ feats.float()).to(feats.dtype)
 
 
-def _check(adj, feats, occ, plan: GcnPlan) -> None:
+def _check(adj, feats, plan: GcnPlan) -> None:
     if feats.dtype not in DTYPES:
         raise TypeError(f"gcn_aggregate takes float32 or bfloat16, got "
                         f"{feats.dtype}")
@@ -76,31 +54,25 @@ def _check(adj, feats, occ, plan: GcnPlan) -> None:
     if plan.grid[0] * plan.block_n < n or plan.grid[1] * 32 * plan.fpl < f:
         raise ValueError(f"gcn_aggregate: plan {plan} does not cover "
                          f"({n}, {f})")
-    want = (ceil_div(n, plan.block_n), ceil_div(n, plan.block_s))
-    if occ.shape != want or occ.dtype != torch.int32 \
-            or occ.device != adj.device or not occ.is_contiguous():
-        raise ValueError(f"gcn_aggregate: occupancy {tuple(occ.shape)} "
-                         f"{occ.dtype} does not match the plan's tiles "
-                         f"{want}")
 
 
-def gcn_agg(adj: torch.Tensor, feats: torch.Tensor, occ: torch.Tensor, *,
+def gcn_agg(adj: torch.Tensor, feats: torch.Tensor, *,
             plan: GcnPlan) -> torch.Tensor:
-    """The kernel over a given occupancy mask.  CPU tensors (or
-    ``kernels.force("plain")``) run the plain version; CUDA tensors
-    launch the kernel, whose launch count is ``gcn_agg.launches``."""
+    """The op, one launch: CPU tensors (or ``kernels.force("plain")``)
+    run the plain version; CUDA tensors launch the kernel, whose launch
+    count is ``gcn_agg.launches``."""
     if kernels.use_plain(feats):
         return gcn_aggregate_plain(adj, feats)
-    _check(adj, feats, occ, plan)
+    _check(adj, feats, plan)
     n, f = feats.shape
     out = torch.empty_like(feats)
     if out.numel() == 0:
         return out
     fn = _build.load("gcn_agg").gcn_agg
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(occ.data_ptr(), adj.data_ptr(), feats.data_ptr(), out.data_ptr(),
-            n, f, plan.lws, plan.grid[0], plan.grid[1], plan.block_s,
-            plan.fpl, DTYPES[feats.dtype],
+    rc = fn(adj.data_ptr(), feats.data_ptr(), out.data_ptr(), n, f,
+            plan.lws, plan.grid[0], plan.grid[1], plan.fpl,
+            DTYPES[feats.dtype],
             torch.cuda.current_stream(feats.device).cuda_stream)
     _build.check(rc, "gcn_agg")
     gcn_agg.launches += 1
@@ -108,15 +80,6 @@ def gcn_agg(adj: torch.Tensor, feats: torch.Tensor, occ: torch.Tensor, *,
 
 
 gcn_agg.launches = 0
-
-
-def gcn_aggregate(adj: torch.Tensor, feats: torch.Tensor, *,
-                  plan: GcnPlan) -> torch.Tensor:
-    """The op: occupancy under the plan's tiles, then the kernel."""
-    if kernels.use_plain(feats):
-        return gcn_aggregate_plain(adj, feats)
-    occ = tile_occupancy(adj, plan.block_n, plan.block_s)
-    return gcn_agg(adj, feats, occ, plan=plan)
 
 
 def occupancy(plan: GcnPlan, dtype: torch.dtype) -> int:

@@ -138,7 +138,7 @@ def gcn_aggregate(adj_norm, feats, *, policy=None,
     """adj_norm (N, N) dense normalised adjacency; feats (N, F)."""
     plan = plan_gcn(feats.shape[0], feats.shape[1], _hw(feats, hw),
                     _resolve(policy))
-    return _gcn_agg.gcn_aggregate(adj_norm, feats, plan=plan)
+    return _gcn_agg.gcn_agg(adj_norm, feats, plan=plan)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,

@@ -24,8 +24,10 @@ Tolerances (port vs JAX):
            dot products in another order); the kernel's schedule (tiles,
            splits, merge) is modelled in tests/test_torch_nn_split.py;
   gcn      float32 atol = rtol = 1e-5 (summation order); bfloat16 atol
-           1e-5, rtol 8e-3 (one ulp of one rounding from float32);
-  tile_occupancy  equal.
+           1e-5, rtol 8e-3 (one ulp of one rounding from float32); the
+           kernel's traversal (head, 16-byte vectors, tail, each element
+           once, non-zeros in ascending column order) is mirrored in
+           Python and its sums held to the same tolerances.
 """
 
 import numpy as np
@@ -39,13 +41,12 @@ from repro.core.mapper import MappingPolicy as JaxPolicy
 from repro.core.mapper import classify_regime as jax_classify_regime
 from repro.core.mapper import resolve_lws as jax_resolve_lws
 from repro.kernels.gcn_agg import gcn_aggregate_pallas
-from repro.kernels.gcn_agg import tile_occupancy as jax_tile_occupancy
 from repro.kernels.nn_search import nn_search_pallas
 from repro.kernels.ref import gaussian_kernel_1d as jax_taps
 from repro.kernels.stencil import gaussian_blur_pallas
 
 from repro_torch.core.hw import GPU_REGISTRY, round_up
-from repro_torch.core.mapper import (FIXED_LWS, GCN_BLOCK_S, NN_CTAS_PER_SM,
+from repro_torch.core.mapper import (FIXED_LWS, NN_CTAS_PER_SM,
                                      Regime, gcn_plan_for_block,
                                      nn_plan_for_block, nn_smem_bytes,
                                      nn_step_bytes, plan_gcn, plan_nn,
@@ -186,25 +187,140 @@ def test_gcn_aggregate_matches_pallas(n, f, policy, dtype):
     np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
+def test_nan_in_a_reaches_its_row_where_the_jax_wrapper_skips_its_tile():
+    """A NaN weight is a non-zero to the port (plain version and kernel):
+    its row's sums are NaN, as ``ref.gcn_aggregate``'s.  The JAX wrapper
+    skips a tile whose ``sum |a|`` is NaN, so its output stays finite
+    (ROADMAP.md, facts of the reference)."""
+    n, f = 40, 8
+    a = _graph(n, 1)
+    a[5, 9] = np.nan
+    adj, jadj = _pair(a, "float32")
+    x, jx = _pair(np.random.default_rng(0).standard_normal((n, f)),
+                  "float32")
+    got = _np(ops.gcn_aggregate(adj, x, policy="auto"))
+    want = _np(gcn_aggregate_pallas(jadj, jx, hw=TPU, interpret=True))
+    assert np.isnan(got[5]).all()
+    assert np.isfinite(np.delete(got, 5, axis=0)).all()
+    assert np.isfinite(want).all()
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's traversal of A, mirrored (csrc/gcn_agg.cu)
+# --------------------------------------------------------------------------- #
+
+
+GCN_BATCH = 8                  # csrc/gcn_agg.cu's kBatch
+
+
+def _mirror_gcn(adj: torch.Tensor, feats: torch.Tensor, plan):
+    """What ``gcn_kernel`` does under ``plan``, per feature tile and row:
+    the scalar head up to the row's first 16-byte boundary (from the
+    row's address), the 16-byte vectors in batches of ``GCN_BATCH`` a
+    lane, the scalar tail; the non-zeros taken in (batch, lane, element)
+    order and summed in f32.  Returns (out, reads per A element and
+    feature tile, the row starts' byte offsets off 16)."""
+    n, f = feats.shape
+    es = adj.element_size()
+    v = 16 // es
+    a = adj.float().numpy()
+    xf = feats.float().numpy()
+    out = np.zeros((n, f), np.float32)
+    reads = np.zeros((plan.grid[1], n, n), np.int64)
+    starts = set()
+    for fy in range(plan.grid[1]):
+        f0 = fy * 32 * plan.fpl
+        f1 = min(f, f0 + 32 * plan.fpl)
+        for bx in range(plan.grid[0]):
+            for warp in range(8):
+                for j in range(plan.lws):
+                    row = bx * 8 * plan.lws + warp + 8 * j
+                    if row >= n:
+                        break
+                    addr = adj.data_ptr() + row * n * es
+                    starts.add(addr % 16)
+                    off = addr % 16 // es
+                    head = min(n, v - off if off else 0)
+                    nv = (n - head) // v
+                    order = [np.arange(head)]
+                    for v0 in range(0, nv, 32 * GCN_BATCH):
+                        vs = (v0 + 32 * np.arange(GCN_BATCH)[:, None]
+                              + np.arange(32)[None, :]).ravel()
+                        vs = vs[vs < nv]
+                        assert ((addr + (head + vs * v) * es) % 16 == 0).all()
+                        order.append((head + vs[:, None] * v
+                                      + np.arange(v)[None, :]).ravel())
+                    tail0 = head + nv * v
+                    assert 0 <= n - tail0 < v and (head == n or (
+                        addr + head * es) % 16 == 0)
+                    order.append(np.arange(tail0, n))
+                    cols = np.concatenate(order)
+                    np.add.at(reads[fy, row], cols, 1)
+                    nz = cols[a[row, cols] != 0]
+                    assert (np.diff(nz) > 0).all()      # ascending columns
+                    acc = np.zeros(f1 - f0, np.float32)
+                    for col in nz:
+                        acc = acc + np.float32(a[row, col]) * xf[col, f0:f1]
+                    out[row, f0:f1] = acc
+    return torch.from_numpy(out).to(feats.dtype), reads, starts
+
+
+GCN_MIRROR_N = (1, 7, 40, 520)
+
+
+def _adj_at(a: np.ndarray, tdt, lead: int) -> torch.Tensor:
+    """``a`` in ``tdt``, contiguous, its storage ``lead`` elements past
+    the (16-byte aligned) start of its buffer."""
+    n = a.shape[0]
+    buf = torch.zeros(n * n + 8, dtype=tdt)
+    adj = buf[lead:lead + n * n].view(n, n)
+    adj.copy_(torch.from_numpy(a).to(tdt))
+    return adj
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("bm,bk", [(8, 256), (24, 64), (256, 256),
-                                   (8, 100)])
-def test_tile_occupancy_equals_the_jax_one(bm, bk, dtype):
-    adj, jadj = _pair(_graph(520, 5), dtype)
-    got = gc.tile_occupancy(adj, bm, bk)
-    want = np.asarray(jax_tile_occupancy(jadj, bm, bk))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert 0 < want.mean() < 1            # both empty and occupied tiles
+@pytest.mark.parametrize("n", GCN_MIRROR_N)
+def test_gcn_kernel_traversal_reads_each_element_once_in_order(n, dtype):
+    """Under each policy's plan and with A's storage 0 .. 3 elements past
+    a 16-byte boundary: every A element read exactly once per feature
+    tile, the head, vectors and tail as the kernel cuts them, the
+    non-zeros in ascending column order, and the sums equal to the plain
+    version's (a feature width of two tiles at n 40)."""
+    tdt = DTYPES[dtype][0]
+    f = 600 if n == 40 else 9
+    a = _graph(n, n, empty=tuple(i for i in (3, 7) if i < n))
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, f)).astype(np.float32)).to(tdt)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" \
+        else dict(atol=1e-5, rtol=8e-3)
+    for lead in range(4):
+        adj = _adj_at(a, tdt, lead)
+        assert adj.data_ptr() % 16 == lead * adj.element_size()
+        for policy in POLICIES:
+            plan = plan_gcn(n, f, H100, policy)
+            assert plan.grid[1] == (2 if n == 40 else 1)
+            got, reads, starts = _mirror_gcn(adj, x, plan)
+            assert (reads == 1).all()
+            assert starts == {(adj.data_ptr() + r * n * adj.element_size())
+                              % 16 for r in range(n)}
+            np.testing.assert_allclose(
+                _np(got), _np(gc.gcn_aggregate_plain(adj, x)), **tol)
 
 
-def test_tile_occupancy_keeps_negative_and_nan_tiles_as_jax_does():
-    a = np.zeros((20, 20), np.float32)
-    a[0, 0] = -0.5                        # negative only: occupied
-    a[15, 15] = np.nan                    # NaN: sum |a| > 0 is False
-    got = gc.tile_occupancy(torch.from_numpy(a), 8, 8)
-    want = np.asarray(jax_tile_occupancy(jnp.asarray(a), 8, 8))
-    np.testing.assert_array_equal(got.numpy(), want)
+def test_gcn_mirror_rows_start_at_every_offset():
+    """The traversal cases above start rows 0, 2, 4, 8 and 12 bytes off
+    16: f32 rows at 0, 4, 8 and 12, bf16 rows at every even offset."""
+    for dtype, want in (("float32", {0, 4, 8, 12}),
+                        ("bfloat16", set(range(0, 16, 2)))):
+        tdt = DTYPES[dtype][0]
+        seen = set()
+        for n in GCN_MIRROR_N:
+            for lead in range(4):
+                adj = _adj_at(np.zeros((n, n), np.float32), tdt, lead)
+                es = adj.element_size()
+                seen |= {(adj.data_ptr() + r * n * es) % 16
+                         for r in range(n)}
+        assert seen == want
 
 
 # --------------------------------------------------------------------------- #
@@ -286,7 +402,7 @@ def test_atypical_plans_cover_gws_and_are_legal(policy, hw):
     for n, f in GCN_SHAPES:
         p = plan_gcn(n, f, hw, policy)
         assert p.threads == 256 and p.block_n == 8 * p.lws
-        assert p.block_s == GCN_BLOCK_S and p.fpl in (1, 2, 4, 8, 16)
+        assert p.fpl in (1, 2, 4, 8, 16)
         assert p.grid[0] * p.block_n >= n > (p.grid[0] - 1) * p.block_n
         assert p.grid[1] * 32 * p.fpl >= f and p.grid[1] <= 65535
 
@@ -381,8 +497,7 @@ def test_empty_inputs_count_no_launch(op, monkeypatch):
         assert idx.shape == dist.shape == (0,)
     else:
         plan = plan_gcn(1, 5, H100, "auto")
-        out = fn(torch.zeros(0, 0), torch.zeros(0, 5),
-                 torch.zeros(0, 0, dtype=torch.int32), plan=plan)
+        out = fn(torch.zeros(0, 0), torch.zeros(0, 5), plan=plan)
         assert out.shape == (0, 5)
     assert fn.launches == before
 
@@ -391,7 +506,7 @@ def test_empty_inputs_count_no_launch(op, monkeypatch):
                                   "blur_plan", "nn_dtype", "nn_dims",
                                   "nn_empty", "nn_plan", "nn_split",
                                   "nn_elem", "gcn_square", "gcn_dtype",
-                                  "gcn_occ", "gcn_plan"])
+                                  "gcn_plan"])
 def test_kernel_input_checks_raise(case):
     """The checks run before a launch; they raise on what the kernels do
     not take."""
@@ -402,7 +517,6 @@ def test_kernel_input_checks_raise(case):
     nplan = plan_nn(100, 50, 16, H100, "auto")
     adj, x = torch.zeros(30, 30), torch.zeros(30, 8)
     gplan = plan_gcn(30, 8, H100, "auto")
-    occ = gc.tile_occupancy(adj, gplan.block_n, gplan.block_s)
     with pytest.raises((TypeError, ValueError)):
         if case == "blur_dtype":
             st._check(img.half(), taps, splan)
@@ -425,14 +539,11 @@ def test_kernel_input_checks_raise(case):
         elif case == "nn_elem":                 # a float32 plan, bf16 in
             nn._check(q.bfloat16(), r.bfloat16(), nplan)
         elif case == "gcn_square":
-            gc._check(torch.zeros(30, 31), x, occ, gplan)
+            gc._check(torch.zeros(30, 31), x, gplan)
         elif case == "gcn_dtype":
-            gc._check(adj.bfloat16(), x, occ, gplan)
-        elif case == "gcn_occ":
-            gc._check(adj, x, occ[:, :0], gplan)
+            gc._check(adj.bfloat16(), x, gplan)
         else:
-            gc._check(torch.zeros(3000, 3000), torch.zeros(3000, 8),
-                      occ, gplan)
+            gc._check(torch.zeros(3000, 3000), torch.zeros(3000, 8), gplan)
 
 
 def test_force_plain_is_the_cpu_path():
