@@ -85,8 +85,8 @@ Phases, each printing one JSON line:
            magnitude),
            CUDA-event times of the op, its plain version and one PyTorch
            call computing the same function (none for nn_search and ssd), and
-           the roofline bound; for the blur each pass held and timed
-           apart; then the
+           the roofline bound; for the blur each pass held bit for bit
+           and timed apart, with the route the wrapper takes; then the
            vecadd sweep (float32, n = 2^12 ... 2^26, the three policies),
            the split pass held bit for bit against its plain version
            on infinities, NaN, the largest floats, subnormals and ties,
@@ -894,6 +894,7 @@ PUBMED = (19717, 500, 44324)
 COMMUNITY, LOCAL_P = 256, 0.9
 RMS_MISALIGNED = (64, 1000)      # rmsnorm x 2 bytes past a 16-byte boundary
 MM_MISALIGNED = (8, 576, 576)    # matmul A 2 bytes past a 16-byte boundary
+BLUR_MISALIGNED = (2160, 3840, 5)  # bf16 4K frame 2 bytes past 16 bytes
 # SSD (L, H, P, G, N): one mamba2-1.3b layer over a 2,048-token prompt
 # (d_inner 4096 = 64 heads of 64, one group, state 128), and a ragged L
 # of 1,200 that no policy's chunk divides (the wrapper halves to 16)
@@ -922,7 +923,10 @@ BLUR_SIGMA = 1.0
 # and smollm's decode-row output projection (8, 576, 576) with A 2 bytes
 # past a 16-byte boundary (``MM_MISALIGNED``: A in 2-byte copies, B by
 # TMA); and the sgemm size with N 4 or 1 short of 4096 (B in 8- or
-# 2-byte copies at the large tiles).
+# 2-byte copies at the large tiles).  Then the blur's scalar route: f32
+# (3000, 4001, 5), whose rows of 16,004 bytes are not whole 16-byte
+# vectors, and a bf16 4K frame whose rows are whole vectors but whose
+# image starts 2 bytes past a 16-byte boundary (``BLUR_MISALIGNED``).
 SUITE_CASES = (
     [(op, (n,), F32) for op in ("vecadd", "saxpy")
      for n in (1 << 16, "hp", 1 << 26)]
@@ -947,7 +951,9 @@ SUITE_CASES = (
     + [("matmul", s, BF16) for s in ((130, 70, 300), (130, 1001, 257),
                                      MM_MISALIGNED, (4096, 4092, 4096),
                                      (4096, 4095, 4096))]
-    + [("nn_search", (1000, 3001, 36), dt) for dt in (F32, BF16)])
+    + [("nn_search", (1000, 3001, 36), dt) for dt in (F32, BF16)]
+    + [("gaussian_blur", (3000, 4001, 5), F32),
+       ("gaussian_blur", BLUR_MISALIGNED, BF16)])
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
 # tolerances against JAX (tests/test_torch_suite.py,
 # tests/test_torch_suite_atypical.py); vecadd and saxpy round where
@@ -956,8 +962,8 @@ SUITE_CASES = (
 # outputs are O(1) and float32 sums over k = 4096 stay within 1e-4 (the
 # 3xTF32 route keeps ~21 bits of each operand; one TF32 product would
 # not: tests/test_torch_tf32x3.py).  The
-# blur passes repeat their plain versions' roundings (expected bitwise);
-# the aggregation sums each row in another order.
+# blur passes repeat their plain versions' roundings and are held bit for
+# bit, on both routes; the aggregation sums each row in another order.
 SUITE_TOL = {
     ("vecadd", F32): (0.0, 0.0),
     ("vecadd", BF16): (0.0, 0.0),
@@ -967,8 +973,8 @@ SUITE_TOL = {
     ("rmsnorm", BF16): (0.0, 8e-3),
     ("matmul", F32): (1e-4, 1e-4),
     ("matmul", BF16): (1.6e-2, 1.6e-2),
-    ("gaussian_blur", F32): (1e-6, 1e-6),
-    ("gaussian_blur", BF16): (1e-6, 8e-3),
+    ("gaussian_blur", F32): (0.0, 0.0),
+    ("gaussian_blur", BF16): (0.0, 0.0),
     ("gcn_aggregate", F32): (1e-5, 1e-5),
     ("gcn_aggregate", BF16): (1e-5, 8e-3),
 }
@@ -1033,6 +1039,9 @@ def suite_inputs(cases, device):
             else:
                 a = randn(m, k, dtype=dtype, scale=k ** -0.25)
             made[key] = (a, randn(k, n, dtype=dtype, scale=k ** -0.25))
+        elif op == "gaussian_blur" and shape == BLUR_MISALIGNED:
+            h, w, k = shape                     # one bf16 past the start
+            made[key] = (randn(h * w + 1, dtype=dtype)[1:].view(h, w), k)
         elif op == "gaussian_blur":
             made[key] = (randn(*shape[:2], dtype=dtype), shape[2])
         elif op == "nn_search":
@@ -1135,7 +1144,7 @@ class SsdPlan:
 def suite_plan(op, shape, dtype, policy, hw, ins):
     from repro_torch.core import workload
     from repro_torch.core.mapper import (plan_gcn, plan_nn, plan_rows,
-                                         plan_stencil, plan_vector_blocks)
+                                         plan_vector_blocks)
 
     es = torch.empty((), dtype=dtype).element_size()
     if op in ("vecadd", "saxpy"):
@@ -1145,8 +1154,10 @@ def suite_plan(op, shape, dtype, policy, hw, ins):
         from repro_torch.kernels.matmul import plan_for
 
         return plan_for(*ins, hw, policy)
-    if op == "gaussian_blur":
-        return plan_stencil(*shape, hw, policy)
+    if op == "gaussian_blur":         # the plan ops.gaussian_blur takes
+        from repro_torch.kernels.stencil import plan_for
+
+        return plan_for(ins[0], shape[2], hw, policy)
     if op == "nn_search":
         return plan_nn(*shape, hw, policy, elem_bytes=es)
     if op == "gcn_aggregate":
@@ -1304,7 +1315,8 @@ def nn_compare(got, want, ins):
 
 def blur_passes(ins, plan, timer):
     """Each pass of the blur against its plain version on the same input
-    (the column pass on the kernel's intermediate), and each timed."""
+    (the column pass on the kernel's intermediate), bit for bit, and each
+    timed; the route the wrapper takes for the image."""
     from repro_torch.kernels import stencil as st
 
     img, k = ins
@@ -1324,8 +1336,8 @@ def blur_passes(ins, plan, timer):
                            head_start=True),
           "cols": timer.ms(lambda: st.stencil_cols(mid, taps, plan=plan),
                            head_start=True)}
-    return dict(pass_max_abs_err=errs, pass_ms=ms,
-                passes_ms=ms["rows"] + ms["cols"])
+    return dict(route=st.route(img, plan), pass_max_abs_err=errs,
+                pass_ms=ms, passes_ms=ms["rows"] + ms["cols"])
 
 
 def blur_pass_yardsticks(ins, timer):
@@ -2187,6 +2199,16 @@ def main() -> int:
                        library_ms=e["pass_library_ms"][p],
                        bound_ms=e["bound_ms"] / 2)
             row["shape"] += f", {p} pass"
+            # the plan's tile and residency ("route" is the contract's);
+            # the same pass at AUTO in bf16 and at ksize 7
+            row.update(blur_route=e["route"], grid=e["plan"]["grid"],
+                       rows=e["plan"]["rows"], tile_w=e["plan"]["tile_w"],
+                       resident_ctas_per_sm=e["resident_ctas_per_sm"][p])
+            for key, other, odt in (("bf16", (4096, 4096, 5), "bfloat16"),
+                                    ("k7", (4096, 4096, 7), "float32")):
+                o = sres[op, other, odt, "auto"]
+                row[f"{key}_ms"] = o["pass_ms"][p]
+                row[f"{key}_bound_ms"] = o["bound_ms"] / 2
         elif name == "gcn_agg":
             row["shape"] += ", the op: one launch"
         elif name == "ssd":                # ms: the op's three launches

@@ -53,17 +53,25 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     at 128 x 128.  Every K and N is legal: the kernels mask or pad the
     ragged edges.
 
-  * gaussian blur (two passes, one plan): a work item is one output
-    pixel, ``gws = h w``, ``hp = GpuParams.hp()``; ``lws`` = pixels per
-    thread, taken down one column, so a CTA covers ``lws`` rows x 256
-    columns and a warp's 32 threads take 32 consecutive columns
-    (coalesced).  The row pass stages the tile plus ``2 halo`` columns,
-    the column pass the tile plus ``2 halo`` rows, in shared memory, so
-    the JAX kernel's rule ``rows >= halo`` (neighbouring row blocks as
-    the halo source) is not needed.  ``grid`` is 1-D: row blocks x
-    column tiles (65,536 CTAs for NAIVE at 4096^2).  The legaliser
-    clamps ``lws`` to ``[1, h]`` and keeps the staged f32 tile within
-    ``smem_per_block``.
+  * gaussian blur (two passes, one plan; ``csrc/stencil.cu``): a work
+    item is one output pixel, ``gws = h w``, ``hp = GpuParams.hp()``;
+    ``lws`` = pixels per thread.  A CTA of 256 threads owns a strip of
+    columns and streams down a block of ``rows`` rows of it, a thread
+    owning ``vec`` columns of each row.  The plan translates ``lws`` into
+    that tile as vecadd's does: on the vector route (``lws >= vec``, a
+    row whole 16-byte vectors, the image on 16 bytes, the rings within
+    ``smem_per_block``) a thread takes one 16-byte vector, ``vec`` = 4
+    f32 or 8 bf16 columns, by ``rows = ceil(lws / vec)`` rows, and a
+    strip is ``tile_w = 256 vec`` columns; otherwise (NAIVE's ``lws``
+    1, or a row or a pointer off 16 bytes, or a ksize whose vector ring
+    does not fit) one column by ``rows = lws`` rows of a 256-column
+    strip.  ``rows`` is at most ``h``.  ``grid`` is 1-D: row blocks x
+    strips, the strips of a row block consecutive.  Shared memory is a ring
+    of a few row slots, not the tile, so it does not grow with ``lws``:
+    at 4096^2 f32 NAIVE plans one row of scalars (65,536 CTAs), FIXED 8
+    rows of 1,024-column strips (2,048 CTAs) and AUTO (``lws`` 63) 16
+    rows (1,024 CTAs, one wave at 8 an SM); bf16 strips are 2,048
+    columns, FIXED 4 rows and AUTO 8.
   * nn_search (``csrc/nn_search.cu``): a work item is one query,
     ``gws = nq``, ``hp = GpuParams.hp()``.  A CTA's two warpgroups
     compute the dots of a ``bm``-query x ``bn``-ref tile with ``wgmma``
@@ -170,7 +178,8 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "plan_matmul_blocks", "matmul_plan_for_blocks",
            "matmul_tc_smem_bytes",
            "matmul_tf32x3_smem_bytes", "StencilPlan",
-           "plan_stencil", "stencil_plan_for_block", "stencil_smem_bytes", "NNPlan",
+           "plan_stencil", "stencil_plan_for_block", "stencil_smem_bytes",
+           "stencil_depth", "NNPlan",
            "plan_nn", "nn_plan_for_block", "nn_smem_bytes",
            "nn_step_bytes",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
@@ -194,7 +203,8 @@ MM_TC_MAX_STAGES = 4
 MM_TC_LWS = (4, 128)      # BN = 2 lws from 8 to 256
 MM_TF32_BK = 32           # 3xTF32 matmul: 128 bytes of f32 a K step
 MM_TF32_LWS = (4, 64)     # BN 8 to 128: a partial and a sum a thread
-STENCIL_TILE_W = 256      # blur CTA: 256 columns, one per thread
+STENCIL_THREADS = 256     # blur CTA: a vector or a column per thread
+STENCIL_VEC_BYTES = 16    # the blur's vector route: 16-byte loads
 MAX_KSIZE = 63            # blur taps passed by value (csrc/stencil.cu)
 NN_MAX_MT = 2             # nn_search: 64-row query tiles a warpgroup
 NN_ACC = 128              # f32 a thread holds for the partial and the sum
@@ -448,10 +458,13 @@ def _matmul_tc_plan(m: int, n: int, hw: GpuParams, lws: int,
 
 @dataclasses.dataclass(frozen=True)
 class StencilPlan:
-    """Both blur passes: ``grid`` CTAs (1-D: row blocks x column tiles)
-    of ``threads`` threads; a CTA covers ``lws`` rows x ``tile_w``
-    columns, one column per thread, ``lws`` pixels down it; ``halo``
-    extra rows or columns are staged beside the tile."""
+    """Both blur passes: ``grid`` CTAs (1-D: row blocks x strips, the
+    strips of a row block consecutive) of ``threads`` threads; a CTA covers
+    ``rows`` rows of a strip ``tile_w = 256 vec`` columns wide, a thread
+    ``vec`` columns of each row (``route`` "vector": one 16-byte vector
+    of ``elem_bytes`` elements; "scalar": one column); ``lws`` is Eq. 1's
+    pixels a thread, at most ``rows vec``; ``halo`` the taps on each
+    side; ``smem_bytes`` the larger pass's shared memory."""
 
     policy: MappingPolicy
     lws: int
@@ -462,15 +475,43 @@ class StencilPlan:
     halo: int
     tile_w: int
     smem_bytes: int
+    route: str
+    vec: int
+    rows: int
+    elem_bytes: int
 
 
-def stencil_smem_bytes(lws: int, halo: int) -> int:
-    """Shared memory of the larger pass of ``csrc/stencil.cu``: the f32
-    tile with its halo columns (row pass) or halo rows (column pass),
-    plus the 64 taps."""
-    t = STENCIL_TILE_W
-    return 4 * (max(lws * (t + 2 * halo), (lws + 2 * halo) * t)
-                + MAX_KSIZE + 1)
+def stencil_depth(pass_: str, vec: int, elem_bytes: int) -> int:
+    """Rows a thread of ``csrc/stencil.cu``'s ``pass_`` (``"rows"`` or
+    ``"cols"``) keeps in flight ahead of the row whose taps run: on the
+    vector route four in the row pass and two in the column pass; on the
+    scalar route eight f32 (by cp.async) or four bf16 (in registers)."""
+    if pass_ not in ("rows", "cols"):
+        raise ValueError(f"no blur pass {pass_!r}: rows or cols")
+    if vec == 1:
+        return 8 if elem_bytes == 4 else 4
+    return 4 if pass_ == "rows" else 2
+
+
+def stencil_smem_bytes(pass_: str, ksize: int, vec: int,
+                       elem_bytes: int) -> int:
+    """Shared memory of one pass of ``csrc/stencil.cu`` (``"rows"`` or
+    ``"cols"``): its ring of row slots plus the 64 f32 taps.  The row
+    pass keeps ``depth + 1`` rows, each ``256 + 2 ceil(halo / vec)``
+    vectors; the column pass ``ksize + depth - 1`` rows of the strip."""
+    halo = (ksize - 1) // 2
+    depth = stencil_depth(pass_, vec, elem_bytes)
+    if pass_ == "rows":
+        ring = (depth + 1) * vec * (STENCIL_THREADS
+                                    + 2 * ceil_div(halo, vec))
+    else:
+        ring = (ksize + depth - 1) * STENCIL_THREADS * vec
+    return ring * elem_bytes + 4 * (MAX_KSIZE + 1)
+
+
+def _stencil_smem(ksize: int, vec: int, elem_bytes: int) -> int:
+    return max(stencil_smem_bytes(p, ksize, vec, elem_bytes)
+               for p in ("rows", "cols"))
 
 
 def _check_ksize(ksize: int) -> int:
@@ -481,40 +522,57 @@ def _check_ksize(ksize: int) -> int:
 
 
 def plan_stencil(h: int, w: int, ksize: int, hw: GpuParams,
-                 policy: MappingPolicy = MappingPolicy.AUTO) -> StencilPlan:
-    """Map the blur of an ``(h, w)`` image onto the card.
+                 policy: MappingPolicy = MappingPolicy.AUTO, *,
+                 elem_bytes: int = 4, aligned: bool = True) -> StencilPlan:
+    """Map the blur of an ``(h, w)`` image of ``elem_bytes`` elements
+    onto the card; ``aligned``: the image starts on 16 bytes.
 
     Example::
 
         >>> from repro_torch.core.hw import GPU_REGISTRY
         >>> p = plan_stencil(4096, 4096, 5, GPU_REGISTRY["h100_sxm"])
-        >>> p.lws, p.grid
-        (63, 1056)
+        >>> p.lws, p.route, p.rows, p.tile_w, p.grid
+        (63, 'vector', 16, 1024, 1024)
     """
     gws = gaussian_blur(h, w, ksize).gws
     lws = _policy_lws(policy, gws, hw.hp())
-    return stencil_plan_for_block(h, w, ksize, hw, lws, policy)
+    return stencil_plan_for_block(h, w, ksize, hw, lws, policy,
+                                  elem_bytes=elem_bytes, aligned=aligned)
 
 
 def stencil_plan_for_block(h: int, w: int, ksize: int, hw: GpuParams,
                            lws: int,
-                           policy: MappingPolicy = MappingPolicy.AUTO
+                           policy: MappingPolicy = MappingPolicy.AUTO, *,
+                           elem_bytes: int = 4, aligned: bool = True
                            ) -> StencilPlan:
-    """Legalise rows per thread: clamped to ``[1, h]``, then shrunk while
-    the staged tile overflows shared memory."""
+    """Legalise pixels per thread onto the route's tile (the module
+    docstring's rule): the vector route where ``lws`` holds a vector,
+    the rows are whole vectors, the image is ``aligned`` and both rings
+    fit; else the scalar route.  ``rows`` at most ``h``."""
     halo = _check_ksize(ksize)
-    lws = max(1, min(int(lws), h))
-    while lws > 1 and stencil_smem_bytes(lws, halo) > hw.smem_per_block:
-        lws -= 1
-    smem = stencil_smem_bytes(lws, halo)
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"the blur takes float32 or bfloat16 elements, "
+                         f"got {elem_bytes} bytes")
+    lws = max(1, int(lws))
+    vec = STENCIL_VEC_BYTES // elem_bytes
+    if not (aligned and lws >= vec and (w * elem_bytes) % STENCIL_VEC_BYTES
+            == 0 and _stencil_smem(ksize, vec, elem_bytes)
+            <= hw.smem_per_block):
+        vec = 1
+    rows = max(1, min(ceil_div(lws, vec), h))
+    lws = min(lws, rows * vec)
+    smem = _stencil_smem(ksize, vec, elem_bytes)
     if smem > hw.smem_per_block:
         raise ValueError(f"no legal blur tile: {smem} B of shared memory")
-    grid = ceil_div(h, lws) * ceil_div(w, STENCIL_TILE_W)
+    tile_w = STENCIL_THREADS * vec
+    grid = ceil_div(h, rows) * ceil_div(w, tile_w)
     return StencilPlan(policy=MappingPolicy(policy), lws=lws,
-                       threads=CTA_THREADS, grid=grid,
+                       threads=STENCIL_THREADS, grid=grid,
                        rounds=_rounds(grid, hw),
                        regime=classify_regime(lws, h * w, hw.hp()),
-                       halo=halo, tile_w=STENCIL_TILE_W, smem_bytes=smem)
+                       halo=halo, tile_w=tile_w, smem_bytes=smem,
+                       route="vector" if vec > 1 else "scalar", vec=vec,
+                       rows=rows, elem_bytes=elem_bytes)
 
 
 # --------------------------------------------------------------------------- #

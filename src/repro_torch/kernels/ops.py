@@ -41,7 +41,7 @@ from repro_torch.core.hw import GpuParams, detect
 from repro_torch.core.mapper import (MappingPolicy, plan_attention_blocks,
                                      plan_cache_block, plan_decode_split,
                                      plan_gcn, plan_nn, plan_rows,
-                                     plan_stencil, plan_vector_blocks)
+                                     plan_vector_blocks)
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn_agg
@@ -120,8 +120,7 @@ def rmsnorm(x, gamma, *, eps: float = 1e-6, policy=None,
 def gaussian_blur(img, *, ksize: int = 5, sigma: float = 1.0, policy=None,
                   hw: Optional[GpuParams] = None):
     """img: (h, w) — separable blur, zero "same" padding."""
-    plan = plan_stencil(img.shape[0], img.shape[1], ksize, _hw(img, hw),
-                        _resolve(policy))
+    plan = _stencil.plan_for(img, ksize, _hw(img, hw), _resolve(policy))
     return _stencil.gaussian_blur(img, ksize=ksize, sigma=sigma, plan=plan)
 
 

@@ -339,10 +339,12 @@ GCN_SHAPES = [(1, 1), (300, 40), (2708, 1433), (19717, 500),
 @pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
 def test_auto_is_eq1_and_regimes_equal_the_jax_mapper(hw):
     for h, w, k in BLUR_SHAPES:
+        # Eq. 1's pixels a thread, as rows of the route's vector (at
+        # most h of them)
         p = plan_stencil(h, w, k, hw, "auto")
-        if stencil_smem_bytes(jax_resolve_lws(h * w, hw.hp()), p.halo) \
-                <= hw.smem_per_block:
-            assert p.lws == min(jax_resolve_lws(h * w, hw.hp()), h)
+        eq1 = jax_resolve_lws(h * w, hw.hp())
+        assert p.rows == min(-(-eq1 // p.vec), h)
+        assert p.lws == min(eq1, p.rows * p.vec)
         assert p.regime.value == \
             jax_classify_regime(p.lws, h * w, hw.hp()).value
     for nq, nr, d in NN_SHAPES:
@@ -369,14 +371,17 @@ def test_auto_is_eq1_and_regimes_equal_the_jax_mapper(hw):
 @pytest.mark.parametrize("hw", [H100, CPU], ids=["h100", "cpu"])
 @pytest.mark.parametrize("policy", POLICIES)
 def test_atypical_plans_cover_gws_and_are_legal(policy, hw):
-    for h, w, k in BLUR_SHAPES:
-        p = plan_stencil(h, w, k, hw, policy)
-        row_blocks, col_tiles = -(-h // p.lws), -(-w // p.tile_w)
-        assert p.threads == 256 == p.tile_w and 1 <= p.lws <= h
-        assert p.grid == row_blocks * col_tiles < 2 ** 31
-        assert p.grid * p.threads * p.lws >= h * w
-        assert p.halo == (k - 1) // 2
-        assert p.smem_bytes == stencil_smem_bytes(p.lws, p.halo) \
+    for (h, w, k), es in ((s, e) for s in BLUR_SHAPES for e in (4, 2)):
+        p = plan_stencil(h, w, k, hw, policy, elem_bytes=es)
+        row_blocks, strips = -(-h // p.rows), -(-w // p.tile_w)
+        assert p.threads == 256 and p.tile_w == 256 * p.vec
+        assert p.vec == (16 // es if p.route == "vector" else 1)
+        assert 1 <= p.rows <= h and 1 <= p.lws <= p.rows * p.vec
+        assert p.grid == row_blocks * strips < 2 ** 31
+        assert p.grid * p.threads * p.rows * p.vec >= h * w
+        assert p.halo == (k - 1) // 2 and p.elem_bytes == es
+        assert p.smem_bytes == max(stencil_smem_bytes(q, k, p.vec, es)
+                                   for q in ("rows", "cols")) \
             <= hw.smem_per_block
     for (nq, nr, d), es in ((s, e) for s in NN_SHAPES for e in (4, 2)):
         p = plan_nn(nq, nr, d, hw, policy, elem_bytes=es)
@@ -413,8 +418,11 @@ def test_policies_translate_eq1_to_hopper_for_the_atypical_kernels():
     by one rule, and the feature tiles fixed per shape."""
     blur = {p: plan_stencil(4096, 4096, 5, H100, p) for p in POLICIES}
     assert blur["naive"].lws == 1 and blur["naive"].grid == 65536
-    assert blur["fixed"].lws == FIXED_LWS
-    assert blur["auto"].lws == 63 and blur["auto"].grid == 66 * 16
+    assert blur["naive"].route == "scalar" and blur["naive"].rows == 1
+    assert blur["fixed"].lws == FIXED_LWS and blur["fixed"].rows == 8
+    assert blur["fixed"].grid == 512 * 4
+    assert blur["auto"].lws == 63 and blur["auto"].rows == 16
+    assert blur["auto"].grid == 256 * 4 and blur["auto"].tile_w == 1024
     assert blur["naive"].regime is Regime.OVERSUBSCRIBED
     # nn: query rows a thread 2 (one 64-row tile a warpgroup) or 4 (two),
     # the ref tile 128 / mt, the refs split so every policy fills the card
@@ -445,10 +453,14 @@ def test_policies_translate_eq1_to_hopper_for_the_atypical_kernels():
 
 
 def test_legalisers_clamp_to_the_image_and_shared_memory():
-    assert stencil_plan_for_block(10, 500, 5, H100, 1000).lws == 10
+    short = stencil_plan_for_block(10, 500, 5, H100, 1000)
+    assert short.rows == 10 and short.lws == 10 * short.vec
+    # ksize 63: the vector ring (62 rows of 4 KB) does not fit, so the
+    # plan narrows the strip to one column a thread
     big = stencil_plan_for_block(100_000, 256, 63, H100, 100_000)
+    assert big.route == "scalar" and big.rows == 100_000
     assert big.smem_bytes <= H100.smem_per_block
-    assert stencil_smem_bytes(big.lws + 1, big.halo) > H100.smem_per_block
+    assert stencil_smem_bytes("cols", 63, 4, 4) > H100.smem_per_block
     assert gcn_plan_for_block(20, 8, H100, 99).lws == 3
     with pytest.raises(ValueError):
         plan_stencil(8, 8, 4, H100)                 # even ksize
@@ -503,10 +515,10 @@ def test_empty_inputs_count_no_launch(op, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["blur_dtype", "blur_shape", "blur_taps",
-                                  "blur_plan", "nn_dtype", "nn_dims",
-                                  "nn_empty", "nn_plan", "nn_split",
-                                  "nn_elem", "gcn_square", "gcn_dtype",
-                                  "gcn_plan"])
+                                  "blur_plan", "blur_elem", "nn_dtype",
+                                  "nn_dims", "nn_empty", "nn_plan",
+                                  "nn_split", "nn_elem", "gcn_square",
+                                  "gcn_dtype", "gcn_plan"])
 def test_kernel_input_checks_raise(case):
     """The checks run before a launch; they raise on what the kernels do
     not take."""
@@ -526,6 +538,8 @@ def test_kernel_input_checks_raise(case):
             st._check(img, st.gaussian_kernel_1d(7), splan)
         elif case == "blur_plan":
             st._check(torch.zeros(400, 3000), taps, splan)
+        elif case == "blur_elem":               # a float32 plan, bf16 in
+            st._check(img.bfloat16(), taps, splan)
         elif case == "nn_dtype":
             nn._check(q.double(), r.double(), nplan)
         elif case == "nn_dims":
