@@ -49,7 +49,8 @@ Phases, each printing one JSON line:
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
-           (naive, fixed, auto; for ssd the chunk
+           (naive, fixed, auto, and tuned at ``TUNED_CASES``, each
+           registered kernel's largest case; for ssd the chunk
            ``plan_ssd_chunk(L, hw, policy)``) at the cases of
            ``SUITE_CASES``: each op driven once per policy with its
            launch counts reset just before and read just after (all
@@ -99,6 +100,23 @@ Phases, each printing one JSON line:
            0, the start of split 1 and the end of the last split, and two
            refs at equal distance from a query in split 0 and the last
            split: the lower index, as the plain version);
+  tuner    the tuner (``repro_torch.tuner``) from a fresh cache and trace
+           store in a temporary directory: every ``KERNEL_TABLE`` row of
+           the serving router (decode, flash, paged decode) at every
+           bucket of smollm-135m's pool (8 slots, up to 1024, pages of
+           16), fp32 and int8 pools, and every suite kernel the tuner
+           registers at its largest case (``TUNED_CASES``), each resolved
+           cold: AUTO's seed, TUNED's pick, the probes, both plans' times
+           at the largest bucket or case (``Timer``) and TUNED's output
+           against the plain version; a second router on the same cache
+           file (0 probes: a gate) and each suite kernel's warm hit (0
+           probes); then ``measure="live"`` on ``live_cases`` (the blur,
+           vecadd 2^26, a Pubmed-sized GCN, the paged decode's split),
+           timing the roofline's top candidates with CUDA events into the
+           store, and ``measure="cached"`` replaying them into another
+           cache: 0 live measurements and the same picks (gates); the
+           seed, the roofline's pick and the live pick then timed by
+           ``Timer`` on the same operands, beside the live records;
   engine   ``ServeEngine("smollm-135m", reduced=False)`` serving 12 seeded
            requests in bf16 on each path of ``ENGINE_RUNS``: the default
            (fused paged decode) with chunked and with whole-prompt
@@ -106,8 +124,10 @@ Phases, each printing one JSON line:
            ``kv_dtype="int8"`` and int8 with ``fused_decode=False``
            (chunked); then ``ServeEngine("mamba2-1.3b", reduced=False)``
            on the mix's first 4 requests, chunked and whole-prompt
-           (``MAMBA_RUNS``); each run prints the decode plans that ran
-           (``block_s`` and split per pool length); the kernels' launch
+           (``MAMBA_RUNS``), every engine on its default policy, TUNED;
+           each run prints the decode plans that ran (``block_s`` and
+           split per pool length) and each bucket's TUNED plan beside
+           AUTO's (``tuned_beside_auto``); the kernels' launch
            counts are reset just
            before each run and read just after: the path's own kernels
            must be above 0, every other kernel 0 (the ssm path runs none:
@@ -123,8 +143,12 @@ Phases, each printing one JSON line:
            token streams, first decode-step logits within atol 1e-3;
   timing   seconds per phase.
 
-Then the card's name and power limit as nvidia-smi prints them, the
-kernel summary as one JSON line, and as the last line
+The run keeps its own tuning cache and trace store in a temporary
+directory.  Then the card's name and power limit as nvidia-smi prints
+them, the kernel summary as one JSON line (each row the tuner registers
+with ``tuned_ms`` beside AUTO's ``ms``; a suite row's ``launches``
+counts NAIVE, FIXED and AUTO over every case, and ``tuned_launches``
+TUNED's at its cases), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  It needs one CUDA device and exits
 non-zero without one.
@@ -137,9 +161,11 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -954,6 +980,21 @@ SUITE_CASES = (
     + [("nn_search", (1000, 3001, 36), dt) for dt in (F32, BF16)]
     + [("gaussian_blur", (3000, 4001, 5), F32),
        ("gaussian_blur", BLUR_MISALIGNED, BF16)])
+#: the suite's largest case of each kernel the tuner registers, run under
+#: TUNED as a fourth policy (the ssd is not registered: its chunk is
+#: Eq. 1's under every policy)
+TUNED_CASES = (("vecadd", (1 << 26,), F32),
+               ("saxpy", (1 << 26,), F32),
+               ("matmul", (4096, 4096, 4096), F32),
+               ("matmul", (4096, 4096, 4096), BF16),
+               ("rmsnorm", (16384, 4096), BF16),
+               ("gaussian_blur", (4096, 4096, 5), F32),
+               ("nn_search", (4096, 65536, 128), F32),
+               ("gcn_aggregate", PUBMED, F32))
+#: suite op -> the tuner's kernel name
+TUNER_KERNEL = {"vecadd": "vecadd", "saxpy": "saxpy", "matmul": "matmul",
+                "rmsnorm": "rmsnorm", "gaussian_blur": "gaussian_blur",
+                "nn_search": "nn_search", "gcn_aggregate": "gcn_agg"}
 # (atol, rtol) of each kernel against its plain version: the CPU tests'
 # tolerances against JAX (tests/test_torch_suite.py,
 # tests/test_torch_suite_atypical.py); vecadd and saxpy round where
@@ -1141,27 +1182,19 @@ class SsdPlan:
     workspace_bytes: int
 
 
+def tuner_args(op, ins):
+    """The arguments ``ops.<op>`` hands the tuner's kernel for ``ins``."""
+    if op == "saxpy":
+        return (SAXPY_A, *ins), {}
+    if op == "gaussian_blur":
+        return (ins[0],), {"ksize": ins[1]}
+    return tuple(ins), {}
+
+
 def suite_plan(op, shape, dtype, policy, hw, ins):
-    from repro_torch.core import workload
-    from repro_torch.core.mapper import (plan_gcn, plan_nn, plan_rows,
-                                         plan_vector_blocks)
-
-    es = torch.empty((), dtype=dtype).element_size()
-    if op in ("vecadd", "saxpy"):
-        return plan_vector_blocks(getattr(workload, op)(shape[0], es), hw,
-                                  policy)
-    if op == "matmul":              # the plan ops.matmul takes for the inputs
-        from repro_torch.kernels.matmul import plan_for
-
-        return plan_for(*ins, hw, policy)
-    if op == "gaussian_blur":         # the plan ops.gaussian_blur takes
-        from repro_torch.kernels.stencil import plan_for
-
-        return plan_for(ins[0], shape[2], hw, policy)
-    if op == "nn_search":
-        return plan_nn(*shape, hw, policy, elem_bytes=es)
-    if op == "gcn_aggregate":
-        return plan_gcn(shape[0], shape[1], hw, policy)
+    """The plan ``ops`` launches for the inputs under ``policy``: the
+    tuner's ``plan_for`` (under TUNED from the run's cache), or the SSD's
+    chunk plan (the tuner registers no SSD)."""
     if op == "ssd":
         from repro_torch.kernels import ssd
         from repro_torch.models.ssm import plan_ssd_chunk
@@ -1172,7 +1205,10 @@ def suite_plan(op, shape, dtype, policy, hw, ins):
         geo = ssd.launch_geometry(length, h, n, p, legal)
         return SsdPlan(chunk, legal, geo.grids, geo.threads, geo.smem_bytes,
                        geo.workspace_bytes)
-    return plan_rows(shape[0], hw, policy)
+    from repro_torch.tuner.dispatch import plan_for
+
+    args, kw = tuner_args(op, ins)
+    return plan_for(TUNER_KERNEL[op], *args, hw=hw, policy=policy, **kw)[0]
 
 
 def suite_bound(op, shape, dtype, hw, ins):
@@ -1404,6 +1440,7 @@ def tf32x3_split_edges(hw, device):
     floats (one within half a TF32 step of FLT_MAX, which rounding would
     take to infinity), subnormals and ties of the TF32 rounding."""
     from repro_torch.kernels import matmul as mm
+    from repro_torch.tuner.dispatch import plan_for
 
     top = float(np.finfo(np.float32).max)
     ties = (np.float32(1.0).view(np.uint32)
@@ -1417,7 +1454,7 @@ def tf32x3_split_edges(hw, device):
     b = rng.standard_normal((40, 13)).astype(np.float32)
     a.flat[:edge.size], b.flat[-edge.size:] = edge, edge
     a, b = (torch.from_numpy(t).to(device) for t in (a, b))
-    plan = mm.plan_for(a, b, hw, "auto")
+    plan = plan_for("matmul", a, b, hw=hw, policy="auto")[0]
     got = mm.tf32_split(a, b, plan)
     want = mm.tf32_split(a.cpu(), b.cpu(), plan)
     for g, w, what in zip(got, want, ("A", "B")):
@@ -1691,10 +1728,11 @@ def suite_phase(hw, timer, device):
     def counts():
         return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
-    for policy in POLICIES:
+    tuned_cases = [c for c in cases if c in TUNED_CASES]
+    for policy in POLICIES + ("tuned",):
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
-        for case in cases:
+        for case in (tuned_cases if policy == "tuned" else cases):
             before = counts()
             outs[case, policy] = suite_call(case[0], inputs(*case), policy)()
             case_launches[case, policy] = {
@@ -1712,7 +1750,7 @@ def suite_phase(hw, timer, device):
         torch.cuda.synchronize()
         launches[policy] = counts()
         for k, n in launches[policy].items():
-            if n <= 0:
+            if n <= 0 and (policy != "tuned" or k != "ssd"):
                 raise AssertionError(f"suite: {k} was never launched under "
                                      f"policy {policy}")
     emit("suite_launches", **launches)
@@ -1727,7 +1765,8 @@ def suite_phase(hw, timer, device):
         bound_ms, bound_by = suite_bound(op, shape, dtype, hw, ins)
         per_case = blur_pass_yardsticks(ins, timer) \
             if op == "gaussian_blur" else {}
-        for policy in POLICIES:
+        for policy in POLICIES + (("tuned",) if case in TUNED_CASES
+                                  else ()):
             plan = suite_plan(op, shape, dtype, policy, hw, ins)
             call = suite_call(op, ins, policy)
             with kernels.force("plain"):
@@ -1812,8 +1851,249 @@ def suite_phase(hw, timer, device):
     emit("matmul_tc_loaders", **tc_loader_check(hw, device))
     emit("nn_split_ties", **nn_split_ties(hw, device))
     emit("suite_done", seconds=time.perf_counter() - t0)
+    # the kernels line's launches: NAIVE, FIXED and AUTO over every case;
+    # TUNED's at its cases apart
     total = {k: sum(launches[p][k] for p in POLICIES) for k in counters}
-    return results, total
+    return results, total, launches["tuned"]
+
+
+# --------------------------------------------------------------------------- #
+# tuner
+# --------------------------------------------------------------------------- #
+
+#: the serving router's geometry: smollm-135m's pool (8 slots, buckets up
+#: to 1024, pages of 16) on both pool dtypes; the kernels are timed at
+#: the largest bucket
+TUNER_SLOTS, TUNER_MAX_LEN, TUNER_PAGE = 8, 1024, 16
+#: the suite kernels the tuner phase resolves, at their largest case
+TUNER_SUITE = TUNED_CASES
+#: live measurement settings: warm-up calls and timed repeats a value,
+#: ``Timer.ms``'s, so a live record and the Timer's reading of one plan
+#: are taken alike
+LIVE_OPTS = {"warmup": 3, "reps": 25}
+
+
+def live_cases():
+    """The four cases where a plan other than AUTO's is known to be
+    faster on the card: label -> (tuner kernel, workload description).
+    The blur's passes (one plan), vecadd at 2^26, GCN on a Pubmed-sized
+    graph (all float32), and the paged decode's split width at the
+    serving bucket (bf16, 8 slots x 3 KV heads of 3 queries)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm-135m")
+    return {
+        "blur": ("gaussian_blur", dict(h=4096, w=4096, ksize=5,
+                                       dtype="float32", dtype_bytes=4,
+                                       aligned=True)),
+        "vecadd": ("vecadd", dict(n=1 << 26, dtype="float32",
+                                  dtype_bytes=4)),
+        "gcn_pubmed": ("gcn_agg", dict(n=PUBMED[0], f=PUBMED[1],
+                                       block_s=256, dtype="float32",
+                                       dtype_bytes=4)),
+        "decode_split": ("paged_decode", dict(
+            s=TUNER_MAX_LEN, d=cfg.head_dim,
+            rows=TUNER_SLOTS * cfg.num_kv_heads,
+            heads_per_group=cfg.heads_per_group, dtype=cfg.dtype,
+            dtype_bytes=2, page_block=TUNER_PAGE,
+            max_blocks_per_row=TUNER_MAX_LEN // TUNER_PAGE)),
+    }
+
+
+def held_to_plain(got, want, what):
+    """Max abs error of a kernel's output against its plain version's,
+    raising outside the output dtype's ``TOL``."""
+    return check_close(got, want, got.dtype, what)
+
+
+def time_values(kernel, desc, values, hw, timer, device):
+    """CUDA-event times of ``kernel`` at each decision value on operands
+    made from ``desc`` (``profiler.measure``'s synthesiser), and the last
+    value's output held against its plain version."""
+    from repro_torch import kernels
+    from repro_torch.profiler.measure import SYNTH_REGISTRY
+    from repro_torch.tuner import KERNEL_REGISTRY
+
+    spec = KERNEL_REGISTRY[kernel]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    args, kw = SYNTH_REGISTRY[kernel].make(desc, device, gen)
+    out = {}
+    for label, value in values.items():
+        plan = spec.plan_from_value(desc, hw, value)
+        out[f"{label}_ms"] = timer.ms(lambda: spec.run(plan, hw, *args,
+                                                       **kw),
+                                      head_start=True)
+    got = spec.run(plan, hw, *args, **kw)
+    with kernels.force("plain"):
+        want = spec.run(plan, hw, *args, **kw)
+    out["max_abs_err"] = held_to_plain(got, want, f"tuner {kernel} at "
+                                       f"{label}")
+    return out
+
+
+def tuner_phase(hw, timer, device):
+    """The tuner on the card, from a fresh cache and trace store in a
+    temporary directory: every ``KERNEL_TABLE`` row at every serving
+    bucket and every suite kernel at its largest case resolved cold
+    (AUTO's seed beside TUNED's pick, the probes, the card time of both
+    and TUNED's output against plain); a second router on the same cache
+    file (0 probes, a gate); measured refinement, ``measure="live"`` on
+    the four cases of ``live_cases``, then ``measure="cached"`` replaying
+    them from the store (0 live measurements and the same picks, gates).
+    Returns the times at the serving bucket and the suite's cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mapper import MappingPolicy
+    from repro_torch.profiler import TraceStore, value_key
+    from repro_torch.serve.buckets import (KERNEL_TABLE, BucketRouter,
+                                           BucketSpec)
+    from repro_torch.tuner import (KERNEL_REGISTRY, TuningCache,
+                                   hardware_key, resolve_plan)
+
+    tmp = tempfile.mkdtemp(prefix="tuner_phase_")
+    try:
+        t0 = time.perf_counter()
+        cfg = get_config("smollm-135m")
+        spec = BucketSpec(max_len=TUNER_MAX_LEN, min_len=32)
+        cache_path = f"{tmp}/tuning_cache.json"
+        serving = {}
+        for kv in ("fp32", "int8"):
+            def router(policy, cache=None, _kv=kv):
+                return BucketRouter(cfg, spec, slots=TUNER_SLOTS, hw=hw,
+                                    policy=policy, cache=cache,
+                                    page_block=TUNER_PAGE, kv_dtype=_kv,
+                                    device=device)
+            tuned = router("tuned", TuningCache(cache_path))
+            auto = router("auto")
+            for n in spec.lattice():
+                b = tuned.bucket(n)
+                tp, ap = tuned.resolve(b), auto.resolve(b)
+                for row in KERNEL_TABLE:
+                    info = getattr(tp, row.info)
+                    pick = tuple(getattr(tp, f) for f in row.fields)
+                    seed = tuple(getattr(ap, f) for f in row.fields)
+                    if row.kernel == "flash_attention":
+                        pick, seed = pick[0], seed[0]
+                    entry = dict(kv_dtype=kv, bucket=n, kernel=row.kernel,
+                                 seed=list(seed), tuned=list(pick),
+                                 source=info.source, probes=info.probes)
+                    # the contiguous sweep takes no int8 cache (the int8
+                    # gather path sweeps its dequantised view)
+                    if n == TUNER_MAX_LEN and not (
+                            kv == "int8" and row.kernel != "paged_decode"):
+                        entry.update(time_values(
+                            row.kernel, tuned.row_desc(row, b),
+                            {"seed": seed, "tuned": pick}, hw, timer,
+                            device))
+                        serving[kv, row.kernel] = entry
+                    emit("tuner", **entry)
+            if tuned.stats.probes <= 0:
+                raise AssertionError(f"tuner: the cold router ({kv}) made "
+                                     f"no probe")
+        # a second router on the same cache file: every bucket a hit
+        for kv in ("fp32", "int8"):
+            warm = BucketRouter(cfg, spec, slots=TUNER_SLOTS, hw=hw,
+                                cache=TuningCache(cache_path),
+                                page_block=TUNER_PAGE, kv_dtype=kv,
+                                device=device)
+            for n in spec.lattice():
+                warm.resolve(warm.bucket(n))
+            emit("tuner_warm", kv_dtype=kv, **dataclasses.asdict(warm.stats))
+            if warm.stats.probes != 0 or warm.stats.cache_hits <= 0:
+                raise AssertionError(f"tuner: a router on a warm cache "
+                                     f"file probed: {warm.stats}")
+
+        # the suite's kernels at their largest case, on the suite's inputs
+        inputs = suite_inputs(TUNER_SUITE, device)
+        suite = {}
+        suite_cache = TuningCache(f"{tmp}/suite_cache.json")
+        for op, shape, dtype in TUNER_SUITE:
+            kernel = TUNER_KERNEL[op]
+            ks = KERNEL_REGISTRY[kernel]
+            ins = inputs(op, shape, dtype)
+            args, kw = tuner_args(op, ins)
+            desc = ks.describe(*args, **kw)
+            plan, info = resolve_plan(kernel, hw, "tuned", desc, suite_cache)
+            seed = ks.plan_value(ks.seed_plan(desc, hw, MappingPolicy.TUNED))
+            entry = dict(op=op, shape=list(shape),
+                         dtype=str(dtype).split(".")[1], kernel=kernel,
+                         seed=seed, tuned=ks.plan_value(plan),
+                         source=info.source, probes=info.probes,
+                         model_seed_ms=info.seed_cost * 1e3,
+                         model_tuned_ms=info.cost * 1e3)
+            for label, pol in (("seed", "auto"), ("tuned", "tuned")):
+                entry[f"{label}_ms"] = timer.ms(
+                    suite_call(op, ins, pol), head_start=True)
+            from repro_torch import kernels
+            got = suite_call(op, ins, "tuned")()
+            with kernels.force("plain"):
+                want = suite_call(op, ins, "tuned")()
+            if op == "nn_search":
+                entry["max_abs_err"] = nn_compare(got, want, ins)[0]
+            else:
+                atol, rtol = SUITE_TOL[op, dtype]
+                if not torch.allclose(got.float(), want.float(), atol=atol,
+                                      rtol=rtol):
+                    raise AssertionError(f"tuner: {op} at TUNED's plan "
+                                         f"disagrees with plain")
+                entry["max_abs_err"] = float(
+                    (got.float() - want.float()).abs().max())
+            del got, want
+            again, ainfo = resolve_plan(kernel, hw, "tuned", desc,
+                                        suite_cache)
+            if ainfo.source != "cache" or ainfo.probes != 0:
+                raise AssertionError(f"tuner: {kernel}'s warm hit probed")
+            emit("tuner_suite", **entry)
+            suite[op, shape, entry["dtype"]] = entry
+        del inputs
+
+        # measured refinement: live, then replayed from the store
+        store = TraceStore(f"{tmp}/traces.jsonl")
+        live_cache = TuningCache(f"{tmp}/live_cache.json")
+        replay_cache = TuningCache(f"{tmp}/replay_cache.json")
+        opts = {"device": device, **LIVE_OPTS}
+        live = {}
+        for label, (kernel, desc) in live_cases().items():
+            ks = KERNEL_REGISTRY[kernel]
+            seed = ks.plan_value(ks.seed_plan(desc, hw, MappingPolicy.TUNED))
+            roof, _ = resolve_plan(kernel, hw, "tuned", desc,
+                                   TuningCache(path=None))
+            plan, info = resolve_plan(kernel, hw, "tuned", desc, live_cache,
+                                      measure="live", store=store,
+                                      measure_opts=opts)
+            rplan, rinfo = resolve_plan(kernel, hw, "tuned", desc,
+                                        replay_cache, measure="cached",
+                                        store=store,
+                                        measure_opts={"device": device})
+            recorded = {value_key(m.value): m.median_s * 1e3
+                        for m in store.lookup(hardware_key(hw),
+                                              ks.sig(desc, "tuned").key)}
+            entry = dict(case=label, kernel=kernel, seed=seed,
+                         roofline=ks.plan_value(roof),
+                         live=ks.plan_value(plan), live_source=info.source,
+                         live_measurements=info.measured,
+                         replayed=ks.plan_value(rplan),
+                         replay_source=rinfo.source,
+                         replay_measurements=rinfo.measured,
+                         recorded_ms=recorded)
+            # the Timer's reading of the seed, the roofline's pick and the
+            # live pick on the same operands, beside the live records
+            entry["timer"] = time_values(
+                kernel, desc, {"seed": seed, "roofline": entry["roofline"],
+                               "live": entry["live"]}, hw, timer, device)
+            emit("tuner_live", **entry)
+            if info.measured <= 0 or info.source != "measured":
+                raise AssertionError(f"tuner: live {label} measured "
+                                     f"nothing")
+            if rinfo.measured != 0 or rinfo.source != "measured" \
+                    or entry["replayed"] != entry["live"]:
+                raise AssertionError(f"tuner: the cached replay of {label} "
+                                     f"measured or picked otherwise: {entry}")
+            live[label] = entry
+        emit("tuner_done", seconds=time.perf_counter() - t0,
+             store_records=len(store))
+        return serving, suite, live
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1893,6 +2173,30 @@ def launch_counters():
             "ssd": (ssd.ssd, "launches")}
 
 
+def tuned_beside_auto(eng):
+    """Each bucket's plan as the engine's router resolved it (TUNED by
+    default) beside the AUTO seed for the same bucket, and each prompt
+    bucket's flash tiles likewise."""
+    from repro_torch.serve.buckets import BucketRouter
+
+    r = eng.router
+    auto = BucketRouter(eng.cfg, r.spec, slots=r.slots, hw=r.hw,
+                        policy="auto", page_block=r.page_block,
+                        kv_dtype=r.kv_spec.name, device=r.device)
+    fields = ("decode_block", "decode_split", "paged_decode_block",
+              "paged_decode_split", "prefill_blocks")
+    out = {"buckets": {}, "prefill_tiles": {}}
+    for plan in r.plans:
+        seed = auto.resolve(plan.bucket)
+        out["buckets"][plan.bucket.kv_len] = {
+            "tuned": {f: getattr(plan, f) for f in fields},
+            "auto": {f: getattr(seed, f) for f in fields}}
+    for pb, tiles in r.prefill_plans.items():
+        out["prefill_tiles"][pb] = {"tuned": list(tiles),
+                                    "auto": list(auto.prefill_tiles(pb))}
+    return out
+
+
 def engine_run(label, eng, reqs, opts, expected):
     """Serve ``reqs`` with the counts reset just before and read just
     after; the path's own kernels must be above 0, every other 0."""
@@ -1916,7 +2220,8 @@ def engine_run(label, eng, reqs, opts, expected):
         paged_decode_split=report.paged_decode_splits,
         decode_split=report.decode_splits,
         prefill_tiles={k: list(v) for k, v in report.prefill_tiles.items()},
-        launches=launches)
+        launches=launches, policy=eng.router.policy.value,
+        router_stats=report.router_stats, plans=tuned_beside_auto(eng))
     emit("engine", run=label, **run)
     if s.n_completed != len(reqs):
         raise AssertionError(f"{label}: {s.n_completed}/{len(reqs)} "
@@ -2095,6 +2400,13 @@ SERVING_KERNELS = {
 }
 
 
+#: serving kernel -> its (pool dtype, tuner kernel) in the tuner phase
+SERVING_TUNER = {"paged_decode_attention": ("fp32", "paged_decode"),
+                 "flash_attention": ("fp32", "flash_attention"),
+                 "paged_decode_attention_int8": ("int8", "paged_decode"),
+                 "decode_attention": ("fp32", "decode_attention")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -2129,24 +2441,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = Timer(device)
+    # the run's own tuning cache and trace store: no run replays another
+    # run's decisions (the checkout's default files stay untouched)
+    from repro_torch.profiler import TraceStore, set_default_store
+    from repro_torch.tuner import TuningCache, set_default_cache
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    set_default_cache(TuningCache(f"{tmp}/tuning_cache.json"))
+    set_default_store(TraceStore(f"{tmp}/traces.jsonl"))
     phase_s = {}
-    t0 = time.perf_counter()
-    kres = kernels_phase(cfg, hw, timer, device)
-    emit("kernels", card=smi, results=kres)
-    phase_s["kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sres, suite_launches = suite_phase(hw, timer, device)
-    phase_s["suite"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    runs, params, reqs = engine_phase(device)
-    phase_s["engine"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    profile_phase(device, params, reqs)
-    del params
-    phase_s["profile"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    parity_phase(device)
-    phase_s["parity"] = time.perf_counter() - t0
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        kres = timed("kernels", kernels_phase, cfg, hw, timer, device)
+        emit("kernels", card=smi, results=kres)
+        sres, suite_launches, tuned_launches = timed(
+            "suite", suite_phase, hw, timer, device)
+        serving, _, _ = timed("tuner", tuner_phase, hw, timer, device)
+        runs, params, reqs = timed("engine", engine_phase, device)
+        timed("profile", profile_phase, device, params, reqs)
+        timed("parity", parity_phase, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     emit("timing", seconds=phase_s)
 
     summary = []
@@ -2164,6 +2485,14 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "shape": main_case["shape"]})
+        tuned = serving.get(SERVING_TUNER.get(name))
+        if tuned is not None:
+            # the tuner phase: AUTO's seed and TUNED's pick at the largest
+            # serving bucket, every row at full length
+            summary[-1].update(seed_plan=tuned["seed"],
+                               tuned_plan=tuned["tuned"],
+                               seed_ms=tuned["seed_ms"],
+                               tuned_ms=tuned["tuned_ms"])
         if name in ("paged_gather", "paged_dequant_gather"):
             # the large case and one page (the launch's floor)
             large, page = cases[1], cases[2]
@@ -2232,6 +2561,12 @@ def main() -> int:
                        prep_launches=suite_launches["nn_search_prep"],
                        bound_cuda_core_ms=e["bound_cuda_core_ms"],
                        grid=e["plan"]["grid"])
+        t = sres.get((op, shape, dt, "tuned"))
+        if t is not None:            # TUNED beside AUTO at the same case
+            row.update(tuned_ms=t["kernel_ms"], tuned_plan=t["plan"],
+                       tuned_launches=tuned_launches[name])
+            if name.startswith("stencil_"):
+                row["tuned_ms"] = t["pass_ms"][name.split("_")[1]]
         src = "stencil" if name.startswith("stencil_") else name
         summary.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{src}.cu",

@@ -5,8 +5,9 @@ resolves the kernel mapping from them.  On a CUDA GPU they map one to
 one: ``hp = cores x warps x threads`` is streaming multiprocessors x
 resident warps per SM x 32 lanes.  ``detect(device)`` reads them from
 ``torch.cuda.get_device_properties``; the registry keeps the published
-H100 SXM figures (the rates used for roofline bounds, which the device
-properties do not carry) and a small ``"cpu"`` stand-in under which the CPU tests plan.
+H100 SXM figures (the rates used for roofline bounds and the launch
+terms of the tuner's roofline, which the device properties do not
+carry) and a small ``"cpu"`` stand-in under which the CPU tests plan.
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ class GpuParams:
     peak_flops_bf16: float = 989e12  # dense tensor-core rate
     peak_flops_fp32: float = 67e12   # CUDA-core rate (no tensor cores)
     peak_flops_tf32: float = 495e12  # dense tensor-core rate, TF32 inputs
+    # the roofline's launch terms (``core.roofline``), measured on an
+    # NVIDIA H100 80GB HBM3 at 700 W by ``tools/launch_probe.py`` (PERF.md
+    # §6): one launch of an empty CTA (CUDA events), and the slope of
+    # the time over 1 to 16 waves of empty 256-thread CTAs
+    launch_s: float = 5.12e-6
+    wave_s: float = 6.33e-7
 
     def hp(self) -> int:
         """Eq. 1's ``hp = cores x warps x threads`` on a GPU."""

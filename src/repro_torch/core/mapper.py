@@ -33,8 +33,8 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
     the CTA's own copies into shared-memory stages) and
     ``kernel="tf32x3"`` (``csrc/matmul_tf32x3.cu``: float32 as 3xTF32
     products from padded, K-major big and small halves of A and B);
-    ``kernels.matmul.plan_for`` picks the kernel from the operands'
-    dtype.  A thread of a ``wgmma.m64nBN`` warpgroup holds 64 BN / 128 =
+    the tuner's ``dispatch.plan_for`` picks the kernel from the
+    operands' dtype (``kernels.matmul.route``).  A thread of a ``wgmma.m64nBN`` warpgroup holds 64 BN / 128 =
     BN / 2 f32 accumulators (2 rows x BN / 4 columns: ``tm = 2``, ``tn =
     BN / 4``), so ``BN = 2 lws`` with ``lws`` rounded up to a power of
     two in [4, 128] (BN 8 ... 256).  BM is 128 (two consumer warpgroups,
@@ -124,10 +124,13 @@ Per kernel (every CTA has 256 threads, i.e. 8 warps):
 ``rounds`` counts waves of CTAs at full residency (``warps_per_sm / 8``
 CTAs of 8 warps on each SM); the matmul tiles' registers and shared
 memory lower the real residency, which ``chip_smoke.py`` reads from the CUDA runtime
-beside the plan.  ``TUNED`` (the measured refinement with its tuning
-cache) comes with the tuner slice and raises here.
+beside the plan and the tuner's cost models read from it too.
+``TUNED`` plans here as AUTO: the tuner (``repro_torch.tuner``) takes
+that plan as its seed and refines it over each kernel's legaliser below
+(``*_plan_for_block*``), keeping the winner in its cache.
 
-**The serving kernels** keep the AUTO seed as their only plan:
+**The serving kernels** plan their AUTO seed here (the tuner refines the
+flash tiles and the decode ``block_s`` and split width):
 
   * flash ``block_q`` and ``block_k`` are multiples of 16; ``block_q``
     is 32 to 128 rows (the bf16 kernel gives a warp 16 rows, the f32
@@ -213,20 +216,14 @@ GCN_MAX_FPL = 16          # feature accumulators per lane
 
 
 class MappingPolicy(str, enum.Enum):
-    """The paper's three mappings (module docstring)."""
+    """The paper's three mappings (module docstring) and ``TUNED``, the
+    tuner's refinement of the AUTO seed (``repro_torch.tuner``); the
+    planners here plan TUNED as AUTO, its seed."""
 
     NAIVE = "naive"
     FIXED = "fixed"
     AUTO = "auto"
-
-    @classmethod
-    def _missing_(cls, value):
-        if value == "tuned":
-            raise ValueError(
-                "policy 'tuned' is not ported yet: the measured refinement "
-                "and its tuning cache come with the tuner slice (ROADMAP "
-                "queue 1, item 4); use 'naive', 'fixed' or 'auto'")
-        return None
+    TUNED = "tuned"
 
 
 class Regime(str, enum.Enum):

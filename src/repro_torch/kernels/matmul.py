@@ -20,10 +20,10 @@ operands' dtype before anything is launched:
     own copies of 8, 4 or 2 bytes into the same swizzled stages.
     Counted in ``matmul.tc_launches``.
 
-``plan_for`` plans the launch of the operands' route under one of the
-mapping policies (``core.mapper.plan_matmul_blocks`` with ``kernel=``
-the route); the wrapper raises when the plan's kernel is not the
-operands' route.
+The tuner's ``dispatch.plan_for("matmul", a, b, ...)`` plans the launch
+of the operands' route under a mapping policy
+(``core.mapper.plan_matmul_blocks`` with ``kernel=`` the route); the
+wrapper raises when the plan's kernel is not the operands' route.
 
 ``matmul_plain`` is the plain version on the plan's K steps: float32
 partial products over ``bk``-wide chunks of K, accumulated in float32
@@ -42,15 +42,14 @@ import ctypes
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.hw import GpuParams, round_up
-from repro_torch.core.mapper import MappingPolicy, MatmulPlan, \
-    plan_matmul_blocks
+from repro_torch.core.hw import round_up
+from repro_torch.core.mapper import MatmulPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.vecadd import DTYPES
 
 __all__ = ["matmul", "matmul_plain", "loader_bytes", "occupancy",
-           "plan_for", "route", "tf32_split", "tf32_split_plain",
-           "tf32_product"]
+           "occupancy_for", "dtype_route", "route", "tf32_split",
+           "tf32_split_plain", "tf32_product"]
 
 _TC_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                 + [ctypes.c_void_p])
@@ -69,10 +68,18 @@ def route(a: torch.Tensor, b: torch.Tensor) -> str:
     """"tf32x3" for float32 operands, "tensor_core" for bfloat16, whatever
     their shape or alignment; raises on operands of two dtypes or of
     another dtype."""
-    if a.dtype != b.dtype or a.dtype not in _ROUTES:
-        raise TypeError(f"matmul takes A and B of one dtype, float32 or "
-                        f"bfloat16, got {a.dtype} and {b.dtype}")
-    return _ROUTES[a.dtype]
+    if a.dtype != b.dtype:
+        raise TypeError(f"matmul takes A and B of one dtype, got {a.dtype} "
+                        f"and {b.dtype}")
+    return dtype_route(a.dtype)
+
+
+def dtype_route(dtype: torch.dtype) -> str:
+    """The route of operands of ``dtype``; raises on a dtype other than
+    float32 and bfloat16."""
+    if dtype not in _ROUTES:
+        raise TypeError(f"matmul takes float32 or bfloat16, got {dtype}")
+    return _ROUTES[dtype]
 
 
 def loader_bytes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
@@ -84,14 +91,6 @@ def loader_bytes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
         x = t.data_ptr() | 2 * t.shape[1]
         return next(w for w in (16, 8, 4, 2) if x % w == 0)
     return width(a), width(b)
-
-
-def plan_for(a: torch.Tensor, b: torch.Tensor, hw: GpuParams,
-             policy: MappingPolicy | str) -> MatmulPlan:
-    """The plan of ``a @ b`` under ``policy``, for the kernel of the
-    operands' ``route``."""
-    return plan_matmul_blocks(a.shape[0], b.shape[1], a.shape[1], hw,
-                              policy, kernel=route(a, b))
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, plan: MatmulPlan,
@@ -249,15 +248,26 @@ def occupancy(plan: MatmulPlan, a: torch.Tensor, b: torch.Tensor) -> int:
     """Resident CTAs per SM that the CUDA runtime reports for the
     instantiation that ``a @ b`` launches under ``plan`` (its registers
     and its shared memory; for bf16, its operands' loaders)."""
+    return _occupancy(plan, a.data_ptr(), b.data_ptr(), b.shape[1],
+                      a.shape[1])
+
+
+def occupancy_for(plan: MatmulPlan, k: int, n: int) -> int:
+    """``occupancy`` for operands that start on 16 bytes (as a fresh
+    allocation does): A of ``k`` columns, B of ``n``."""
+    return _occupancy(plan, 0, 0, n, k)
+
+
+def _occupancy(plan: MatmulPlan, a_ptr: int, b_ptr: int, n: int,
+               k: int) -> int:
     blocks = ctypes.c_int(0)
     if plan.kernel == "tensor_core":
         fn = _build.load("matmul_tc").matmul_tc_occupancy
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _build.check(fn(a.data_ptr(), b.data_ptr(), b.shape[1], a.shape[1],
-                        plan.bm, plan.bn, plan.stages, ctypes.byref(blocks)),
-                     "matmul_tc_occupancy")
+        _build.check(fn(a_ptr, b_ptr, n, k, plan.bm, plan.bn, plan.stages,
+                        ctypes.byref(blocks)), "matmul_tc_occupancy")
         return blocks.value
     fn = _build.load("matmul_tf32x3").tf32x3_occupancy
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]

@@ -1,26 +1,30 @@
 """Public kernel API of the paper's suite, with the mapping policy.
 
-``flash_attention`` is single-head attention over leading dims, the
-JAX package's ``ops.flash_attention``; its tiles come from
-``plan_attention_blocks`` and it ignores ``policy`` until the tuner (as
-the serving kernels do).  ``decode_attention`` is the suite's entry
-point to the contiguous decode kernel the engine's unpaged and
-gather-then-sweep paths run; its
-``block_s`` comes from ``plan_cache_block`` and its split width from
-``plan_decode_split`` under the policy.  ``ssd``
-(Mamba-2's chunked scan) takes its chunk from ``chunk=`` or
-``models.ssm.plan_ssd_chunk(L, hw)`` and ignores ``policy=``, as the JAX
-package's ``ops.ssd`` does.
-
 Each op resolves its launch at call time from the hardware parameters
 (``hw`` defaults to ``detect()`` of the inputs' device: the paper's
-runtime technique) and the mapping policy, then runs its kernel wrapper:
-the hand-written CUDA kernel for CUDA tensors, the plain version for CPU
-tensors.  Nothing here moves a tensor between devices.
+runtime technique) and the mapping policy, through the tuner's dispatch
+(``repro_torch.tuner.dispatch.resolve_plan``), then runs its kernel
+wrapper: the hand-written CUDA kernel for CUDA tensors, the plain
+version for CPU tensors.  Nothing here moves a tensor between devices.
 
-The policy is ``"naive"``, ``"fixed"`` or ``"auto"`` (the default, Eq.
-1); ``policy=`` overrides per call, ``set_default_policy`` for the
-process, and ``with ops.policy("naive"): ...`` for a scope::
+The policy is ``"naive"``, ``"fixed"``, ``"auto"`` (the default, Eq. 1)
+or ``"tuned"``: the Eq. 1 seed refined over the kernel's legaliser and
+kept in the process-wide tuning cache (``tuner.get_default_cache``), a
+warm hit a dict lookup.  ``policy=`` overrides per call,
+``set_default_policy`` for the process, and ``with ops.policy("tuned"):
+...`` for a scope.  A TUNED miss refines on the roofline alone unless
+``set_default_measure`` (or ``with ops.measuring("live"): ...``) asks
+for measured refinement: "cached" re-ranks by recorded times, "live"
+times the roofline's top candidates on the inputs' device.
+
+``flash_attention`` is single-head attention over leading dims, the
+JAX package's ``ops.flash_attention``.  ``decode_attention`` is the
+suite's entry point to the contiguous decode kernel the engine's
+unpaged and gather-then-sweep paths run: its ``block_s`` and split
+width under the policy.  ``ssd`` (Mamba-2's chunked scan) takes its
+chunk from ``chunk=`` or ``models.ssm.plan_ssd_chunk(L, hw)`` and
+ignores ``policy=``, as the JAX package's ``ops.ssd`` does (the tuner
+registers no SSD).
 
     >>> import torch
     >>> from repro_torch.kernels import ops
@@ -32,33 +36,26 @@ process, and ``with ops.policy("naive"): ...`` for a scope::
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Iterator, Literal, Optional
 
 import torch
 
-from repro_torch.core import workload
 from repro_torch.core.hw import GpuParams, detect
-from repro_torch.core.mapper import (MappingPolicy, plan_attention_blocks,
-                                     plan_cache_block, plan_decode_split,
-                                     plan_gcn, plan_nn, plan_rows,
-                                     plan_vector_blocks)
-from repro_torch.kernels import decode_attention as _decode
-from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels import gcn_agg as _gcn_agg
-from repro_torch.kernels import matmul as _matmul
-from repro_torch.kernels import nn_search as _nn_search
-from repro_torch.kernels import rmsnorm as _rmsnorm
-from repro_torch.kernels import saxpy as _saxpy
+from repro_torch.core.mapper import MappingPolicy
 from repro_torch.kernels import ssd as _ssd
-from repro_torch.kernels import stencil as _stencil
-from repro_torch.kernels import vecadd as _vecadd
+from repro_torch.tuner import dispatch as tdispatch
+from repro_torch.tuner.dispatch import MEASURE_MODES
 
 __all__ = ["vecadd", "saxpy", "matmul", "rmsnorm", "gaussian_blur",
            "nn_search", "gcn_aggregate", "flash_attention",
            "decode_attention", "ssd",
-           "set_default_policy", "policy"]
+           "set_default_policy", "policy", "set_default_measure",
+           "get_default_measure", "measuring"]
+
+MeasureMode = Literal["off", "cached", "live"]
 
 _DEFAULT_POLICY: MappingPolicy = MappingPolicy.AUTO
+_DEFAULT_MEASURE: MeasureMode = "off"
 
 
 def set_default_policy(policy: MappingPolicy | str) -> None:
@@ -66,9 +63,24 @@ def set_default_policy(policy: MappingPolicy | str) -> None:
     _DEFAULT_POLICY = MappingPolicy(policy)
 
 
+def set_default_measure(mode: MeasureMode) -> None:
+    """Process-wide ``measure=`` mode of TUNED cache misses: "off" the
+    roofline, "cached" recorded times, "live" times taken on the device
+    and recorded.  A warm hit never measures."""
+    global _DEFAULT_MEASURE
+    if mode not in MEASURE_MODES:
+        raise ValueError(f"measure must be one of {MEASURE_MODES}, "
+                         f"got {mode!r}")
+    _DEFAULT_MEASURE = mode
+
+
+def get_default_measure() -> MeasureMode:
+    return _DEFAULT_MEASURE
+
+
 @contextlib.contextmanager
 def policy(policy: MappingPolicy | str) -> Iterator[None]:
-    """Scoped ``set_default_policy``: ``with ops.policy("naive"): ...``"""
+    """Scoped ``set_default_policy``: ``with ops.policy("tuned"): ...``"""
     global _DEFAULT_POLICY
     prev = _DEFAULT_POLICY
     set_default_policy(policy)
@@ -76,6 +88,18 @@ def policy(policy: MappingPolicy | str) -> Iterator[None]:
         yield
     finally:
         _DEFAULT_POLICY = prev
+
+
+@contextlib.contextmanager
+def measuring(mode: MeasureMode) -> Iterator[None]:
+    """Scoped ``set_default_measure``: ``with ops.measuring("live"): ...``"""
+    global _DEFAULT_MEASURE
+    prev = _DEFAULT_MEASURE
+    set_default_measure(mode)
+    try:
+        yield
+    finally:
+        _DEFAULT_MEASURE = prev
 
 
 def _resolve(policy) -> MappingPolicy:
@@ -86,16 +110,20 @@ def _hw(t: torch.Tensor, hw: Optional[GpuParams]) -> GpuParams:
     return hw or detect(t.device)
 
 
+def _call(kernel: str, *args, policy, hw, **kwargs):
+    """Resolve ``kernel``'s plan for ``args`` under the policy (TUNED
+    through the default cache) and run it."""
+    return tdispatch.tuned_call(kernel, *args, hw=_hw(args[-1], hw),
+                                policy=_resolve(policy),
+                                measure=_DEFAULT_MEASURE, **kwargs)
+
+
 def vecadd(x, y, *, policy=None, hw: Optional[GpuParams] = None):
-    plan = plan_vector_blocks(workload.vecadd(x.numel(), x.element_size()),
-                              _hw(x, hw), _resolve(policy))
-    return _vecadd.vecadd(x, y, plan=plan)
+    return _call("vecadd", x, y, policy=policy, hw=hw)
 
 
 def saxpy(a, x, y, *, policy=None, hw: Optional[GpuParams] = None):
-    plan = plan_vector_blocks(workload.saxpy(x.numel(), x.element_size()),
-                              _hw(x, hw), _resolve(policy))
-    return _saxpy.saxpy(a, x, y, plan=plan)
+    return _call("saxpy", a, x, y, policy=policy, hw=hw)
 
 
 def matmul(a, b, *, policy=None, out_dtype=None,
@@ -104,8 +132,7 @@ def matmul(a, b, *, policy=None, out_dtype=None,
     (``kernels.matmul.route``): float32 as three TF32 products on the
     tensor cores ("tf32x3"), bfloat16 of any shape and alignment on the
     tensor cores ("tensor_core")."""
-    plan = _matmul.plan_for(a, b, _hw(a, hw), _resolve(policy))
-    return _matmul.matmul(a, b, plan=plan, out_dtype=out_dtype)
+    return _call("matmul", a, b, policy=policy, hw=hw, out_dtype=out_dtype)
 
 
 def rmsnorm(x, gamma, *, eps: float = 1e-6, policy=None,
@@ -113,31 +140,26 @@ def rmsnorm(x, gamma, *, eps: float = 1e-6, policy=None,
     """x: (..., d) — leading dims flattened into token rows."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    plan = plan_rows(x2.shape[0], _hw(x, hw), _resolve(policy))
-    return _rmsnorm.rmsnorm(x2, gamma, eps=eps, plan=plan).reshape(shape)
+    out = _call("rmsnorm", x2, gamma, policy=policy, hw=_hw(x, hw), eps=eps)
+    return out.reshape(shape)
 
 
 def gaussian_blur(img, *, ksize: int = 5, sigma: float = 1.0, policy=None,
                   hw: Optional[GpuParams] = None):
     """img: (h, w) — separable blur, zero "same" padding."""
-    plan = _stencil.plan_for(img, ksize, _hw(img, hw), _resolve(policy))
-    return _stencil.gaussian_blur(img, ksize=ksize, sigma=sigma, plan=plan)
+    return _call("gaussian_blur", img, policy=policy, hw=hw, ksize=ksize,
+                 sigma=sigma)
 
 
 def nn_search(queries, refs, *, policy=None, hw: Optional[GpuParams] = None):
     """queries (Q, D), refs (R, D) -> (idx int32 (Q,), sq-dist f32 (Q,))."""
-    plan = plan_nn(queries.shape[0], refs.shape[0], queries.shape[1],
-                   _hw(queries, hw), _resolve(policy),
-                   elem_bytes=queries.element_size())
-    return _nn_search.nn_search(queries, refs, plan=plan)
+    return _call("nn_search", queries, refs, policy=policy, hw=hw)
 
 
 def gcn_aggregate(adj_norm, feats, *, policy=None,
                   hw: Optional[GpuParams] = None):
     """adj_norm (N, N) dense normalised adjacency; feats (N, F)."""
-    plan = plan_gcn(feats.shape[0], feats.shape[1], _hw(feats, hw),
-                    _resolve(policy))
-    return _gcn_agg.gcn_agg(adj_norm, feats, plan=plan)
+    return _call("gcn_agg", adj_norm, feats, policy=policy, hw=hw)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
@@ -147,22 +169,11 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     layout; the leading dims run as the kernel's batch, one query head
     and one KV group each).  Causal queries sit at the end of the keys
     (``q_offset = skv - sq``), as the JAX kernel aligns them; causal
-    needs ``sq <= skv``.  ``policy`` is ignored until the tuner (ROADMAP
-    queue 1, item 4)."""
-    del policy
-    sq, d = q.shape[-2:]
-    skv = k.shape[-2]
-    if causal and sq > skv:
-        raise ValueError(f"causal flash_attention needs sq <= skv, got "
-                         f"{sq} > {skv}")
-    plan = plan_attention_blocks(sq, skv, d, _hw(q, hw))
-    out = _flash.flash_attention(
-        q.reshape(-1, sq, 1, 1, d).contiguous(),
-        k.reshape(-1, skv, 1, d).contiguous(),
-        v.reshape(-1, skv, 1, d).contiguous(), block_q=plan.block_q,
-        block_k=plan.block_k, q_offset=skv - sq if causal else 0,
-        scale=scale, causal=causal)
-    return out.reshape(q.shape)
+    needs ``sq <= skv``.  The tiles are the AUTO seed under NAIVE, FIXED
+    and AUTO (the flash plan has no policy of its own), the tuner's under
+    TUNED."""
+    return _call("flash_attention", q, k, v, policy=policy, hw=hw,
+                 causal=causal, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
@@ -173,7 +184,7 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
     layout).  The leading dims run as the kernel's rows, one query head
     and one KV group each; one ``block_s`` and one split width serve
     them all (NAIVE one split a row, FIXED 512 positions, AUTO Eq. 1
-    over the resident CTA slots)."""
+    over the resident CTA slots, TUNED the tuner's)."""
     lead = q.shape[:-1]
     s, d = k_cache.shape[-2:]
     rows = q.reshape(-1, 1, 1, d).contiguous()
@@ -183,12 +194,9 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, *, scale=None,
         cache_len = s
     clen = torch.broadcast_to(torch.as_tensor(cache_len, dtype=torch.int32,
                                               device=q.device), lead)
-    hw, policy = _hw(q, hw), _resolve(policy)
-    block = plan_cache_block(s, d, hw, policy)
-    split = plan_decode_split(s, rows.shape[0], block, d, hw, policy)
-    out = _decode.decode_attention(rows, kc, vc,
-                                   clen.reshape(-1).contiguous(),
-                                   block_s=block, split=split, scale=scale)
+    out = _call("decode_attention", rows, kc, vc,
+                clen.reshape(-1).contiguous(), policy=policy, hw=hw,
+                scale=scale)
     return out.reshape(q.shape)
 
 

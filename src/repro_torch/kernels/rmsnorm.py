@@ -30,7 +30,8 @@ from repro_torch.core.mapper import BlockPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.vecadd import DTYPES
 
-__all__ = ["rmsnorm", "rmsnorm_plain", "occupancy", "row_path"]
+__all__ = ["rmsnorm", "rmsnorm_plain", "occupancy", "occupancy_for",
+           "row_path"]
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -115,10 +116,17 @@ rmsnorm.launches = 0
 def occupancy(x: torch.Tensor, gamma: torch.Tensor) -> int:
     """Resident CTAs per SM that the CUDA runtime reports for the kernel
     that ``rmsnorm(x, gamma)`` launches."""
+    return occupancy_for(x.shape[-1], x.dtype, row_path(x, gamma))
+
+
+def occupancy_for(d: int, dtype: torch.dtype, path: str) -> int:
+    """Resident CTAs per SM that the CUDA runtime reports for the kernel
+    of rows of ``d`` ``dtype`` values read on ``path`` ("vector" or
+    "scalar")."""
     fn = _build.load("rmsnorm").rmsnorm_occupancy
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    _build.check(fn(x.shape[-1], DTYPES[x.dtype], _PATHS[row_path(x, gamma)],
-                    ctypes.byref(blocks)), "rmsnorm_occupancy")
+    _build.check(fn(d, DTYPES[dtype], _PATHS[path], ctypes.byref(blocks)),
+                 "rmsnorm_occupancy")
     return blocks.value

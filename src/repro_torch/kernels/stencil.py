@@ -5,7 +5,8 @@ The CUDA kernels (``csrc/stencil.cu``) replace the JAX package's
 ``kernels/stencil.py::_row_pass_kernel`` and ``::_col_pass_kernel``; each
 pass has its own wrapper and launch count (``stencil_rows.launches``,
 ``stencil_cols.launches``).  Both passes take one launch from one
-``core.mapper.plan_stencil`` plan (``plan_for`` makes it for an image)
+``core.mapper.plan_stencil`` plan (the tuner's
+``dispatch.plan_for("gaussian_blur", img, ...)`` makes it for an image)
 under one of the mapping policies: a CTA of 256 threads streams down
 ``plan.rows`` rows of a strip ``plan.tile_w`` columns wide, each thread
 one 16-byte vector of each row (``plan.route`` "vector": 4 float32 or 8
@@ -34,27 +35,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels
-from repro_torch.core.hw import GpuParams, ceil_div
-from repro_torch.core.mapper import (STENCIL_VEC_BYTES, MappingPolicy,
-                                     StencilPlan, plan_stencil)
+from repro_torch.core.hw import ceil_div
+from repro_torch.core.mapper import STENCIL_VEC_BYTES, StencilPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels.vecadd import DTYPES
 
-__all__ = ["gaussian_kernel_1d", "gaussian_blur", "plan_for", "route",
+__all__ = ["gaussian_kernel_1d", "gaussian_blur", "route",
            "stencil_rows", "stencil_cols", "stencil_rows_plain",
            "stencil_cols_plain", "occupancy"]
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-
-
-def plan_for(img: torch.Tensor, ksize: int, hw: GpuParams,
-             policy: MappingPolicy) -> StencilPlan:
-    """The plan ``ops.gaussian_blur`` takes for ``img``: its element size
-    and whether it starts on 16 bytes decide the route."""
-    return plan_stencil(img.shape[0], img.shape[1], ksize, hw, policy,
-                        elem_bytes=img.element_size(),
-                        aligned=img.data_ptr() % STENCIL_VEC_BYTES == 0)
 
 
 def route(x: torch.Tensor, plan: StencilPlan) -> str:
@@ -67,7 +58,7 @@ def route(x: torch.Tensor, plan: StencilPlan) -> str:
         raise ValueError(f"gaussian_blur: a vector plan for an image whose "
                          f"rows are not 16-byte vectors on 16 bytes "
                          f"(width {x.shape[1]}, {x.data_ptr() % 16} bytes "
-                         f"off 16); plan with plan_for")
+                         f"off 16); plan for the image (tuner.dispatch.plan_for)")
     return plan.route
 
 

@@ -5,8 +5,12 @@
 
 Runs on the CUDA device by default and raises without one;
 ``--device cpu`` runs the kernels' plain versions (reduced width is the
-default; ``--full`` serves the published width).  Prints the run's
-summary and, as its last line, the summary as JSON.
+default; ``--full`` serves the published width).  ``--policy`` (default
+tuned) plans the buckets' kernels; ``--measure`` (default cached) says
+how a TUNED cache miss is judged: "cached" by times recorded in the
+profiler's store (none yet: the roofline's pick), "live" by CUDA-event
+times taken now and recorded, "off" by the roofline alone.  Prints the
+run's summary and, as its last line, the summary as JSON.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import json
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.core.mapper import MappingPolicy
 from repro_torch.serve import ServeEngine, TrafficConfig, drive
+from repro_torch.tuner import MEASURE_MODES
 
 
 def parse_chunk(value: str):
@@ -49,6 +55,13 @@ def main(argv=None) -> dict:
                     help="prefill in N-token chunks between decode ticks; "
                          "'auto' uses the bucket's flash block_q, 'none' "
                          "prefills whole prompts")
+    ap.add_argument("--policy", default="tuned",
+                    choices=[p.value for p in MappingPolicy],
+                    help="how the router plans each bucket's kernels")
+    ap.add_argument("--measure", choices=MEASURE_MODES, default="cached",
+                    help="a TUNED cache miss: cached replays recorded "
+                         "times, live times the candidates on the device, "
+                         "off is the roofline alone")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the traffic and the random weights")
     ap.add_argument("--full", action="store_true",
@@ -73,7 +86,8 @@ def main(argv=None) -> dict:
         reduced=not args.full, paged=not args.no_paged,
         kv_dtype=args.kv_dtype,
         prefill_chunk=parse_chunk(args.prefill_chunk), seed=args.seed,
-        device=args.device, verbose=True)
+        policy=args.policy, measure=args.measure, device=args.device,
+        verbose=True)
     report = drive(engine, traffic)
     s = report.summary
     print(f"[serve] ttft p50/p95 {s.ttft_p50_s * 1e3:.1f}/"

@@ -2,29 +2,32 @@
 
 ``BucketSpec`` and ``Bucket`` are copies of the JAX package's lattice:
 live serving geometry rounds UP onto a bounded set of lengths.
-``BucketRouter`` resolves each bucket's kernel mappings — the
-contiguous decode ``block_s`` and split width, the fused paged-decode
-``block_s`` and split width, and the prefill flash tiles — from the port's Eq. 1 mapper (AUTO) over the
-runtime ``GpuParams`` and memoises them per bucket (the tuner cache and
-measured refinement are not ported yet, so a cold bucket is one planner
-call, a warm one a dict hit).  An attention-free config (ssm) plans
-none of the three: its plans are ``None`` — mamba2's ``head_dim`` would
-be ``d_model`` = 2048, which no attention kernel takes.
+``BucketRouter`` resolves each bucket's kernel mappings (the contiguous
+decode ``block_s`` and split width, the fused paged decode's, and the
+prefill flash tiles) through the tuner (``tuner.resolve_plan``) over the
+runtime ``GpuParams``, one ``KERNEL_TABLE`` row a kernel, and memoises
+them per bucket signature: under the default TUNED a cold bucket is a
+cache lookup or a refinement, a warm one a dict hit with no probe.  An
+attention-free config (ssm) plans none of them: its plans are ``None``
+(mamba2's ``head_dim`` would be ``d_model`` = 2048, which no attention
+kernel takes).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.hw import GpuParams
-from repro_torch.core.mapper import (plan_attention_blocks, plan_cache_block,
-                                     plan_decode_split, plan_paged_block)
-from repro_torch.kernels.decode_attention import check_split
+from repro_torch.core.dtypes import kv_dtype_spec
+from repro_torch.core.hw import GpuParams, detect
+from repro_torch.core.mapper import MappingPolicy
+from repro_torch.tuner import (KERNEL_REGISTRY, ResolveInfo, TuningCache,
+                               WorkloadSignature, resolve_plan,
+                               workload_signature)
 
 __all__ = ["BucketSpec", "Bucket", "BucketPlan", "RouterStats",
-           "BucketRouter"]
+           "BucketRouter", "KernelRow", "KERNEL_TABLE"]
 
 BUCKET_MODES = ("pow2", "linear", "exact", "fixed")
 
@@ -122,20 +125,101 @@ class Bucket:
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
-    """A bucket's resolved decode mappings, threaded into the executed
-    decode step: ``decode_block`` and ``decode_split`` are the
-    contiguous sweep's ``block_s`` and split width (the contiguous pool
-    and the gather-then-sweep read), ``paged_decode_block`` and
+    """A bucket's resolved kernel mappings, threaded into the executed
+    steps: ``decode_block`` and ``decode_split`` are the contiguous
+    sweep's ``block_s`` and split width (the contiguous pool and the
+    gather-then-sweep read), ``paged_decode_block`` and
     ``paged_decode_split`` the fused paged sweep's (``None`` for an
-    unpaged engine).  The split is ``plan_decode_split`` (AUTO) over the
-    bucket's slots x KV groups.  The prefill tiles are resolved per
-    prompt bucket by ``BucketRouter.prefill_tiles``."""
+    unpaged engine), ``prefill_blocks`` the flash tiles at the bucket's
+    own length; each ``*_info`` is the tuner's provenance of its plan
+    (``None`` where the row did not apply).  The prefill tiles that run
+    are resolved per prompt bucket by ``BucketRouter.prefill_tiles``."""
 
     bucket: Bucket
-    decode_block: Optional[int]          # None: attention-free
-    paged_decode_block: Optional[int]    # None: unpaged or attention-free
+    sig: Optional[WorkloadSignature] = None
+    decode_block: Optional[int] = None       # None: attention-free
     decode_split: Optional[int] = None
+    decode_info: Optional[ResolveInfo] = None
+    prefill_blocks: Optional[tuple] = None
+    prefill_info: Optional[ResolveInfo] = None
+    paged_decode_block: Optional[int] = None  # None: unpaged or no attention
     paged_decode_split: Optional[int] = None
+    paged_decode_info: Optional[ResolveInfo] = None
+
+    @property
+    def probes(self) -> int:
+        return sum(i.probes for i in (self.decode_info, self.prefill_info,
+                                      self.paged_decode_info)
+                   if i is not None)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelRow:
+    """One row of the router's kernel table: which tuner kernel a bucket
+    resolves, when it applies, how its workload description is built
+    from the bucket, and which ``BucketPlan`` fields its plan fills.
+
+    ``desc`` receives the router's page geometry as its fourth argument
+    (``None`` for an unpaged router); a row with ``needs_geometry``
+    resolves to ``None`` without one.  A ``cache_kernel`` streams the KV
+    pool, so its description takes the pool's storage dtype (int8 codes
+    under a quantised pool), not the model's.  ``extract`` gives the
+    plan's values in ``fields`` order.
+
+    Example::
+
+        KernelRow(kernel="decode_attention",
+                  applies=lambda cfg: not cfg.is_attention_free,
+                  desc=lambda cfg, b, db, geo: {"s": b.kv_len, ...},
+                  extract=lambda plan: tuple(plan),
+                  fields=("decode_block", "decode_split"),
+                  info="decode_info")
+    """
+
+    kernel: str                  # KERNEL_REGISTRY name
+    applies: Any                 # (cfg) -> bool
+    desc: Any                    # (cfg, bucket, dtype_bytes, geo) -> dict
+    extract: Any                 # plan -> values of ``fields``
+    fields: tuple                # BucketPlan fields the plan's values fill
+    info: str                    # BucketPlan field of its ResolveInfo
+    needs_geometry: bool = False
+    cache_kernel: bool = False
+
+
+def _decode_desc(cfg, b, db):
+    return {"s": b.kv_len, "d": cfg.head_dim,
+            "rows": b.slots * cfg.num_kv_heads,
+            "heads_per_group": cfg.heads_per_group, "dtype": cfg.dtype,
+            "dtype_bytes": db}
+
+
+#: the per-bucket kernel set: a bucket-tuned kernel is one row here and
+#: its ``BucketPlan`` fields
+KERNEL_TABLE: tuple[KernelRow, ...] = (
+    KernelRow(
+        kernel="decode_attention",
+        applies=lambda cfg: not cfg.is_attention_free,
+        desc=lambda cfg, b, db, geo: _decode_desc(cfg, b, db),
+        extract=tuple, fields=("decode_block", "decode_split"),
+        info="decode_info",
+        cache_kernel=True),
+    KernelRow(
+        kernel="flash_attention",
+        applies=lambda cfg: not cfg.is_attention_free,
+        # one prompt at a time: the kernel's batch is its query heads
+        desc=lambda cfg, b, db, geo: {
+            "seq_q": b.kv_len, "seq_kv": b.kv_len,
+            "head_dim": cfg.head_dim, "dtype": cfg.dtype,
+            "dtype_bytes": db, "causal": True, "batch": cfg.num_heads},
+        extract=lambda plan: ((plan.block_q, plan.block_k),),
+        fields=("prefill_blocks",), info="prefill_info"),
+    KernelRow(
+        kernel="paged_decode",
+        applies=lambda cfg: not cfg.is_attention_free,
+        desc=lambda cfg, b, db, geo: {**_decode_desc(cfg, b, db), **geo},
+        extract=tuple, fields=("paged_decode_block", "paged_decode_split"),
+        info="paged_decode_info", needs_geometry=True, cache_kernel=True),
+)
 
 
 @dataclasses.dataclass
@@ -144,16 +228,29 @@ class RouterStats:
 
     Example::
 
-        >>> RouterStats().cold
+        >>> RouterStats().probes
         0
     """
 
-    cold: int = 0            # resolutions that ran the planner
-    warm: int = 0            # served from the router's memo
+    cold: int = 0            # resolutions that consulted the tuner
+    warm: int = 0            # served from the router's own plan table
+    probes: int = 0          # refine probes spent across all resolutions
+    cache_hits: int = 0      # tuner resolutions answered by the TuningCache
+    swaps: int = 0           # plans swapped in place (``swap_plan``)
 
 
 class BucketRouter:
-    """Maps live (batch, need_len) geometry to per-bucket kernel plans.
+    """Maps live (batch, need_len) geometry to tuned per-bucket plans.
+
+    The router is the engine's window into the tuner: it owns the
+    lattice, builds each bucket's ``WorkloadSignature``, and resolves the
+    bucket's kernel plans through ``tuner.resolve_plan`` (seed -> cache
+    -> refine -> memoise), so a warm bucket spends no probe.  ``policy``
+    defaults to TUNED; ``cache`` to the tuner's process-wide cache;
+    ``measure`` ("off", "cached", "live") and ``store`` pass to the
+    tuner, a live measurement timed on ``device``.  ``page_block=None``
+    is an unpaged engine (no paged plan); ``kv_dtype`` is the pool's
+    storage ("fp32" or "int8"), on which the cache kernels resolve.
 
     Example::
 
@@ -161,22 +258,51 @@ class BucketRouter:
                               hw=detect("cuda"), page_block=16)
         plan = router.resolve(router.bucket(need_len))
         tiles = router.prefill_tiles(router.quantize_prompt(plen))
-
-    ``page_block=None`` is an unpaged engine (no paged plan).  The int8
-    pool resolves the same blocks and splits as the fp32 one: the plan
-    sizes the sweep's shared memory for f32 caches, the most it stages.
     """
 
     def __init__(self, cfg: ModelConfig, spec: BucketSpec, *, slots: int,
-                 hw: GpuParams, page_block: Optional[int] = 16):
+                 hw: Optional[GpuParams] = None,
+                 policy: MappingPolicy | str = MappingPolicy.TUNED,
+                 cache: Optional[TuningCache] = None,
+                 measure: str = "off", store: Optional[Any] = None,
+                 page_block: Optional[int] = 16, kv_dtype: str = "fp32",
+                 device="cuda"):
         self.cfg = cfg
         self.spec = spec
         self.slots = slots
-        self.hw = hw
+        self.kv_spec = kv_dtype_spec(kv_dtype)
+        self.device = device
+        self.hw = hw if hw is not None else detect(device)
+        self.policy = MappingPolicy(policy)
+        self.cache = cache
+        self.measure = measure
+        self.store = store
         self.page_block = None if page_block is None else int(page_block)
         self.stats = RouterStats()
-        self._plans: dict[int, BucketPlan] = {}
+        self._plans: dict[str, BucketPlan] = {}
         self._prefill_tiles: dict[int, tuple[int, int]] = {}
+
+    def _geometry(self) -> Optional[dict]:
+        """The table geometry the paged plan is keyed on: the page size
+        and the widest block table any bucket can need (the lattice cap's
+        pages), so one plan stays legal as the pool grows."""
+        if self.page_block is None:
+            return None
+        pb = self.page_block
+        return {"page_block": pb,
+                "max_blocks_per_row": -(-self.spec.max_len // pb)}
+
+    @property
+    def plans(self) -> tuple[BucketPlan, ...]:
+        """The bucket plans resolved so far."""
+        return tuple(self._plans.values())
+
+    @property
+    def prefill_plans(self) -> dict[int, tuple[int, int]]:
+        """Prompt bucket -> the flash tiles resolved so far."""
+        return dict(self._prefill_tiles)
+
+    # -- lattice ----------------------------------------------------------
 
     def bucket(self, need_len: int) -> Bucket:
         """The lattice point covering a pool-length requirement."""
@@ -186,53 +312,110 @@ class BucketRouter:
         """The prompt bucket a prefill pads to (same lattice)."""
         return self.spec.quantize(prompt_len)
 
+    # -- resolution -------------------------------------------------------
+
+    def signature(self, bucket: Bucket) -> WorkloadSignature:
+        """The bucket's canonical identity in the tuning namespace."""
+        return workload_signature(
+            "serve_decode",
+            shapes=[(bucket.slots, bucket.kv_len)],
+            dtypes=[self.cfg.dtype],
+            policy=self.policy,
+            kv_heads=max(self.cfg.num_kv_heads, 1),
+            head_dim=self.cfg.head_dim,
+            layers=self.cfg.num_layers,
+            kv_dtype=self.kv_spec.name)
+
+    def _dtype_bytes(self) -> int:
+        return 2 if self.cfg.dtype == "bfloat16" else 4
+
+    def _resolve_kernel(self, kernel: str, desc: dict):
+        kw = {}
+        if self.measure != "off":
+            kw = dict(measure=self.measure, store=self.store,
+                      measure_opts={"device": self.device})
+        plan, info = resolve_plan(kernel, self.hw, self.policy, desc,
+                                  self.cache, **kw)
+        self.stats.probes += info.probes
+        if info.source == "cache":
+            self.stats.cache_hits += 1
+        return plan, info
+
+    def row_desc(self, row: KernelRow, bucket: Bucket) -> dict:
+        """The workload description ``row`` resolves at ``bucket``."""
+        desc = row.desc(self.cfg, bucket, self._dtype_bytes(),
+                        self._geometry())
+        if row.cache_kernel and self.kv_spec.quantized:
+            # the sweep reads int8 codes: the tuner sees their byte width
+            # (and a signature of its own), so the quantised pool may
+            # resolve another plan than the fp32 pool on one bucket
+            desc["dtype"] = self.kv_spec.dtype
+            desc["dtype_bytes"] = self.kv_spec.bytes
+        return desc
+
     def resolve(self, bucket: Bucket) -> BucketPlan:
-        """Per-bucket kernel mappings, memoised on the bucket length."""
-        hit = self._plans.get(bucket.kv_len)
+        """Per-bucket kernel plans, memoised on the bucket signature; each
+        applicable ``KERNEL_TABLE`` row resolves through the tuner."""
+        sig = self.signature(bucket)
+        hit = self._plans.get(sig.key)
         if hit is not None:
             self.stats.warm += 1
             return hit
         self.stats.cold += 1
-        if self.cfg.is_attention_free:
-            plan = BucketPlan(bucket, None, None)
-        else:
-            t, d, r = bucket.kv_len, self.cfg.head_dim, \
-                self.cfg.heads_per_group
-            rows = bucket.slots * self.cfg.num_kv_heads
-            block = plan_cache_block(t, d, self.hw, heads_per_group=r)
-            paged = paged_split = None
-            if self.page_block is not None:
-                paged = plan_paged_block(t, d, self.page_block, self.hw,
-                                         heads_per_group=r)
-                paged_split = plan_decode_split(
-                    t, rows, paged, d, self.hw, heads_per_group=r,
-                    page_block=self.page_block)
-            split = plan_decode_split(t, rows, block, d, self.hw,
-                                      heads_per_group=r)
-            # the kernels' split checks, once per plan, not per launch
-            check_split(t, block, split)
-            if paged is not None:
-                check_split(t, paged, paged_split)
-            plan = BucketPlan(
-                bucket=bucket, decode_block=block,
-                paged_decode_block=paged, decode_split=split,
-                paged_decode_split=paged_split)
-        self._plans[bucket.kv_len] = plan
+        fields: dict[str, Any] = {}
+        for row in KERNEL_TABLE:
+            if not row.applies(self.cfg) or (row.needs_geometry
+                                             and self.page_block is None):
+                continue
+            kplan, info = self._resolve_kernel(row.kernel,
+                                               self.row_desc(row, bucket))
+            fields.update(zip(row.fields, row.extract(kplan)))
+            fields[row.info] = info
+        plan = BucketPlan(bucket=bucket, sig=sig, **fields)
+        self._plans[sig.key] = plan
         return plan
 
+    def swap_plan(self, bucket: Bucket, kernel: str, value) -> BucketPlan:
+        """Swap one decode kernel's value, a (block_s, split) pair, into a
+        bucket's memoised plan, legalised by the kernel's own rule (the
+        actuation path of a retune controller, which is not ported yet).
+        The engine's next ``resolve`` of the bucket returns it warm; other
+        buckets keep theirs.
+
+        Example::
+
+            router.swap_plan(router.bucket(256), "paged_decode", (16, 64))
+        """
+        row = next(r for r in KERNEL_TABLE if r.kernel == kernel)
+        if row.kernel == "flash_attention":
+            raise ValueError("the prefill tiles are resolved per prompt "
+                             "bucket; only the decode plans swap")
+        plan = self.resolve(bucket)
+        kplan = KERNEL_REGISTRY[kernel].plan_from_value(
+            self.row_desc(row, bucket), self.hw, value)
+        new = dataclasses.replace(plan, **dict(zip(row.fields,
+                                                   row.extract(kplan))))
+        self._plans[plan.sig.key] = new
+        self.stats.swaps += 1
+        return new
+
     def prefill_tiles(self, prompt_bucket: int) -> Optional[tuple[int, int]]:
-        """The EXECUTED prefill mapping for one prompt bucket, resolved
-        at the bucket's own (seq, seq) geometry and memoised per length;
-        ``None`` for attention-free families (no flash sweep to map)."""
+        """The EXECUTED prefill mapping for one prompt bucket: the flash
+        (block_q, block_k) resolved through the tuner at the bucket's own
+        (seq, seq) geometry, from the table's flash row, and memoised per
+        length; ``None`` for attention-free families (no flash sweep to
+        map)."""
+        row = next(r for r in KERNEL_TABLE if r.kernel == "flash_attention")
+        if not row.applies(self.cfg):
+            return None
         hit = self._prefill_tiles.get(prompt_bucket)
         if hit is not None:
             self.stats.warm += 1
             return hit
-        if self.cfg.is_attention_free:
-            return None
         self.stats.cold += 1
-        plan = plan_attention_blocks(prompt_bucket, prompt_bucket,
-                                     self.cfg.head_dim, self.hw)
-        tiles = (plan.block_q, plan.block_k)
+        plan, _ = self._resolve_kernel(
+            row.kernel, self.row_desc(row, Bucket(self.slots,
+                                                  prompt_bucket)))
+        tiles = row.extract(plan)[0]
         self._prefill_tiles[prompt_bucket] = tiles
         return tiles

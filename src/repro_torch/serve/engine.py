@@ -30,14 +30,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core.dtypes import kv_dtype_spec
-from repro_torch.core.hw import detect, resolve_device
+from repro_torch.core.hw import GpuParams, detect, resolve_device
+from repro_torch.core.mapper import MappingPolicy
 from repro_torch.kernels.paged_gather import flat_position
 from repro_torch.models import build_model
 from repro_torch.serve.adapters import get_adapter
@@ -45,6 +46,7 @@ from repro_torch.serve.buckets import BucketRouter, BucketSpec
 from repro_torch.serve.kvcache import KVCachePool
 from repro_torch.serve.metrics import ServeMetrics, ServeSummary
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.tuner import TuningCache
 
 __all__ = ["ServeEngine", "ServeReport"]
 
@@ -106,7 +108,14 @@ class ServeEngine:
     keeps the KV pool in leased blocks, ``fused_decode`` (default True)
     reads them inside the paged sweep instead of gathering first, and
     ``kv_dtype`` ("fp32", the model's dtype, or "int8", which needs the
-    paged pool) is what the pool stores.
+    paged pool) is what the pool stores.  ``policy`` (default "tuned",
+    as the JAX engine's) is how the router plans each bucket's kernels:
+    TUNED refines the Eq. 1 seed through the tuner and keeps it in
+    ``tuning_cache`` (default: the tuner's process-wide cache, a file in
+    the checkout's ``build/repro_torch/``); ``measure`` ("off", "cached"
+    or "live") lets a cache miss be judged by recorded or live CUDA-event
+    times from ``store`` (default: the profiler's process-wide store).
+    ``hw`` defaults to ``detect(device)``.
 
     Example::
 
@@ -128,6 +137,11 @@ class ServeEngine:
                  prefill_chunk: int | str | None = "auto",
                  eos_id: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic,
+                 policy: MappingPolicy | str = MappingPolicy.TUNED,
+                 measure: str = "off",
+                 store: Optional[Any] = None,
+                 tuning_cache: Optional[TuningCache] = None,
+                 hw: Optional[GpuParams] = None,
                  device="cuda",
                  verbose: bool = False):
         self.device = resolve_device(device)
@@ -158,9 +172,13 @@ class ServeEngine:
 
         self.model = build_model(cfg, device=self.device)
         self.params = params if params is not None else self.model.init(seed)
-        self.hw = detect(self.device)
+        self.hw = hw if hw is not None else detect(self.device)
         self.router = BucketRouter(cfg, self.spec, slots=slots, hw=self.hw,
-                                   page_block=block_size if paged else None)
+                                   policy=policy, cache=tuning_cache,
+                                   measure=measure, store=store,
+                                   page_block=block_size if paged else None,
+                                   kv_dtype=self.kv_spec.name,
+                                   device=self.device)
         self.paged = paged
         self.fused_decode = fused_decode
         self._block_size = block_size
@@ -322,9 +340,9 @@ class ServeEngine:
     def _chunk_size(self, tiles: Optional[tuple]) -> int:
         if isinstance(self._chunk_cfg, int):
             return max(1, self._chunk_cfg)
-        # "auto": the bucket's flash block_q — the quantum the planner
-        # decided a prefill sweep advances in (32 for attention-free
-        # families, which have no tiles)
+        # "auto": the bucket's flash block_q, the quantum the router's
+        # plan (the tuner's, under TUNED) advances a prefill sweep in (32
+        # for attention-free families, which have no tiles)
         return int(tiles[0]) if tiles else 32
 
     def _admit_chunked(self, req: Request, now: float) -> None:

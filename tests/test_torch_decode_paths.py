@@ -385,8 +385,12 @@ def test_plan_cache_block_policies_differ():
              for p in ("naive", "fixed", "auto")}
     assert plans == {"naive": 16, "fixed": 512, "auto": 32}
     assert decode_block_for(4096, 64, H100, 31, 3) == 32
+    # TUNED plans as its AUTO seed here (the tuner refines it); a name
+    # that is no policy raises
+    assert plan_cache_block(4096, 64, H100, "tuned",
+                            heads_per_group=3) == plans["auto"]
     with pytest.raises(ValueError):
-        plan_cache_block(4096, 64, H100, "tuned")
+        plan_cache_block(4096, 64, H100, "fastest")
 
 
 def test_kv_dtype_spec_is_the_reference_vocabulary():

@@ -45,7 +45,10 @@ from repro_torch.core.mapper import (DECODE_THREADS, decode_chunk,
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.profiler import TraceStore, set_default_store
 from repro_torch.serve import ServeEngine
+from repro_torch.tuner import TuningCache as PortTuningCache
+from repro_torch.tuner import set_default_cache
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 H100 = GPU_REGISTRY["h100_sxm"]
@@ -55,6 +58,17 @@ CPU = GPU_REGISTRY["cpu"]
 # --------------------------------------------------------------------------- #
 # the plan
 # --------------------------------------------------------------------------- #
+
+@pytest.fixture(autouse=True)
+def _memory_tuner():
+    """The engine's TUNED plans from a memory-only cache and trace store:
+    no test reads or writes the checkout's files."""
+    set_default_cache(PortTuningCache(path=None))
+    set_default_store(TraceStore(path=None))
+    yield
+    set_default_cache(None)
+    set_default_store(None)
+
 
 
 @pytest.mark.parametrize("t", [1, 17, 512, 1024, 4096, 32768])
@@ -429,13 +443,14 @@ def test_engine_reports_the_split_it_ran(opts):
     splits = rep.paged_decode_splits if fused else rep.decode_splits
     assert blocks and splits.keys() == blocks.keys()
     assert not (rep.decode_splits if fused else rep.paged_decode_splits)
-    rows = 2 * cfg.num_kv_heads
     for kv_len, w in splits.items():
         assert w % blocks[kv_len] == 0
-        assert w == plan_decode_split(kv_len, rows, blocks[kv_len],
-                                      cfg.head_dim, eng.router.hw,
-                                      heads_per_group=cfg.heads_per_group,
-                                      page_block=16 if fused else None)
+        da.check_split(kv_len, blocks[kv_len], w)
+        # the router's plan for the bucket (TUNED, the engine's default)
+        plan = eng.router.resolve(eng.router.bucket(kv_len))
+        assert (blocks[kv_len], w) == (
+            (plan.paged_decode_block, plan.paged_decode_split) if fused
+            else (plan.decode_block, plan.decode_split))
 
 
 def test_wrappers_require_the_split():
@@ -472,19 +487,22 @@ def test_split_buffers_are_kept_per_stream(monkeypatch):
 
 def test_router_checks_the_split_it_plans(monkeypatch):
     """The kernels' split checks run once per bucket plan, in the
-    router: a split that is not a whole number of block_s is refused
-    there, before any launch."""
+    router's resolution (the tuner's decode plans): a split that is not
+    a whole number of block_s is refused there, before any launch."""
     from repro_torch.serve import buckets
+    from repro_torch.tuner import TuningCache, dispatch
 
     cfg = get_config("smollm-135m")
     router = buckets.BucketRouter(cfg, buckets.BucketSpec(), slots=8,
-                                  hw=H100, page_block=16)
+                                  hw=H100, page_block=16,
+                                  cache=TuningCache(path=None))
     plan = router.resolve(buckets.Bucket(slots=8, kv_len=1024))
     assert plan.decode_split % plan.decode_block == 0
     assert plan.paged_decode_split % plan.paged_decode_block == 0
-    monkeypatch.setattr(buckets, "plan_decode_split",
+    monkeypatch.setattr(dispatch, "plan_decode_split",
                         lambda t, rows, block, *a, **kw: block + 8)
     fresh = buckets.BucketRouter(cfg, buckets.BucketSpec(), slots=8,
-                                 hw=H100, page_block=16)
+                                 hw=H100, page_block=16,
+                                 cache=TuningCache(path=None))
     with pytest.raises(ValueError):
         fresh.resolve(buckets.Bucket(slots=8, kv_len=1024))

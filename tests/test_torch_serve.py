@@ -24,11 +24,14 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro.tuner import TuningCache
 
 from repro_torch.configs import get_config
+from repro_torch.profiler import TraceStore, set_default_store
 from repro_torch.serve import (BlockAllocator, BucketRouter, BucketSpec,
                                KVCachePool, Request, Scheduler, ServeEngine,
                                TrafficConfig, drive)
 from repro_torch.weights import params_from_jax
 from repro_torch.core.hw import GPU_REGISTRY
+from repro_torch.tuner import TuningCache as PortTuningCache
+from repro_torch.tuner import set_default_cache
 
 #: 5 ragged requests through 2 slots (mid-decode recycling), including
 #: one long prompt that forces a pool-length bucket step (growth).
@@ -37,6 +40,17 @@ from repro_torch.core.hw import GPU_REGISTRY
 PROMPTS = [[7, 3, 99], [11, 5, 2, 42, 17, 101, 9], list(range(2, 38)),
            [250, 1], [33, 44, 55, 66]]
 MAX_NEW = 4
+
+@pytest.fixture(autouse=True)
+def _memory_tuner():
+    """The engine's TUNED plans from a memory-only cache and trace store:
+    no test reads or writes the checkout's files."""
+    set_default_cache(PortTuningCache(path=None))
+    set_default_store(TraceStore(path=None))
+    yield
+    set_default_cache(None)
+    set_default_store(None)
+
 
 
 @pytest.fixture(scope="module")

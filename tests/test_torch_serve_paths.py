@@ -32,7 +32,10 @@ from repro.tuner import TuningCache
 
 from repro_torch.configs import get_config
 from repro_torch.models import attention as attn
+from repro_torch.profiler import TraceStore, set_default_store
 from repro_torch.serve import ServeEngine
+from repro_torch.tuner import TuningCache as PortTuningCache
+from repro_torch.tuner import set_default_cache
 from repro_torch.weights import params_from_jax
 
 from test_torch_serve import MAX_NEW, PROMPTS
@@ -49,6 +52,17 @@ PATHS = {
 }
 READS = ("decode_attention", "paged_decode_attention", "paged_gather",
          "paged_dequant_gather")
+
+@pytest.fixture(autouse=True)
+def _memory_tuner():
+    """The engine's TUNED plans from a memory-only cache and trace store:
+    no test reads or writes the checkout's files."""
+    set_default_cache(PortTuningCache(path=None))
+    set_default_store(TraceStore(path=None))
+    yield
+    set_default_cache(None)
+    set_default_store(None)
+
 
 
 @pytest.fixture(scope="module")

@@ -30,13 +30,27 @@ from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core.hw import GPU_REGISTRY
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import build_model
+from repro_torch.profiler import TraceStore, set_default_store
 from repro_torch.serve import BucketRouter, BucketSpec, ServeEngine, \
     get_adapter
+from repro_torch.tuner import TuningCache as PortTuningCache
+from repro_torch.tuner import set_default_cache
 from repro_torch.weights import params_from_jax
 
 PROMPTS = [[7, 3, 99], [11, 5, 2, 42, 17, 101, 9], [250, 1],
            [33, 44, 55, 66]]
 MAX_NEW = 4
+
+@pytest.fixture(autouse=True)
+def _memory_tuner():
+    """The engine's TUNED plans from a memory-only cache and trace store:
+    no test reads or writes the checkout's files."""
+    set_default_cache(PortTuningCache(path=None))
+    set_default_store(TraceStore(path=None))
+    yield
+    set_default_cache(None)
+    set_default_store(None)
+
 
 
 @pytest.fixture(scope="module")

@@ -51,6 +51,7 @@ from repro_torch.core.mapper import (MAX_KSIZE, STENCIL_THREADS,
                                      stencil_smem_bytes)
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import stencil as st
+from repro_torch.tuner.dispatch import plan_for
 
 H100 = GPU_REGISTRY["h100_sxm"]
 POLICIES = ["naive", "fixed", "auto"]
@@ -141,11 +142,11 @@ def test_rings_do_not_grow_with_lws(k):
 
 def test_plan_for_reads_the_image():
     x = _image(64, 1024, "bfloat16", 0, seed=1)
-    p = st.plan_for(x, 5, H100, "fixed")
+    p = plan_for("gaussian_blur", x, ksize=5, hw=H100, policy="fixed")[0]
     assert (p.route, p.vec, p.rows, p.elem_bytes) == ("vector", 8, 4, 2)
     assert st.route(x, p) == "vector"
     off = _image(64, 1024, "bfloat16", 2, seed=1)        # 2 bytes off 16
-    q = st.plan_for(off, 5, H100, "fixed")
+    q = plan_for("gaussian_blur", off, ksize=5, hw=H100, policy="fixed")[0]
     assert (q.route, q.vec, q.rows) == ("scalar", 1, 32)
     assert st.route(off, q) == "scalar" and st.route(x, q) == "scalar"
     with pytest.raises(ValueError):            # a vector plan, off 16
@@ -455,7 +456,8 @@ def test_mirror_equals_plain_under_every_policy(shape, dtype, start,
     off = 0 if start == "on16" else es
     img = _image(h, w, dtype, off, seed=h * w + k)
     taps = st.gaussian_kernel_1d(k, 1.0)
-    plans = [st.plan_for(img, k, H100, p) for p in POLICIES]
+    plans = [plan_for("gaussian_blur", img, ksize=k, hw=H100, policy=p)[0]
+             for p in POLICIES]
     if h * w < 100_000:                # the large image: the policies only
         plans += [stencil_plan_for_block(h, w, k, H100, lws, elem_bytes=es,
                                          aligned=off == 0)
@@ -479,7 +481,7 @@ def test_ops_blur_takes_the_kernel_path_of_its_plan(mirror):
     got = ops.gaussian_blur(img, ksize=5, policy="fixed")
     assert (st.stencil_rows.launches, st.stencil_cols.launches) == \
         (before[0] + 1, before[1] + 1)
-    plan = st.plan_for(img, 5, H100, "fixed")
+    plan = plan_for("gaussian_blur", img, ksize=5, hw=H100, policy="fixed")[0]
     assert [c[1:] for c in mirror.calls] == [(plan.rows, plan.vec,
                                               plan.grid)] * 2
     with kernels.force("plain"):
@@ -491,7 +493,7 @@ def test_ops_blur_takes_the_kernel_path_of_its_plan(mirror):
 def test_wrappers_reject_a_plan_the_image_does_not_allow(case, mirror):
     img = _image(40, 1040, "float32", 0, seed=4)
     taps = st.gaussian_kernel_1d(5, 1.0)
-    plan = st.plan_for(img, 5, H100, "fixed")
+    plan = plan_for("gaussian_blur", img, ksize=5, hw=H100, policy="fixed")[0]
     assert plan.route == "vector"
     with pytest.raises(ValueError):
         if case == "off16":

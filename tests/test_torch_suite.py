@@ -245,13 +245,22 @@ def test_eq1_and_regimes_equal_the_jax_mapper():
 
 
 def test_tuned_policy_raises_and_names_the_tuner_slice():
-    with pytest.raises(ValueError, match="tuner slice"):
-        MappingPolicy("tuned")
-    with pytest.raises(ValueError, match="tuner slice"):
-        ops.vecadd(torch.zeros(4), torch.zeros(4), policy="tuned")
+    """The tuner slice has landed: "tuned" is a policy, which the ops
+    resolve through the tuner (a memory-only cache here); a name that is
+    no policy still raises."""
+    from repro_torch.tuner import TuningCache, set_default_cache
+
+    assert MappingPolicy("tuned") is MappingPolicy.TUNED
+    cache = TuningCache(path=None)
+    set_default_cache(cache)
+    try:
+        out = ops.vecadd(torch.ones(4), torch.ones(4), policy="tuned")
+    finally:
+        set_default_cache(None)
+    assert out.tolist() == [2.0] * 4 and cache.stats.misses == 1
     with pytest.raises(ValueError):
         MappingPolicy("fastest")
-    assert [p.value for p in MappingPolicy] == POLICIES
+    assert [p.value for p in MappingPolicy] == POLICIES + ["tuned"]
 
 
 SIZES = [1, 255, 1000, 16384, 70000, 270336, 1 << 20, (1 << 26) + 3]
@@ -326,14 +335,16 @@ def test_auto_takes_one_round_at_or_above_hp(hw):
 
 
 def test_default_policy_is_auto_and_scoped(monkeypatch):
+    from repro_torch.tuner import dispatch
+
     seen = []
-    real = ops.plan_vector_blocks
+    real = dispatch.resolve_plan
 
-    def spy(w, hw, policy):
+    def spy(kernel, hw, policy, *a, **kw):
         seen.append(policy)
-        return real(w, hw, policy)
+        return real(kernel, hw, policy, *a, **kw)
 
-    monkeypatch.setattr(ops, "plan_vector_blocks", spy)
+    monkeypatch.setattr(dispatch, "resolve_plan", spy)
     x = torch.ones(100)
     ops.vecadd(x, x)
     with ops.policy("naive"):

@@ -39,6 +39,7 @@ from repro_torch.core.mapper import (MM_TC_BK, matmul_tc_smem_bytes,
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.tuner.dispatch import plan_for
 
 TPU = TPU_REGISTRY["cpu_sim"]
 H100 = GPU_REGISTRY["h100_sxm"]
@@ -156,7 +157,7 @@ def test_bf16_odd_shapes_match_pallas_at_the_tc_plan(case, policy):
     got = ops.matmul(a, b, policy=policy)
     assert got.dtype == BF16 and got.shape == (m, n)
     plan = plan_matmul_blocks(m, n, k, CPU, policy, kernel=TC)
-    assert mm.plan_for(a, b, CPU, policy) == plan
+    assert plan_for("matmul", a, b, hw=CPU, policy=policy)[0] == plan
     jplan = jax_matmul_plan(m, n, k, TPU, plan.bm, plan.bn, plan.bk,
                             JaxPolicy(policy))
     assert jplan.bk == plan.bk == 64
@@ -205,7 +206,8 @@ def test_route_rule(case, monkeypatch):
     assert mm.route(a, b) == want
     if case == "strided":
         with pytest.raises(ValueError, match="contiguous"):
-            mm._check(a, b, mm.plan_for(a, b, H100, "auto"), BF16)
+            plan = plan_for("matmul", a, b, hw=H100, policy="auto")[0]
+            mm._check(a, b, plan, BF16)
         return
     seen = []
     monkeypatch.setattr(mm, "matmul",
@@ -234,7 +236,7 @@ def test_wrapper_refuses_a_plan_of_the_other_route(monkeypatch):
 @pytest.mark.parametrize("policy", POLICIES)
 def test_plan_for_plans_the_routes_kernel(case, policy):
     a, b, want = _route_case(case)
-    p = mm.plan_for(a, b, H100, policy)
+    p = plan_for("matmul", a, b, hw=H100, policy=policy)[0]
     assert p == plan_matmul_blocks(a.shape[0], b.shape[1], a.shape[1], H100,
                                    policy, kernel=want)
     assert p.kernel == want

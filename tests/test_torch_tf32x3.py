@@ -34,6 +34,7 @@ from repro_torch.core.mapper import (MM_TF32_BK, matmul_plan_for_blocks,
                                      plan_matmul_blocks)
 from repro_torch.kernels import ops
 from repro_torch.kernels import matmul as mm
+from repro_torch.tuner.dispatch import plan_for
 
 TPU = TPU_REGISTRY["cpu_sim"]
 H100 = GPU_REGISTRY["h100_sxm"]
@@ -159,7 +160,7 @@ def test_cpu_tensors_launch_neither_part(policy):
     rng = np.random.default_rng(7)
     a, b = _f32(rng, (24, 40)), _f32(rng, (40, 18))
     got = ops.matmul(a, b, policy=policy)
-    plan = mm.plan_for(a, b, CPU, policy)
+    plan = plan_for("matmul", a, b, hw=CPU, policy=policy)[0]
     torch.testing.assert_close(got, mm.matmul_plain(a, b, plan=plan),
                                rtol=0, atol=0)
     mm.tf32_product(*mm.tf32_split(a, b, plan), 18, plan)
@@ -179,7 +180,7 @@ def test_kernel_path_checks_raise_before_a_build(case, monkeypatch):
     monkeypatch.setattr(mm.kernels, "use_plain", lambda t: False)
     monkeypatch.setattr(mm._build, "load", _no_build)
     a, b = torch.zeros(16, 32), torch.zeros(32, 24)
-    plan = mm.plan_for(a, b, H100, "auto")
+    plan = plan_for("matmul", a, b, hw=H100, policy="auto")[0]
     a_ws, b_ws = torch.zeros(2, 16, 32), torch.zeros(2, 24, 32)
     with pytest.raises(ValueError):
         if case == "a_strided":
@@ -281,7 +282,7 @@ def test_largest_floats_give_finite_products():
     a = torch.full((4, 8), NEAR_MAX)
     a[1::2] *= -1
     b = _f32(rng, (8, 5), 1e-3)
-    plan = mm.plan_for(a, b, H100, "auto")
+    plan = plan_for("matmul", a, b, hw=H100, policy="auto")[0]
     got = mm.tf32_product(*mm.tf32_split(a, b, plan), 5, plan)
     want = a.double() @ b.double()
     assert torch.isfinite(got).all()
@@ -294,7 +295,7 @@ def test_workspaces_are_padded_k_major_halves(mnk):
     m, n, k = mnk
     rng = np.random.default_rng(m + n)
     a, b = _f32(rng, (m, k)), _f32(rng, (k, n))
-    plan = mm.plan_for(a, b, H100, "auto")
+    plan = plan_for("matmul", a, b, hw=H100, policy="auto")[0]
     a_ws, b_ws = mm.tf32_split(a, b, plan)
     kp, np_ = -(-k // 32) * 32, -(-n // plan.bn) * plan.bn
     assert a_ws.shape == (2, m, kp) and b_ws.shape == (2, np_, kp)
@@ -323,7 +324,7 @@ def test_three_tf32_products_meet_the_f32_tolerance_and_one_does_not():
     want = np.asarray(matmul_pallas(jnp.asarray(a.numpy()),
                                     jnp.asarray(b.numpy()), hw=TPU,
                                     policy=JaxPolicy.AUTO, interpret=True))
-    plan = mm.plan_for(a, b, H100, "auto")
+    plan = plan_for("matmul", a, b, hw=H100, policy="auto")[0]
     a_ws, b_ws = mm.tf32_split(a, b, plan)
     three = mm.tf32_product(a_ws, b_ws, n, plan).numpy()
     one = (a_ws[0] @ b_ws[0, :n].T).numpy()

@@ -53,6 +53,20 @@ def image(shape, dtype, off, gen, device):
     return x.to(dt)[off // es:].view(h, w)
 
 
+def blur_plan(st, img, k, hw, policy):
+    """The plan ``ops.gaussian_blur`` takes for ``img`` in the tree
+    loaded: the tuner's ``plan_for`` where the tree has a tuner, else the
+    wrapper's ``plan_for``, else ``plan_stencil`` of the shape."""
+    try:
+        from repro_torch.tuner.dispatch import plan_for
+    except ImportError:
+        if hasattr(st, "plan_for"):
+            return st.plan_for(img, k, hw, policy)
+        from repro_torch.core.mapper import plan_stencil
+        return plan_stencil(img.shape[0], img.shape[1], k, hw, policy)
+    return plan_for("gaussian_blur", img, ksize=k, hw=hw, policy=policy)[0]
+
+
 def run_tree(tree: pathlib.Path) -> dict:
     """One tree's checks and times (run in a process of its own)."""
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
@@ -60,7 +74,6 @@ def run_tree(tree: pathlib.Path) -> dict:
 
     import chip_smoke as cs
     from repro_torch.core.hw import detect
-    from repro_torch.core.mapper import plan_stencil
     from repro_torch.kernels import _build
     from repro_torch.kernels import stencil as st
 
@@ -82,8 +95,7 @@ def run_tree(tree: pathlib.Path) -> dict:
         want_mid = st.stencil_rows_plain(img, taps)
         want_out = st.stencil_cols_plain(want_mid, taps)
         for policy in POLICIES:
-            plan = (st.plan_for(img, k, hw, policy) if hasattr(st, "plan_for")
-                    else plan_stencil(*shape, hw, policy))
+            plan = blur_plan(st, img, k, hw, policy)
             mid = st.stencil_rows(img, taps, plan=plan)
             out = st.stencil_cols(want_mid, taps, plan=plan)
             torch.cuda.synchronize()
