@@ -133,6 +133,20 @@ Phases, each printing one JSON line:
            must be above 0, every other kernel 0 (the ssm path runs none:
            its prefill is the plain ``ssd_chunked``, as the reference's
            is jnp);
+  retune   smollm-135m at full width, default chunked path, TUNED, the
+           engine phase's params, the mix's first ``RETUNE_REQUESTS``
+           requests, each run in a private tuning cache: untraced, traced
+           (``obs.Tracer``: the same launches, plans and streams, a
+           gate), and traced with the retune controller inline
+           (``RETUNE_CONFIG``), handed ``gated_candidate`` of the bucket's
+           pair after decode tick ``RETUNE_PROPOSE_AT``: one trial must
+           conclude, a ``decode_tick`` span and row 1's launches (one a
+           layer) must run the candidate, the streams must equal the
+           untraced run's, an adoption must read back through a fresh
+           router, and the trace must survive ``write_trace`` /
+           ``load_trace`` (gates); then W 64 (``w64_candidate``),
+           reported only; prints the decisions, the drift rows and each
+           run's wall time a tick;
   profile  smollm's chunked path, fp and int8 pools, on the mix's first 4
            requests, and mamba2's chunked path on its first request
            (``PROFILE_RUNS``), unprofiled (wall time) and under
@@ -2266,6 +2280,209 @@ def engine_phase(device):
     return runs, params, reqs
 
 
+# --------------------------------------------------------------------------- #
+# retune
+# --------------------------------------------------------------------------- #
+
+#: the retune phase's controller: the incumbent's median from 2 ticks, a
+#: trial of 2 measured ticks after 1 warm-up tick (the candidate's first
+#: launch), 4 ticks of cooldown after the verdict; no drift scan
+#: (``propose`` drives the trial, as tests/test_retune.py does)
+RETUNE_CONFIG = dict(mode="inline", min_samples=2, trial_ticks=2,
+                     warmup_ticks=1, cooldown_ticks=4, interval_ticks=10_000)
+#: the mix's requests the phase serves, and the decode tick after which
+#: the candidate is proposed
+RETUNE_REQUESTS = 4
+RETUNE_PROPOSE_AT = 4
+
+
+def gated_candidate(bs, w):
+    """The trial's candidate beside the incumbent (block_s, W): (W, W)
+    keeps the split, and on the card the sweep's arithmetic depends on W
+    alone (``block_s`` is checked, not used: csrc/decode_sweep.cuh), so
+    the retuned run's bf16 streams must equal the untraced run's bit for
+    bit; (block_s, 2 block_s) where the split is one block already."""
+    return (w, w) if w != bs else (bs, 2 * bs)
+
+
+def w64_candidate(bs, w):
+    """W 64, the split ``measure="live"`` picks at the 1024 bucket on the
+    H100 (PERF.md §6): it reorders the sweep's f32 sums, so its streams
+    are reported, not gated."""
+    return (bs, 64) if w != 64 else (bs, 128)
+
+
+def retune_run(label, eng, reqs, candidate=None):
+    """Serve ``reqs`` with the launch counts reset just before and read
+    just after, each decode step's plan and row 1's launches recorded;
+    with ``candidate`` (a function of the incumbent pair) the retune
+    controller is handed it after decode tick ``RETUNE_PROPOSE_AT``."""
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    counters = launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    steps, proposed = [], {}
+    step = eng.model.decode_step
+
+    def spy(*a, **kw):
+        n0 = pda.paged_decode_attention.launches
+        out = step(*a, **kw)
+        steps.append(((kw.get("paged_decode_block"),
+                       kw.get("paged_decode_split")),
+                      pda.paged_decode_attention.launches - n0))
+        return out
+
+    eng.model.decode_step = spy
+    if candidate is not None:
+        tick = eng._decode_tick
+
+        def hooked():
+            tick()
+            if len(steps) == RETUNE_PROPOSE_AT:
+                kv = eng.pool.kv_len
+                plan = eng.router.resolve(eng.router.bucket(kv))
+                inc = (plan.paged_decode_block, plan.paged_decode_split)
+                proposed.update(kv=kv, incumbent=inc, value=candidate(*inc))
+                eng.retune.propose(kv, "paged_decode", proposed["value"])
+
+        eng._decode_tick = hooked
+    t0 = time.perf_counter()
+    report, streams = serve(eng, reqs)
+    wall = time.perf_counter() - t0
+    s = report.summary
+    return dict(
+        label=label, wall_s=wall, decode_ticks=s.decode_steps,
+        decode_tick_p50_ms=s.decode_tick_p50_s * 1e3,
+        decode_tick_mean_ms=s.decode_s / max(1, s.decode_steps) * 1e3,
+        tokens_per_s=s.tokens_per_s,
+        launches={k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
+        paged_decode_block=report.paged_decode_blocks,
+        paged_decode_split=report.paged_decode_splits,
+        prefill_tiles={k: list(v) for k, v in report.prefill_tiles.items()},
+        router_stats=report.router_stats, retune=report.retune,
+        proposed=proposed), streams, steps
+
+
+def trace_round_trip(tracer, tmp):
+    """The trace through ``write_trace``/``load_trace`` in both forms:
+    the JSONL log gives back every span, counter, gauge and the meta;
+    Perfetto's form every span name (counters come back as samples)."""
+    from repro_torch.obs import load_trace, write_trace
+
+    def spans(tr):
+        return [(r.name, r.sid, r.parent, r.t0, r.dur) for r in tr.spans()]
+
+    out = {}
+    for suffix in (".jsonl", ".json"):
+        back = load_trace(write_trace(tracer, f"{tmp}/retune{suffix}"))
+        if suffix == ".jsonl":
+            ok = (spans(back) == spans(tracer)
+                  and back.counters() == tracer.counters()
+                  and back.gauges() == tracer.gauges()
+                  and back.meta == tracer.meta)
+        else:
+            ok = (sorted(r.name for r in back.spans())
+                  == sorted(r.name for r in tracer.spans())
+                  and back.meta == tracer.meta)
+        if not ok:
+            raise AssertionError(f"retune: the trace did not survive "
+                                 f"write_trace/load_trace as {suffix}")
+        out[suffix] = len(back.spans())
+    return out
+
+
+def retune_phase(device, params, reqs, tmp):
+    """smollm-135m at full width on the default chunked path under TUNED,
+    the engine phase's params, the mix's first ``RETUNE_REQUESTS``
+    requests: untraced, traced, and traced with the retune controller
+    (``RETUNE_CONFIG``) handed ``gated_candidate`` after tick
+    ``RETUNE_PROPOSE_AT``; then with ``w64_candidate``, reported only.
+    The first three engines share a private tuning cache, the last has
+    one of its own, so an adoption reaches no other run or phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs import Tracer, drift_report
+    from repro_torch.serve import BucketRouter, ServeEngine
+    from repro_torch.serve.retune import RetuneConfig
+    from repro_torch.tuner import TuningCache
+
+    reqs = reqs[:RETUNE_REQUESTS]
+    cache = TuningCache(path=None)
+    layers = get_config("smollm-135m").num_layers
+
+    def engine(tuning_cache=cache, **kw):
+        return ServeEngine("smollm-135m", reduced=False, slots=8,
+                           max_len=1024, prefill_chunk="auto",
+                           params=params["smollm-135m"], seed=SEED,
+                           device=device, tuning_cache=tuning_cache, **kw)
+
+    plain, want, _ = retune_run("untraced", engine(), reqs)
+    traced_eng = engine(tracer=Tracer())
+    traced, got, _ = retune_run("traced", traced_eng, reqs)
+    same_plans = all(traced[k] == plain[k] for k in (
+        "launches", "paged_decode_block", "paged_decode_split",
+        "prefill_tiles"))
+    traced["streams_equal_untraced"] = got == want
+    eng = engine(tracer=Tracer(), retune=RetuneConfig(**RETUNE_CONFIG))
+    run, got, steps = retune_run("retune", eng, reqs, gated_candidate)
+    run["streams_equal_untraced"] = got == want
+    cand = run["proposed"]["value"]
+    decisions = eng.retune.decisions
+    spans = eng.obs.spans()
+    ran = sorted({(s.attrs["paged_decode_block"],
+                   s.attrs["paged_decode_split"])
+                  for s in spans if s.name == "decode_tick"})
+    cand_launches = [n for plan, n in steps if plan == cand]
+    drift = drift_report(spans, eng.obs.meta, eng.router.hw)
+    read_back = None
+    if decisions and decisions[0].adopted:
+        # the adoption is in the private cache: a fresh router reads it
+        fresh = BucketRouter(eng.cfg, eng.spec, slots=8, hw=eng.hw,
+                             cache=cache, device=device)
+        p = fresh.resolve(fresh.bucket(run["proposed"]["kv"]))
+        read_back = [p.paged_decode_block, p.paged_decode_split]
+    w64_eng = engine(TuningCache(path=None), tracer=Tracer(),
+                     retune=RetuneConfig(**RETUNE_CONFIG))
+    w64, w64_streams, _ = retune_run("retune_w64", w64_eng, reqs,
+                                     w64_candidate)
+    w64["streams_equal_untraced"] = w64_streams == want
+    emit("retune", runs=[plain, traced, run, w64], candidate=list(cand),
+         incumbent=list(run["proposed"]["incumbent"]),
+         bucket=run["proposed"]["kv"],
+         decisions=[dataclasses.asdict(d) for d in decisions],
+         w64_decisions=[dataclasses.asdict(d)
+                        for d in w64_eng.retune.decisions],
+         decode_tick_pairs=[list(p) for p in ran],
+         candidate_ticks=len(cand_launches),
+         candidate_launches_per_tick=sorted(set(cand_launches)),
+         adopted_read_back=read_back,
+         traced_launches_as_untraced=same_plans,
+         trace_round_trip=trace_round_trip(eng.obs, tmp),
+         counters=eng.obs.counters(),
+         drift_median_ratio=drift.median_ratio,
+         drift=[dataclasses.asdict(r) for r in drift.rows],
+         drift_candidates=len(drift.candidates(
+             RetuneConfig().drift_threshold)))
+    if len(decisions) != 1 or eng.retune.stats.trials != 1:
+        raise AssertionError(f"retune: {eng.retune.stats.trials} trials and "
+                             f"{len(decisions)} decisions, not one")
+    if tuple(cand) not in ran:
+        raise AssertionError(f"retune: no decode_tick span ran {cand}")
+    if not cand_launches or min(cand_launches) != layers:
+        raise AssertionError(f"retune: row 1 launched {cand_launches} times "
+                             f"a tick at {cand}, not {layers}")
+    if not run["streams_equal_untraced"]:
+        raise AssertionError("retune: the retuned streams differ from the "
+                             "untraced run's")
+    if not (same_plans and traced["streams_equal_untraced"]):
+        raise AssertionError("retune: the traced run launched other kernels "
+                             "or plans, or served other streams, than the "
+                             "untraced run")
+    if read_back is not None and read_back != list(cand):
+        raise AssertionError(f"retune: a fresh router read {read_back}, not "
+                             f"the adopted {cand}")
+
+
 #: profiled runs: label -> (arch, engine options, requests of the mix).
 #: mamba2 is cut to the mix's first request: on its 4 (1,389 prompt
 #: tokens, ~4.1M device kernels, each prompt token a 48-layer decode
@@ -2464,6 +2681,7 @@ def main() -> int:
             "suite", suite_phase, hw, timer, device)
         serving, _, _ = timed("tuner", tuner_phase, hw, timer, device)
         runs, params, reqs = timed("engine", engine_phase, device)
+        timed("retune", retune_phase, device, params, reqs, tmp)
         timed("profile", profile_phase, device, params, reqs)
         timed("parity", parity_phase, device)
     finally:

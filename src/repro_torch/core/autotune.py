@@ -6,8 +6,8 @@ small benefits").
 a cost callable, the seed first, and keeps the cheapest.  The tuner
 (``repro_torch.tuner.dispatch``) runs it on a TUNED cache miss with the
 kernel's roofline cost over ``GpuParams``; ``profiler.cost`` runs it a
-second time over measured seconds.  The JAX package's ``refine_lws``,
-which climbs its trace simulator, waits for the simulator's port.
+second time over measured seconds.  ``refine_lws`` runs it on the Vortex
+trace model (``core.tracesim``), the TUNED policy of ``simulate_policy``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Sequence
 
-__all__ = ["RefineResult", "refine_discrete"]
+__all__ = ["RefineResult", "refine_discrete", "refine_lws"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,3 +77,17 @@ def refine_discrete(
     return RefineResult(seed=seed, best=best, seed_cost=seed_cost,
                         best_cost=best_cost, probes=probes,
                         evaluations=tuple(evals))
+
+
+def refine_lws(w, cfg, max_probes: int = 16) -> RefineResult:
+    """Refine Eq. 1's ``lws`` on the trace model (the "small benefits" of
+    the paper's §3): ``w`` a ``core.workload.Workload``, ``cfg`` a
+    ``core.hw.VortexParams``."""
+    from repro_torch.core.mapper import resolve_lws
+    from repro_torch.core.tracesim import simulate  # lazy: no cycle
+
+    seed = resolve_lws(w.gws, cfg.hp)
+    return refine_discrete(
+        seed, lambda lws: float(simulate(w, cfg, lws).cycles),
+        max_probes=max_probes,
+    )

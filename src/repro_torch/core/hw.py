@@ -8,6 +8,9 @@ resident warps per SM x 32 lanes.  ``detect(device)`` reads them from
 H100 SXM figures (the rates used for roofline bounds and the launch
 terms of the tuner's roofline, which the device properties do not
 carry) and a small ``"cpu"`` stand-in under which the CPU tests plan.
+``VortexParams`` is the paper's own hardware model (``<c>c<w>w<t>t``
+Vortex configurations), on which the trace model ``core.tracesim``
+runs.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["GpuParams", "GPU_REGISTRY", "detect", "resolve_device",
-           "ceil_div", "round_up"]
+__all__ = ["GpuParams", "GPU_REGISTRY", "VortexParams", "detect",
+           "resolve_device", "ceil_div", "round_up"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +60,41 @@ class GpuParams:
         """Peak rate for arithmetic on inputs of ``dtype``."""
         return self.peak_flops_fp32 if dtype == torch.float32 \
             else self.peak_flops_bf16
+
+
+@dataclasses.dataclass(frozen=True)
+class VortexParams:
+    """The paper's native hardware model: ``<c>c<w>w<t>t`` configurations
+    (a copy of the JAX package's).
+
+    Used by ``core.tracesim`` to reproduce the 450-configuration
+    validation.  Bandwidth and overhead defaults are calibrated to
+    reproduce the three execution regimes of the paper's Fig. 1.
+    """
+
+    cores: int
+    warps: int
+    threads: int
+    # one instruction issued per core per cycle (in-order scalar issue)
+    issue_width: int = 1
+    # global memory bytes per cycle for the whole device
+    mem_bw_bytes_per_cycle: float = 16.0
+    # round-trip memory latency in cycles; hidden only by warp interleaving
+    mem_latency: int = 200
+    # cycles to set up and tear down one kernel call (runtime dispatch,
+    # Fig. 1's "init"/"ret" sections between wavefronts), calibrated with
+    # mem_latency so the 450-configuration sweep reproduces the paper's
+    # aggregate claims (naive 1.3x, fixed 3.7x, ~20x tails)
+    call_overhead_cycles: int = 192
+
+    @property
+    def hp(self) -> int:
+        """Eq. 1: hardware parallelism."""
+        return self.cores * self.warps * self.threads
+
+    @property
+    def tag(self) -> str:
+        return f"{self.cores}c{self.warps}w{self.threads}t"
 
 
 GPU_REGISTRY: dict[str, GpuParams] = {

@@ -3,8 +3,10 @@
 A kernel is characterised by its global work size ``gws`` (total
 iterations) and its per-iteration arithmetic and memory traffic.  The
 mapper reads ``gws``; ``chip_smoke.py`` reads the FLOPs for its roofline
-bounds.  A copy of the paper-suite part of the JAX package's
-``core/workload.py`` (the port imports nothing of it).
+bounds; the Vortex trace model (``core.tracesim``) reads the
+per-iteration instructions and bytes.  A copy of the paper-suite part of
+the JAX package's ``core/workload.py``, with its validation suite
+``PAPER_KERNELS`` (the port imports nothing of it).
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["Workload", "vecadd", "saxpy", "sgemm", "gaussian_blur",
-           "nearest_neighbor", "gcn_aggregate"]
+__all__ = ["Workload", "vecadd", "saxpy", "relu", "sgemm", "conv_layer",
+           "gaussian_blur", "nearest_neighbor", "gcn_aggregate",
+           "dnn_fc_layer", "gcn_layer", "PAPER_KERNELS", "MATH_KERNELS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +72,15 @@ def saxpy(n: int, dtype_bytes: int = 4) -> Workload:
     )
 
 
+def relu(n: int, dtype_bytes: int = 4) -> Workload:
+    """DNN activation layer."""
+    return Workload(
+        name="relu", gws=n, flops_per_iter=1,
+        bytes_per_iter=2 * dtype_bytes, instrs_per_iter=6,
+        dtype_bytes=dtype_bytes, dims=(n,),
+    )
+
+
 #: operand reuse factor through the per-core data cache for gemm-like
 #: kernels (a 16-wide cache block is reused across neighbouring outputs).
 _CACHE_REUSE = 16.0
@@ -86,6 +98,18 @@ def sgemm(m: int, n: int, k: int, dtype_bytes: int = 4) -> Workload:
         bytes_per_iter=(2.0 * k / _CACHE_REUSE + 1) * dtype_bytes,
         instrs_per_iter=4.0 * k + 10,
         dtype_bytes=dtype_bytes, dims=(m, n), reduce_dim=k,
+    )
+
+
+def conv_layer(hw_out: int, c_in: int, c_out: int, ksize: int = 3,
+               dtype_bytes: int = 4) -> Workload:
+    """Direct conv as a DNN layer: one iteration = one output pixel."""
+    macs = ksize * ksize * c_in
+    return Workload(
+        name="conv", gws=hw_out * c_out, flops_per_iter=2.0 * macs,
+        bytes_per_iter=(macs / _CACHE_REUSE + 1.0) * dtype_bytes,
+        instrs_per_iter=4.0 * macs + 12,
+        dtype_bytes=dtype_bytes, dims=(hw_out, c_out), reduce_dim=macs,
     )
 
 
@@ -123,3 +147,47 @@ def gcn_aggregate(n_nodes: int, avg_degree: int, feat: int,
         instrs_per_iter=5.0 * work + 20,
         dtype_bytes=dtype_bytes, dims=(n_nodes,), reduce_dim=avg_degree,
     )
+
+
+def dnn_fc_layer(batch: int, d_in: int, d_out: int,
+                 dtype_bytes: int = 4) -> Workload:
+    """Fully connected DNN layer (an sgemm)."""
+    w = sgemm(batch, d_out, d_in, dtype_bytes)
+    return dataclasses.replace(w, name="fc_layer")
+
+
+def gcn_layer(n_nodes: int, avg_degree: int, f_in: int, f_out: int,
+              dtype_bytes: int = 4) -> Workload:
+    """Combined GCN layer: aggregate + transform (the paper's combined
+    kernels)."""
+    agg = gcn_aggregate(n_nodes, avg_degree, f_in, dtype_bytes)
+    xform = sgemm(n_nodes, f_out, f_in, dtype_bytes)
+    return Workload(
+        name="gcn_layer", gws=n_nodes,
+        flops_per_iter=(agg.flops_per_iter
+                        + xform.flops_per_iter * f_out / max(f_out, 1)),
+        bytes_per_iter=agg.bytes_per_iter + xform.bytes_per_iter,
+        instrs_per_iter=agg.instrs_per_iter + xform.instrs_per_iter,
+        dtype_bytes=dtype_bytes, dims=(n_nodes,), reduce_dim=avg_degree,
+    )
+
+
+#: the validation suite of the paper's Fig. 2 kernel list: the first six
+#: are the "math kernels" of its headline claim, the last four the
+#: DNN/GCN layers (the paper flags gaussian_blur, nn_search and gcn_agg as
+#: atypical)
+PAPER_KERNELS: dict[str, Workload] = {
+    "vecadd": vecadd(4096),
+    "saxpy": saxpy(4096),
+    "relu": relu(8192),
+    "sgemm": sgemm(64, 64, 64),
+    "conv_layer": conv_layer(28 * 28, 32, 64),
+    "fc_layer": dnn_fc_layer(64, 256, 256),
+    "gaussian_blur": gaussian_blur(128, 128),
+    "nn_search": nearest_neighbor(1024, 256),
+    "gcn_agg": gcn_aggregate(2048, 8, 64),
+    "gcn_layer": gcn_layer(1024, 8, 64, 64),
+}
+
+#: the subset behind the paper's "1.3x / 3.7x" headline numbers
+MATH_KERNELS = ("vecadd", "saxpy", "relu", "sgemm", "conv_layer", "fc_layer")

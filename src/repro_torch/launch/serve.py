@@ -9,7 +9,10 @@ default; ``--full`` serves the published width).  ``--policy`` (default
 tuned) plans the buckets' kernels; ``--measure`` (default cached) says
 how a TUNED cache miss is judged: "cached" by times recorded in the
 profiler's store (none yet: the roofline's pick), "live" by CUDA-event
-times taken now and recorded, "off" by the roofline alone.  Prints the
+times taken now and recorded, "off" by the roofline alone.
+``--trace PATH`` writes the run's trace (``.json``: Perfetto's form, else
+the JSONL log; ``tools/trace_view_torch.py`` reads either) and
+``--retune inline|background`` runs the live retune loop.  Prints the
 run's summary and, as its last line, the summary as JSON.
 """
 
@@ -22,7 +25,9 @@ import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.core.mapper import MappingPolicy
+from repro_torch.obs import Tracer, write_trace
 from repro_torch.serve import ServeEngine, TrafficConfig, drive
+from repro_torch.serve.retune import RETUNE_MODES
 from repro_torch.tuner import MEASURE_MODES
 
 
@@ -62,6 +67,15 @@ def main(argv=None) -> dict:
                     help="a TUNED cache miss: cached replays recorded "
                          "times, live times the candidates on the device, "
                          "off is the roofline alone")
+    ap.add_argument("--retune", choices=RETUNE_MODES, default="off",
+                    help="live retuning: drift-flagged buckets are "
+                         "re-resolved over the serving-fed trace store and "
+                         "trialled on real decode ticks, a slower "
+                         "candidate never adopted; 'inline' re-resolves "
+                         "between ticks, 'background' on a worker thread")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="write the run's trace here (.json: Perfetto's "
+                         "form, else versioned JSONL)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the traffic and the random weights")
     ap.add_argument("--full", action="store_true",
@@ -87,6 +101,7 @@ def main(argv=None) -> dict:
         kv_dtype=args.kv_dtype,
         prefill_chunk=parse_chunk(args.prefill_chunk), seed=args.seed,
         policy=args.policy, measure=args.measure, device=args.device,
+        tracer=Tracer() if args.trace else None, retune=args.retune,
         verbose=True)
     report = drive(engine, traffic)
     s = report.summary
@@ -94,9 +109,16 @@ def main(argv=None) -> dict:
           f"{s.ttft_p95_s * 1e3:.1f} ms, tpot p50 {s.tpot_p50_s * 1e3:.2f} ms, "
           f"{s.tokens_per_s:.1f} tok/s, util {s.utilization:.2f}, "
           f"pool growths {report.pool_growths}, router {report.router_stats}")
+    if report.retune is not None:
+        st = report.retune["stats"]
+        print(f"[serve] retune: scans={st['scans']} trials={st['trials']} "
+              f"adopted={st['adopted']} rejected={st['rejected']}")
+    if args.trace:
+        path = write_trace(engine.obs, args.trace)
+        print(f"[serve] trace ({len(engine.obs.spans())} spans) -> {path}")
     payload = {"summary": s.as_dict(), "router_stats": report.router_stats,
                "pool_growths": report.pool_growths,
-               "n_rejected": len(report.rejected)}
+               "n_rejected": len(report.rejected), "retune": report.retune}
     print(json.dumps(payload, sort_keys=True))
     return payload
 

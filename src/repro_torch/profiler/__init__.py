@@ -6,14 +6,18 @@
   ``store``    a versioned, hardware-keyed JSONL store of measurements
                (append, dedupe, atomic merge), per checkout by default,
   ``cost``     ``MeasuredCost`` and ``hybrid_refine``: the roofline
-               prunes the candidates, measurement picks the winner.
+               prunes the candidates, measurement picks the winner,
+  ``calibrate`` the roofline's rates and launch time, and the Vortex
+               trace model's constants, fitted to measured records.
 
 Reached through dispatch as ``tuned_call(..., measure="cached"|"live")``
 or ``ServeEngine(measure=...)``; a warm cache hit never measures.  The
-JAX package's ``calibrate`` fits its trace simulator too and waits for
-the simulator's port.
+serving engine feeds the store too (``obs.feedback``).
 """
 
+from repro_torch.profiler.calibrate import (RooflineFit, TracesimFit,
+                                            fit_roofline, fit_tracesim,
+                                            mean_abs_log_error)
 from repro_torch.profiler.cost import HybridResult, MeasuredCost, \
     hybrid_refine
 from repro_torch.profiler.measure import (Measurement, TimingStats,
@@ -41,4 +45,9 @@ __all__ = [
     "MeasuredCost",
     "HybridResult",
     "hybrid_refine",
+    "RooflineFit",
+    "TracesimFit",
+    "fit_roofline",
+    "fit_tracesim",
+    "mean_abs_log_error",
 ]

@@ -10,7 +10,11 @@ them per bucket signature: under the default TUNED a cold bucket is a
 cache lookup or a refinement, a warm one a dict hit with no probe.  An
 attention-free config (ssm) plans none of them: its plans are ``None``
 (mamba2's ``head_dim`` would be ``d_model`` = 2048, which no attention
-kernel takes).
+kernel takes).  Every resolution reports to the router's tracer
+(``obs.trace``): a warm one as a ``bucket_resolve`` (or
+``prefill_resolve``) instant, a cold one as a span under which the
+tuner's ``resolve_plan`` spans nest; ``swap_plan`` (the retune
+controller's actuator) as a ``plan_swap`` instant.
 """
 
 from __future__ import annotations
@@ -22,12 +26,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dtypes import kv_dtype_spec
 from repro_torch.core.hw import GpuParams, detect
 from repro_torch.core.mapper import MappingPolicy
+from repro_torch.obs.trace import get_tracer, using_tracer
 from repro_torch.tuner import (KERNEL_REGISTRY, ResolveInfo, TuningCache,
                                WorkloadSignature, resolve_plan,
                                workload_signature)
 
 __all__ = ["BucketSpec", "Bucket", "BucketPlan", "RouterStats",
-           "BucketRouter", "KernelRow", "KERNEL_TABLE"]
+           "BucketRouter", "KernelRow", "KERNEL_TABLE", "kernel_desc"]
 
 BUCKET_MODES = ("pow2", "linear", "exact", "fixed")
 
@@ -222,6 +227,23 @@ KERNEL_TABLE: tuple[KernelRow, ...] = (
 )
 
 
+def kernel_desc(row: KernelRow, cfg, bucket: Bucket, dtype_bytes: int,
+                geo: Optional[dict], kv_spec) -> dict:
+    """The workload description ``row`` resolves at ``bucket``: the
+    router's (``BucketRouter.row_desc``) and, from a trace's meta, the
+    serving feedback's (``obs.feedback``), so both build one signature.
+    ``cfg`` needs the model's ``head_dim``, ``num_heads``,
+    ``num_kv_heads``, ``heads_per_group`` and ``dtype``."""
+    desc = row.desc(cfg, bucket, dtype_bytes, geo)
+    if row.cache_kernel and kv_spec.quantized:
+        # the sweep reads int8 codes: the tuner sees their byte width
+        # (and a signature of its own), so the quantised pool may
+        # resolve another plan than the fp32 pool on one bucket
+        desc["dtype"] = kv_spec.dtype
+        desc["dtype_bytes"] = kv_spec.bytes
+    return desc
+
+
 @dataclasses.dataclass
 class RouterStats:
     """Per-router resolution accounting.
@@ -251,6 +273,8 @@ class BucketRouter:
     tuner, a live measurement timed on ``device``.  ``page_block=None``
     is an unpaged engine (no paged plan); ``kv_dtype`` is the pool's
     storage ("fp32" or "int8"), on which the cache kernels resolve.
+    ``tracer`` (default: the ambient tracer at construction, the null
+    tracer unless one is installed) receives every resolution.
 
     Example::
 
@@ -266,7 +290,7 @@ class BucketRouter:
                  cache: Optional[TuningCache] = None,
                  measure: str = "off", store: Optional[Any] = None,
                  page_block: Optional[int] = 16, kv_dtype: str = "fp32",
-                 device="cuda"):
+                 device="cuda", tracer: Optional[Any] = None):
         self.cfg = cfg
         self.spec = spec
         self.slots = slots
@@ -278,6 +302,7 @@ class BucketRouter:
         self.measure = measure
         self.store = store
         self.page_block = None if page_block is None else int(page_block)
+        self.obs = tracer if tracer is not None else get_tracer()
         self.stats = RouterStats()
         self._plans: dict[str, BucketPlan] = {}
         self._prefill_tiles: dict[int, tuple[int, int]] = {}
@@ -343,15 +368,8 @@ class BucketRouter:
 
     def row_desc(self, row: KernelRow, bucket: Bucket) -> dict:
         """The workload description ``row`` resolves at ``bucket``."""
-        desc = row.desc(self.cfg, bucket, self._dtype_bytes(),
-                        self._geometry())
-        if row.cache_kernel and self.kv_spec.quantized:
-            # the sweep reads int8 codes: the tuner sees their byte width
-            # (and a signature of its own), so the quantised pool may
-            # resolve another plan than the fp32 pool on one bucket
-            desc["dtype"] = self.kv_spec.dtype
-            desc["dtype_bytes"] = self.kv_spec.bytes
-        return desc
+        return kernel_desc(row, self.cfg, bucket, self._dtype_bytes(),
+                           self._geometry(), self.kv_spec)
 
     def resolve(self, bucket: Bucket) -> BucketPlan:
         """Per-bucket kernel plans, memoised on the bucket signature; each
@@ -360,36 +378,57 @@ class BucketRouter:
         hit = self._plans.get(sig.key)
         if hit is not None:
             self.stats.warm += 1
+            self.obs.instant("bucket_resolve", bucket=bucket.kv_len,
+                             provenance="warm")
             return hit
         self.stats.cold += 1
-        fields: dict[str, Any] = {}
-        for row in KERNEL_TABLE:
-            if not row.applies(self.cfg) or (row.needs_geometry
-                                             and self.page_block is None):
-                continue
-            kplan, info = self._resolve_kernel(row.kernel,
-                                               self.row_desc(row, bucket))
-            fields.update(zip(row.fields, row.extract(kplan)))
-            fields[row.info] = info
-        plan = BucketPlan(bucket=bucket, sig=sig, **fields)
+        # the cold resolution runs under this router's tracer, so the
+        # tuner's resolve_plan spans nest beneath this one
+        with self.obs.span("bucket_resolve", bucket=bucket.kv_len,
+                           provenance="cold") as sp, \
+                using_tracer(self.obs):
+            fields: dict[str, Any] = {}
+            for row in KERNEL_TABLE:
+                if not row.applies(self.cfg) or (row.needs_geometry
+                                                 and self.page_block is None):
+                    continue
+                kplan, info = self._resolve_kernel(row.kernel,
+                                                   self.row_desc(row, bucket))
+                fields.update(zip(row.fields, row.extract(kplan)))
+                fields[row.info] = info
+            plan = BucketPlan(bucket=bucket, sig=sig, **fields)
+            sp.set(decode_block=plan.decode_block,
+                   decode_split=plan.decode_split,
+                   prefill_blocks=plan.prefill_blocks,
+                   paged_decode_block=plan.paged_decode_block,
+                   paged_decode_split=plan.paged_decode_split,
+                   probes=plan.probes)
         self._plans[sig.key] = plan
         return plan
+
+    #: each retunable kernel's ``BucketPlan`` fields, the pair (block_s,
+    #: split W) its value fills (the prefill tiles are resolved per prompt
+    #: bucket and the retune trial measures decode ticks, so only the
+    #: decode kernels swap)
+    SWAP_FIELDS = {r.kernel: r.fields for r in KERNEL_TABLE
+                   if r.kernel != "flash_attention"}
 
     def swap_plan(self, bucket: Bucket, kernel: str, value) -> BucketPlan:
         """Swap one decode kernel's value, a (block_s, split) pair, into a
         bucket's memoised plan, legalised by the kernel's own rule (the
-        actuation path of a retune controller, which is not ported yet).
-        The engine's next ``resolve`` of the bucket returns it warm; other
-        buckets keep theirs.
+        retune controller's actuation path, ``serve.retune``).  The
+        engine's next ``resolve`` of the bucket returns it warm; other
+        buckets keep theirs.  Returns the new plan.
 
         Example::
 
             router.swap_plan(router.bucket(256), "paged_decode", (16, 64))
         """
+        if kernel not in self.SWAP_FIELDS:
+            raise ValueError(f"{kernel!r} does not swap: the prefill tiles "
+                             f"are resolved per prompt bucket; only the "
+                             f"decode plans swap")
         row = next(r for r in KERNEL_TABLE if r.kernel == kernel)
-        if row.kernel == "flash_attention":
-            raise ValueError("the prefill tiles are resolved per prompt "
-                             "bucket; only the decode plans swap")
         plan = self.resolve(bucket)
         kplan = KERNEL_REGISTRY[kernel].plan_from_value(
             self.row_desc(row, bucket), self.hw, value)
@@ -397,6 +436,10 @@ class BucketRouter:
                                                    row.extract(kplan))))
         self._plans[plan.sig.key] = new
         self.stats.swaps += 1
+        self.obs.instant("plan_swap", bucket=bucket.kv_len, kernel=kernel,
+                         field=row.fields[0],
+                         value=tuple(getattr(new, f) for f in row.fields))
+        self.obs.count("plan_swaps")
         return new
 
     def prefill_tiles(self, prompt_bucket: int) -> Optional[tuple[int, int]]:
@@ -411,11 +454,17 @@ class BucketRouter:
         hit = self._prefill_tiles.get(prompt_bucket)
         if hit is not None:
             self.stats.warm += 1
+            self.obs.instant("prefill_resolve", bucket=prompt_bucket,
+                             provenance="warm")
             return hit
         self.stats.cold += 1
-        plan, _ = self._resolve_kernel(
-            row.kernel, self.row_desc(row, Bucket(self.slots,
-                                                  prompt_bucket)))
-        tiles = row.extract(plan)[0]
+        with self.obs.span("prefill_resolve", bucket=prompt_bucket,
+                           provenance="cold") as sp, \
+                using_tracer(self.obs):
+            plan, _ = self._resolve_kernel(
+                row.kernel, self.row_desc(row, Bucket(self.slots,
+                                                      prompt_bucket)))
+            tiles = row.extract(plan)[0]
+            sp.set(tiles=tiles)
         self._prefill_tiles[prompt_bucket] = tiles
         return tiles

@@ -24,6 +24,14 @@ JAX package's ``serve/engine.py`` on PyTorch.
 
 The engine's clock is injectable; when the pool is idle it fast-forwards
 to the next synthetic arrival, so open-loop traffic never sleeps.
+
+``tracer=`` (``obs.Tracer``) records the run: a ``prefill``,
+``prefill_chunk`` or ``decode_tick`` span around each step, closed after
+the device finished it, carrying the plan that executed; the router's
+resolutions; counters and instants (admits, ticks, tokens, pool growth,
+recycled slots).  ``retune=`` adds the live retune loop
+(``serve.retune``): the controller observes each decode tick and may
+swap a bucket's decode plan between ticks under its A/B guard.
 """
 
 from __future__ import annotations
@@ -41,10 +49,12 @@ from repro_torch.core.hw import GpuParams, detect, resolve_device
 from repro_torch.core.mapper import MappingPolicy
 from repro_torch.kernels.paged_gather import flat_position
 from repro_torch.models import build_model
+from repro_torch.obs.trace import Tracer, get_tracer
 from repro_torch.serve.adapters import get_adapter
 from repro_torch.serve.buckets import BucketRouter, BucketSpec
 from repro_torch.serve.kvcache import KVCachePool
 from repro_torch.serve.metrics import ServeMetrics, ServeSummary
+from repro_torch.serve.retune import RetuneConfig, RetuneController
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.tuner import TuningCache
 
@@ -92,6 +102,9 @@ class ServeReport:
     prefill_tiles: dict = dataclasses.field(default_factory=dict)
     paged_decode_splits: dict = dataclasses.field(default_factory=dict)
     decode_splits: dict = dataclasses.field(default_factory=dict)
+    #: the retune controller's stats and concluded decisions (None when
+    #: the engine runs with ``retune="off"``)
+    retune: Optional[dict] = None
 
 
 class ServeEngine:
@@ -115,7 +128,12 @@ class ServeEngine:
     the checkout's ``build/repro_torch/``); ``measure`` ("off", "cached"
     or "live") lets a cache miss be judged by recorded or live CUDA-event
     times from ``store`` (default: the profiler's process-wide store).
-    ``hw`` defaults to ``detect(device)``.
+    ``hw`` defaults to ``detect(device)``.  ``tracer`` (default: the
+    ambient tracer at construction, the null tracer unless one is
+    installed) receives the run's spans, counters and the model's
+    geometry as its ``meta``; ``retune`` ("off", "inline", "background"
+    or a ``RetuneConfig``) runs the live retune loop, with a private
+    tracer when the engine has none (its drift scan reads spans).
 
     Example::
 
@@ -143,6 +161,8 @@ class ServeEngine:
                  tuning_cache: Optional[TuningCache] = None,
                  hw: Optional[GpuParams] = None,
                  device="cuda",
+                 tracer: Optional[Any] = None,
+                 retune: str | RetuneConfig | None = "off",
                  verbose: bool = False):
         self.device = resolve_device(device)
         self.kv_spec = kv_dtype_spec(kv_dtype)
@@ -169,6 +189,13 @@ class ServeEngine:
         self.eos_id = eos_id
         self.verbose = verbose
         self._clock = clock
+        self.obs = tracer if tracer is not None else get_tracer()
+        self._retune_cfg: Optional[RetuneConfig] = None
+        if retune not in (None, "off"):
+            self._retune_cfg = retune if isinstance(retune, RetuneConfig) \
+                else RetuneConfig(mode=retune)
+            if not self.obs.enabled:
+                self.obs = Tracer()
 
         self.model = build_model(cfg, device=self.device)
         self.params = params if params is not None else self.model.init(seed)
@@ -178,12 +205,30 @@ class ServeEngine:
                                    measure=measure, store=store,
                                    page_block=block_size if paged else None,
                                    kv_dtype=self.kv_spec.name,
-                                   device=self.device)
+                                   device=self.device, tracer=self.obs)
+        self.retune: Optional[RetuneController] = None
+        if self._retune_cfg is not None:
+            self.retune = RetuneController(self.router,
+                                           config=self._retune_cfg,
+                                           tracer=self.obs, store=store,
+                                           cache=tuning_cache)
         self.paged = paged
         self.fused_decode = fused_decode
         self._block_size = block_size
         self._chunk_cfg = prefill_chunk
         self._chunked = prefill_chunk is not None
+        if self.obs.enabled:
+            # run-level context the trace's header carries: what
+            # obs.feedback and obs.drift need to rebuild each bucket's
+            # workload description from the trace alone
+            self.obs.meta.update(
+                arch=cfg.name, family=cfg.family, head_dim=cfg.head_dim,
+                heads=cfg.num_heads, kv_heads=max(cfg.num_kv_heads, 1),
+                layers=cfg.num_layers, dtype=cfg.dtype,
+                dtype_bytes=self.router._dtype_bytes(), slots=slots,
+                max_len=self.spec.max_len, hw=self.hw.name, paged=paged,
+                fused_decode=fused_decode, kv_dtype=self.kv_spec.name,
+                **(self.router._geometry() or {}))
         self.reset()
 
     def reset(self) -> None:
@@ -249,6 +294,8 @@ class ServeEngine:
             self._cache = self.adapter.grow(self._cache, new_len)
         self.pool.grow(new_len)
         self.pool_growths += 1
+        self.obs.instant("pool_grow", kv_len=new_len)
+        self.obs.count("pool_growths")
         if self.verbose:
             print(f"[serve] pool -> ({self.slots}, {new_len})")
 
@@ -317,12 +364,15 @@ class ServeEngine:
         toks = np.zeros((1, pb), np.int64)
         toks[0, :plen] = req.prompt
         tiles = self._prefill_tiles(pb)
-        t0 = time.perf_counter()
-        logits, rcache = self.model.prefill(
-            self.params, torch.from_numpy(toks).to(self.device), pb,
-            last_pos=[plen - 1], prefill_tiles=tiles)
-        first = int(logits[0, -1].argmax())          # waits for the device
-        self.metrics.add_prefill_time(time.perf_counter() - t0)
+        with self.obs.span("prefill", rid=req.rid, prompt_len=plen,
+                           bucket=pb, tiles=tiles):
+            t0 = time.perf_counter()
+            logits, rcache = self.model.prefill(
+                self.params, torch.from_numpy(toks).to(self.device), pb,
+                last_pos=[plen - 1], prefill_tiles=tiles)
+            first = int(logits[0, -1].argmax())      # waits for the device
+            self.metrics.add_prefill_time(time.perf_counter() - t0)
+        self.obs.count("admits")
         self._write_row(req, rcache, self.pool.lease(req.rid).blocks)
         req.generated.append(first)
         self._tokens[req.slot, 0] = first
@@ -367,6 +417,7 @@ class ServeEngine:
         self._chunk_tasks.append(task)
         self._prefilling[req.rid] = task
         self.metrics.on_admit(req.rid, now)
+        self.obs.count("admits")
 
     def _prefill_tick(self) -> bool:
         """Advance the oldest in-flight chunked prefill by ONE chunk — at
@@ -378,18 +429,22 @@ class ServeEngine:
         n = min(c, len(task.toks) - start)
         buf = np.zeros((1, c), np.int64)
         buf[0, :n] = task.toks[start:start + n]
-        t0 = time.perf_counter()
-        logits, task.cache = self.model.prefill_chunk(
-            self.params, task.cache, torch.from_numpy(buf).to(self.device),
-            n, prefill_tiles=task.tiles)
+        last = start + n >= len(task.toks)
+        with self.obs.span("prefill_chunk", rid=task.req.rid, bucket=task.pb,
+                           chunk=c, start=start, tiles=task.tiles):
+            t0 = time.perf_counter()
+            logits, task.cache = self.model.prefill_chunk(
+                self.params, task.cache,
+                torch.from_numpy(buf).to(self.device), n,
+                prefill_tiles=task.tiles)
+            if last:
+                first = int(logits[0, n - 1].argmax())  # waits for the device
+            else:
+                self._sync()
+            self.metrics.add_prefill_time(time.perf_counter() - t0)
         task.done += n
-        if task.done >= len(task.toks):
-            first = int(logits[0, n - 1].argmax())   # waits for the device
-            self.metrics.add_prefill_time(time.perf_counter() - t0)
+        if last:
             self._finish_chunked(task, first)
-        else:
-            self._sync()
-            self.metrics.add_prefill_time(time.perf_counter() - t0)
         return True
 
     def _finish_chunked(self, task: _ChunkTask, first: int) -> None:
@@ -398,6 +453,9 @@ class ServeEngine:
         req.generated.append(first)
         self._tokens[req.slot, 0] = first
         self.metrics.on_first_token(req.rid, self._now())
+        self.obs.instant("prefill_complete", rid=req.rid,
+                         prompt_len=req.prompt_len, chunk=task.chunk,
+                         chunks=-(-len(task.toks) // task.chunk))
         self._chunk_tasks.pop(0)
         del self._prefilling[req.rid]
 
@@ -419,20 +477,41 @@ class ServeEngine:
                                           if self.fused_decode else None),
                       paged_decode_split=plan.paged_decode_split)
         kv_len = self.pool.kv_len
-        if kw.get("paged_decode_block") is not None:
+        # the plan that executes: the fused sweep's pair when the paged
+        # read runs fused, the contiguous sweep's otherwise, none for an
+        # attention-free family
+        kernel = value = None
+        fused = kw.get("paged_decode_block") is not None
+        if fused:
+            kernel = "paged_decode"
+            value = (plan.paged_decode_block, plan.paged_decode_split)
             self.executed_paged_blocks[kv_len] = plan.paged_decode_block
             self.executed_paged_splits[kv_len] = plan.paged_decode_split
         elif plan.decode_block is not None:
+            kernel = "decode_attention"
+            value = (plan.decode_block, plan.decode_split)
             self.executed_decode_blocks[kv_len] = plan.decode_block
             self.executed_decode_splits[kv_len] = plan.decode_split
-        t0 = time.perf_counter()
-        logits, self._cache = self.model.decode_step(
-            self.params, self._cache,
-            torch.from_numpy(self._tokens).to(self.device),
-            decode_block=plan.decode_block, decode_split=plan.decode_split,
-            **kw)
-        nxt = logits[:, 0].argmax(-1).cpu().numpy()   # waits for the device
-        self.metrics.add_decode_time(time.perf_counter() - t0)
+        # the span closes after the device finished the step (the .cpu()
+        # waits for it), not around the enqueue alone
+        with self.obs.span("decode_tick", bucket=kv_len,
+                           decode_block=plan.decode_block,
+                           decode_split=plan.decode_split,
+                           paged_decode_block=kw.get("paged_decode_block"),
+                           paged_decode_split=(plan.paged_decode_split
+                                               if fused else None),
+                           live=len(self.scheduler.live), slots=self.slots):
+            t0 = time.perf_counter()
+            logits, self._cache = self.model.decode_step(
+                self.params, self._cache,
+                torch.from_numpy(self._tokens).to(self.device),
+                decode_block=plan.decode_block,
+                decode_split=plan.decode_split, **kw)
+            nxt = logits[:, 0].argmax(-1).cpu().numpy()  # waits for the device
+            dt = time.perf_counter() - t0
+            self.metrics.add_decode_time(dt)
+        if self.retune is not None:
+            self.retune.observe_tick(kv_len, kernel, value, dt)
         n_dec = 0
         for slot, req in self.scheduler.live_by_slot().items():
             # rows still chunk-prefilling ride the step (their leased row
@@ -443,6 +522,9 @@ class ServeEngine:
                 self._tokens[slot, 0] = int(nxt[slot])
                 n_dec += 1
         self.metrics.on_step(self._now(), n_dec, self.slots)
+        self.obs.count("decode_ticks")
+        self.obs.count("tokens_decoded", n_dec)
+        self.obs.gauge("live_slots", n_dec)
 
     # -- main loop --------------------------------------------------------
 
@@ -457,6 +539,8 @@ class ServeEngine:
                 if self.paged:
                     self._tables[slot] = -1      # unmap: blocks recycle
                     self._tables_dev = None
+                self.obs.instant("slot_recycle", rid=req.rid, slot=slot,
+                                 generated=len(req.generated))
                 self.outputs[req.rid] = list(req.prompt) + list(req.generated)
                 self.metrics.on_done(req.rid, now, len(req.generated))
                 if on_complete is not None:
@@ -494,6 +578,10 @@ class ServeEngine:
                     self.scheduler.shed_head()
                 else:
                     break
+            if self.retune is not None and self.retune.poll():
+                # the router's table changed (a trial started or was
+                # reverted): drop the plan memo so the next tick reads it
+                self._plan_len = -1
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
@@ -519,4 +607,9 @@ class ServeEngine:
             prefill_tiles=dict(self.executed_prefill_tiles),
             paged_decode_splits=dict(self.executed_paged_splits),
             decode_splits=dict(self.executed_decode_splits),
+            retune=(None if self.retune is None else {
+                "stats": dataclasses.asdict(self.retune.stats),
+                "decisions": [dataclasses.asdict(d)
+                              for d in self.retune.decisions],
+            }),
         )

@@ -279,18 +279,32 @@ def resolve_plan(
     store: Optional[Any] = None,
     measure_opts: Optional[dict] = None,
 ) -> tuple[Any, ResolveInfo]:
-    """Resolve the plan of one workload under one policy.  (The JAX
-    package wraps this in a tracer span; the port's tracer is not
-    ported yet.)
+    """Resolve the plan of one workload under one policy.  Where a
+    tracer is ambient (``obs.trace``; the serving router installs its own
+    around a cold resolution) the resolution is a ``resolve_plan`` span
+    carrying its source, probes and live measurements; with the null
+    tracer the cost is one attribute check.
 
     Example::
 
         desc = {"n": 1 << 20, "dtype": "float32", "dtype_bytes": 4}
         plan, info = resolve_plan("vecadd", hw, MappingPolicy.TUNED, desc)
     """
-    return _resolve_plan_impl(kernel, hw, policy, desc, cache,
-                              measure=measure, store=store,
-                              measure_opts=measure_opts)
+    # lazy import: obs sits above the tuner in the layering
+    from repro_torch.obs.trace import get_tracer
+
+    tracer = get_tracer()
+    if not tracer.enabled:
+        return _resolve_plan_impl(kernel, hw, policy, desc, cache,
+                                  measure=measure, store=store,
+                                  measure_opts=measure_opts)
+    with tracer.span("resolve_plan", kernel=kernel, measure=measure) as sp:
+        plan, info = _resolve_plan_impl(kernel, hw, policy, desc, cache,
+                                        measure=measure, store=store,
+                                        measure_opts=measure_opts)
+        sp.set(source=info.source, probes=info.probes,
+               measured=info.measured)
+        return plan, info
 
 
 def _resolve_plan_impl(
