@@ -19,8 +19,10 @@ Phases, each printing one JSON line:
            shape), and the ragged case timed at each width of
            ``SPLIT_SWEEP``; flash at a 512
            prompt causal and non-causal, a 64-row chunk at q_offset 448,
-           and a 512 prompt at qwen3-8b's heads, head_dim 128, bf16
-           only), in float32 (atol
+           a 32-row chunk at q_offset 203 over a 256 cache (a radix
+           resume: the first query tile straddles the diagonal off the
+           16-row grid), and a 512 prompt at qwen3-8b's heads, head_dim
+           128, bf16 only), in float32 (atol
            = rtol = 2e-5: summation order only) and bfloat16 (atol = rtol
            = 1.6e-2: two bf16 ulps near 1); the two gathers bit for bit;
            the int8 decode and dequant gather over int8 codes with random
@@ -147,6 +149,24 @@ Phases, each printing one JSON line:
            ``load_trace`` (gates); then W 64 (``w64_candidate``),
            reported only; prints the decisions, the drift rows and each
            run's wall time a tick;
+  prefix   radix prefix sharing: smollm-135m at full width, TUNED, chunk
+           "auto", ``max_len`` 1024, 2 slots, on ``prefix_mix`` (8
+           requests behind one 200-token system prompt, 16 new tokens
+           each, then two chat turns on retired requests' prompts and a
+           regenerate of one: ``PREFIX_ORDER``), cold and shared
+           (``prefix_cache``) on the default, ``int8``, ``gather`` and
+           ``int8_gather`` paths (``PREFIX_RUNS``), each with its path's
+           launch gates; every shared run must hit at least 6 times for
+           6 x 192 tokens, take fewer prefill chunks than cold, run a
+           decode tick whose block tables hold one physical id in two
+           live rows, and launch flash at a ``q_offset`` off the 16 grid
+           (``PrefixSpies``); then the shared default path at
+           ``tight_blocks`` from a 512 lattice floor (evictions, hits,
+           every request done) and ``admission="gang"`` with the radix
+           off on the mix's first ``PREFIX_GANG_REQUESTS`` (every request
+           done, its streams printed); prints TTFT
+           p50 and p95 cold and shared, the prefill chunks and the hit
+           rate (``prefix_summary``);
   profile  smollm's chunked path, fp and int8 pools, on the mix's first 4
            requests, and mamba2's chunked path on its first request
            (``PROFILE_RUNS``), unprofiled (wall time) and under
@@ -155,6 +175,10 @@ Phases, each printing one JSON line:
   parity   the same engine in float32 on each path (chunked), once on the
            kernels and once under ``kernels.force("plain")``: identical
            token streams, first decode-step logits within atol 1e-3;
+           then ``prefix`` (the radix at the prefix phase's tight budget)
+           and ``prefix_int8`` (the radix on the int8 pool) at 2 slots on
+           a 4-request sharing mix, the same gates, and the kernel run's
+           streams equal to the radix-off run's (a gate for ``prefix``);
   timing   seconds per phase.
 
 The run keeps its own tuning cache and trace store in a temporary
@@ -162,7 +186,8 @@ directory.  Then the card's name and power limit as nvidia-smi prints
 them, the kernel summary as one JSON line (each row the tuner registers
 with ``tuned_ms`` beside AUTO's ``ms``; a suite row's ``launches``
 counts NAIVE, FIXED and AUTO over every case, and ``tuned_launches``
-TUNED's at its cases), and as the last line
+TUNED's at its cases; a serving row's ``prefix_launches`` counts the
+prefix phase's runs), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  It needs one CUDA device and exits
 non-zero without one.
@@ -853,6 +878,8 @@ def kernels_phase(cfg, hw, timer, device):
         lambda dt, lens: decode_case(cfg, block_s, device, dt, split, lens),
         block_s, split, None, "pool 1024")
     chunk_tiles = plan_attention_blocks(64, 512, cfg.head_dim, hw)
+    resume_tiles = plan_attention_blocks(32, 256, cfg.head_dim, hw)
+    resume_tiles = (resume_tiles.block_q, resume_tiles.block_k)
     results["flash_attention"] = [
         dict(shape=f"prompt 512, q_offset 0, tiles {tiles}",
              **measure("flash_attention", flash_attention,
@@ -866,6 +893,14 @@ def kernels_phase(cfg, hw, timer, device):
                            cfg, 64, 512, 448,
                            (chunk_tiles.block_q, chunk_tiles.block_k),
                            device, dt),
+                       flash_bound, sdpa_call)),
+        # a radix-resumed chunk: its first query tile straddles the causal
+        # diagonal at an offset off the 16-row grid
+        dict(shape=f"chunk 32 at q_offset 203 over a 256 cache, tiles "
+                   f"{resume_tiles}",
+             **measure("flash_attention", flash_attention,
+                       lambda dt: flash_case(cfg, 32, 256, 203, resume_tiles,
+                                             device, dt),
                        flash_bound, sdpa_call)),
         dict(shape=f"prompt 512, non-causal, tiles {tiles}",
              **measure("flash_attention", flash_attention,
@@ -2211,14 +2246,18 @@ def tuned_beside_auto(eng):
     return out
 
 
-def engine_run(label, eng, reqs, opts, expected):
+def engine_run(label, eng, reqs, opts, expected, phase="engine",
+               extra=None):
     """Serve ``reqs`` with the counts reset just before and read just
-    after; the path's own kernels must be above 0, every other 0."""
+    after; the path's own kernels must be above 0, every other 0.
+    Prints the run on a ``phase`` line with the readings ``extra()``
+    returns after the run; returns the run's dict and the requests'
+    outputs."""
     counters = launch_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     t0 = time.perf_counter()
-    report, _ = serve(eng, reqs)
+    report, outs = serve(eng, reqs)
     wall = time.perf_counter() - t0
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     s = report.summary
@@ -2226,6 +2265,7 @@ def engine_run(label, eng, reqs, opts, expected):
         arch=eng.cfg.name, options=opts, completed=s.n_completed,
         output_tokens=s.output_tokens, tokens_per_s=s.tokens_per_s,
         wall_s=wall, ttft_p50_ms=s.ttft_p50_s * 1e3,
+        ttft_p95_ms=s.ttft_p95_s * 1e3,
         decode_tick_p50_ms=s.decode_tick_p50_s * 1e3,
         decode_ticks=s.decode_steps, prefill_s=s.prefill_s,
         decode_s=s.decode_s,
@@ -2235,8 +2275,10 @@ def engine_run(label, eng, reqs, opts, expected):
         decode_split=report.decode_splits,
         prefill_tiles={k: list(v) for k, v in report.prefill_tiles.items()},
         launches=launches, policy=eng.router.policy.value,
-        router_stats=report.router_stats, plans=tuned_beside_auto(eng))
-    emit("engine", run=label, **run)
+        router_stats=report.router_stats, plans=tuned_beside_auto(eng),
+        radix=report.radix, pool_growths=report.pool_growths,
+        **(extra() if extra is not None else {}))
+    emit(phase, run=label, **run)
     if s.n_completed != len(reqs):
         raise AssertionError(f"{label}: {s.n_completed}/{len(reqs)} "
                              f"completed")
@@ -2247,7 +2289,7 @@ def engine_run(label, eng, reqs, opts, expected):
         if k not in expected and n != 0:
             raise AssertionError(f"{label}: {k} launched {n} times on a "
                                  f"path that must not use it")
-    return run
+    return run, outs
 
 
 def engine_phase(device):
@@ -2266,7 +2308,7 @@ def engine_phase(device):
                           params=params["smollm-135m"], seed=SEED,
                           device=device, **opts)
         params["smollm-135m"] = eng.params
-        runs[label] = engine_run(label, eng, reqs, opts, expected)
+        runs[label], _ = engine_run(label, eng, reqs, opts, expected)
     # the same token lists (drawn below smollm's vocabulary, so inside
     # mamba2's 50,280)
     for label, chunk in MAMBA_RUNS.items():
@@ -2275,8 +2317,8 @@ def engine_phase(device):
                           params=params["mamba2-1.3b"], seed=SEED,
                           device=device)
         params["mamba2-1.3b"] = eng.params
-        runs[label] = engine_run(label, eng, reqs[:MAMBA_REQUESTS],
-                                 {"prefill_chunk": chunk}, set())
+        runs[label], _ = engine_run(label, eng, reqs[:MAMBA_REQUESTS],
+                                    {"prefill_chunk": chunk}, set())
     return runs, params, reqs
 
 
@@ -2482,6 +2524,208 @@ def retune_phase(device, params, reqs, tmp):
         raise AssertionError(f"retune: a fresh router read {read_back}, not "
                              f"the adopted {cand}")
 
+# --------------------------------------------------------------------------- #
+# prefix
+# --------------------------------------------------------------------------- #
+
+#: the prefix phase's mix: a 200-token system prompt (12 full blocks of
+#: 16 and an 8-token tail) in front of ``PREFIX_SHARERS`` requests with
+#: private suffixes of ``PREFIX_SUFFIX`` tokens, each ``PREFIX_NEW`` new
+#: tokens; then chat turns (``("turn", i)``: request i's prompt plus
+#: ``PREFIX_TURN`` new tokens) and a regenerate (``("repeat", i)``:
+#: request i's prompt again), each placed at least three positions after
+#: its donor, so that with 2 slots the donor has retired (and its prompt's
+#: tail block is indexed) before the turn reaches the head of the queue
+PREFIX_PREAMBLE = 200
+PREFIX_SHARERS = 8
+PREFIX_SUFFIX = ("uniform", 8, 64)
+PREFIX_NEW = 16
+PREFIX_TURN = 24
+PREFIX_ORDER = (0, 1, 2, 3, 4, 5, ("turn", 0), 6, ("turn", 1), 7,
+                ("repeat", 2))
+PREFIX_SLOTS = 2
+#: the cold and shared runs: label -> the ``ENGINE_RUNS`` path
+PREFIX_RUNS = {"default": "chunked", "int8": "int8", "gather": "gather",
+               "int8_gather": "int8_gather"}
+#: the tight run's lattice: from 512, so that its block budget is not
+#: topped up by growth (the pool gains the grid's new blocks at each step)
+PREFIX_TIGHT_MIN_LEN = 512
+#: the gang run serves the mix's first requests (two batches of two): on
+#: all 11 the phase took 102 s on an H100, over its 90 s target
+PREFIX_GANG_REQUESTS = 4
+
+
+def prefix_mix(vocab, n=PREFIX_SHARERS, new=PREFIX_NEW, order=PREFIX_ORDER,
+               seed=SEED):
+    """(prompt, new tokens) per request, through the port's own
+    ``synthesize`` (``TrafficConfig.shared_prefix``)."""
+    from repro_torch.serve import TrafficConfig, synthesize
+
+    base = [r.prompt for r in synthesize(TrafficConfig(
+        n_requests=n, mode="closed", prompt_dist=PREFIX_SUFFIX,
+        output_dist=("fixed", new, 0), vocab=vocab, seed=seed,
+        shared_prefix=(PREFIX_PREAMBLE, 1.0)))]
+    rng = np.random.default_rng(seed)
+    out = []
+    for item in order:
+        if isinstance(item, int):
+            out.append((base[item], new))
+        elif item[0] == "turn":
+            out.append((base[item[1]]
+                        + rng.integers(1, vocab, size=PREFIX_TURN).tolist(),
+                        new))
+        else:
+            out.append((list(base[item[1]]), new))
+    return out
+
+
+def tight_blocks(reqs, block_size=16):
+    """The least block budget that seats the two longest requests at
+    once over the shared preamble's full blocks: below what the radix
+    indexes over the mix, so admission must evict."""
+    lease = max(-(-(len(p) + m) // block_size) for p, m in reqs)
+    return PREFIX_SLOTS * lease - PREFIX_PREAMBLE // block_size
+
+
+class PrefixSpies:
+    """What the prefix runs must show the kernels were given: the flash
+    launches' ``q_offset`` (a spy on the model's call of the wrapper), the
+    decode ticks whose block tables hold one physical id in two live rows
+    (a spy on ``decode_step``'s argument) and the prefill chunks (a spy
+    on ``prefill_chunk``).  ``watch`` attaches the engine spies; the
+    flash spy holds from ``__enter__`` to ``__exit__``."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self.module, self.flash = transformer, transformer.flash_attention
+
+        def flash(*a, **kw):
+            self.offsets.append(int(kw.get("q_offset", 0)))
+            return self.flash(*a, **kw)
+        transformer.flash_attention = flash
+        self.offsets, self.aliased, self.ticks, self.chunks = [], 0, 0, 0
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.flash
+
+    def watch(self, eng):
+        self.offsets.clear()
+        self.aliased = self.ticks = self.chunks = 0
+        step, chunk = eng.model.decode_step, eng.model.prefill_chunk
+
+        def decode_step(*a, **kw):
+            tables = kw.get("page_tables")
+            if tables is not None:
+                t = tables.cpu().numpy()
+                rows = [set(r[r >= 0].tolist()) for r in t]
+                seen, shared = set(), False
+                for r in rows:
+                    shared |= bool(seen & r)
+                    seen |= r
+                self.aliased += shared
+            self.ticks += 1
+            return step(*a, **kw)
+
+        def prefill_chunk(*a, **kw):
+            self.chunks += 1
+            return chunk(*a, **kw)
+        eng.model.decode_step = decode_step
+        eng.model.prefill_chunk = prefill_chunk
+
+    def readings(self):
+        return {"prefill_chunks": self.chunks, "aliased_ticks": self.aliased,
+                "flash_q_offsets_off_16": sorted(
+                    {o for o in self.offsets if o % 16})}
+
+
+def prefix_phase(device, params):
+    """smollm-135m at full width, TUNED, chunk "auto", ``max_len`` 1024,
+    ``PREFIX_SLOTS`` slots, on ``prefix_mix``: cold (``prefix_cache=
+    False``) and shared on each path of ``PREFIX_RUNS``, then the shared
+    default path at ``tight_blocks`` (from a 512 lattice floor) and the
+    default path under ``admission="gang"``, radix off, on the mix's
+    first ``PREFIX_GANG_REQUESTS`` requests.  Gates: on every
+    shared run at least 6 hits and 6 x 192 hit tokens, fewer prefill
+    chunks than cold, a decode tick with aliased tables, a flash launch
+    at a ``q_offset`` off the 16 grid and the path's kernels as
+    ``engine_run`` checks them; on the tight run evictions, hits and
+    every request completed; on the gang run every request completed."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import BucketSpec, ServeEngine
+
+    reqs = prefix_mix(get_config("smollm-135m").vocab_size)
+    tight = tight_blocks(reqs)
+    emit("prefix_mix", requests=len(reqs),
+         prompt_lens=[len(p) for p, _ in reqs], preamble=PREFIX_PREAMBLE,
+         order=[list(o) if isinstance(o, tuple) else o
+                for o in PREFIX_ORDER], tight_blocks=tight)
+
+    def engine(**kw):
+        return ServeEngine("smollm-135m", reduced=False, slots=PREFIX_SLOTS,
+                           max_len=1024, prefill_chunk="auto", params=params,
+                           seed=SEED, device=device, **kw)
+
+    runs, summary = {}, {}
+    with PrefixSpies() as spies:
+        for label, path in PREFIX_RUNS.items():
+            opts, _, expected = ENGINE_RUNS[path]
+            for shared in (False, True):
+                name = f"{label}_{'shared' if shared else 'cold'}"
+                eng = engine(prefix_cache=shared, **opts)
+                spies.watch(eng)
+                runs[name], _ = engine_run(
+                    name, eng, reqs, dict(opts, prefix_cache=shared),
+                    expected, phase="prefix", extra=spies.readings)
+            cold, hot = runs[f"{label}_cold"], runs[f"{label}_shared"]
+            rx = hot["radix"]
+            summary[label] = dict(
+                ttft_p50_ms=[cold["ttft_p50_ms"], hot["ttft_p50_ms"]],
+                ttft_p95_ms=[cold["ttft_p95_ms"], hot["ttft_p95_ms"]],
+                prefill_chunks=[cold["prefill_chunks"],
+                                hot["prefill_chunks"]],
+                hit_rate=rx["hit_rate"], hits=rx["hits"],
+                hit_tokens=rx["hit_tokens"])
+            if rx["hits"] < 6 or rx["hit_tokens"] < 6 * 192:
+                raise AssertionError(f"prefix {label}: {rx['hits']} hits, "
+                                     f"{rx['hit_tokens']} hit tokens")
+            if hot["prefill_chunks"] >= cold["prefill_chunks"]:
+                raise AssertionError(
+                    f"prefix {label}: {hot['prefill_chunks']} prefill "
+                    f"chunks shared, {cold['prefill_chunks']} cold")
+            if not hot["aliased_ticks"]:
+                raise AssertionError(f"prefix {label}: no decode tick with "
+                                     f"a physical block in two live rows")
+            if not hot["flash_q_offsets_off_16"]:
+                raise AssertionError(f"prefix {label}: no flash launch at a "
+                                     f"q_offset off the 16 grid")
+        opts, _, expected = ENGINE_RUNS["chunked"]
+        eng = engine(prefix_cache=True, total_blocks=tight,
+                     spec=BucketSpec(max_len=1024,
+                                     min_len=PREFIX_TIGHT_MIN_LEN))
+        spies.watch(eng)
+        runs["tight"], _ = engine_run(
+            "tight", eng, reqs, dict(prefix_cache=True, total_blocks=tight,
+                                     min_len=PREFIX_TIGHT_MIN_LEN),
+            expected, phase="prefix", extra=spies.readings)
+        rx = runs["tight"]["radix"]
+        summary["tight"] = dict(total_blocks=tight, **rx)
+        if rx["evicted_blocks"] <= 0 or rx["hits"] <= 0:
+            raise AssertionError(f"prefix tight: {rx}: the budget of {tight} "
+                                 f"blocks did not make the radix evict")
+    gang = reqs[:PREFIX_GANG_REQUESTS]
+    eng = engine(admission="gang")
+    runs["gang"], outs = engine_run("gang", eng, gang, dict(admission="gang"),
+                                    expected, phase="prefix")
+    emit("prefix_gang", streams=[o[len(p):] for (p, _), o in zip(gang, outs)])
+    emit("prefix_summary", **summary)
+    return runs
+
+
+# --------------------------------------------------------------------------- #
+# profile
+# --------------------------------------------------------------------------- #
 
 #: profiled runs: label -> (arch, engine options, requests of the mix).
 #: mamba2 is cut to the mix's first request: on its 4 (1,389 prompt
@@ -2591,6 +2835,67 @@ def parity_phase(device):
         if err > 1e-3:
             raise AssertionError(f"{label}: first decode-step logits "
                                  f"differ by {err}")
+    parity_prefix(cfg, params, device)
+
+
+def parity_prefix(cfg, params, device):
+    """The radix on, fp32 at full width, ``PREFIX_SLOTS`` slots, on a
+    4-request sharing mix with 8 new tokens (requests 3 and 4 hit):
+    ``prefix`` at the prefix phase's tight budget, ``prefix_int8`` on the
+    int8 pool.  Kernel vs plain: identical streams, first decode logits
+    within 1e-3; and the kernel run's streams equal to the same engine's
+    with the radix off (a gate on the fp32 pool, a reading on int8)."""
+    from repro_torch import kernels
+    from repro_torch.serve import BucketSpec, ServeEngine
+
+    reqs = prefix_mix(cfg.vocab_size, n=4, new=8, order=(0, 1, 2, 3),
+                      seed=SEED + 1)
+    tight = tight_blocks(prefix_mix(cfg.vocab_size))
+    labels = {"prefix": dict(total_blocks=tight, spec=BucketSpec(
+                  max_len=1024, min_len=PREFIX_TIGHT_MIN_LEN)),
+              "prefix_int8": dict(kv_dtype="int8")}
+    for label, opts in labels.items():
+        streams, first, radix = {}, {}, {}
+        for mode in ("kernel", "plain", "cold"):
+            eng = ServeEngine(cfg, slots=PREFIX_SLOTS, max_len=1024,
+                              params=params, seed=SEED, device=device,
+                              prefix_cache=mode != "cold", **opts)
+            step = eng.model.decode_step
+
+            def spy(*a, _step=step, _mode=mode, **kw):
+                out = _step(*a, **kw)
+                first.setdefault(_mode, out[0].detach().clone())
+                return out
+
+            eng.model.decode_step = spy
+            with kernels.force("plain" if mode == "plain" else "kernel"):
+                report, streams[mode] = serve(eng, reqs)
+            radix[mode] = report.radix
+        same = streams["kernel"] == streams["plain"]
+        cold_same = streams["kernel"] == streams["cold"]
+        err = float((first["kernel"] - first["plain"]).abs().max())
+        emit("parity", run=label, options={k: str(v) for k, v in
+                                           opts.items()},
+             token_streams_identical=same,
+             first_decode_logits_max_abs_err=err,
+             shared_equals_cold=cold_same,
+             cold_first_decode_logits_max_abs_err=float(
+                 (first["kernel"] - first["cold"]).abs().max()),
+             radix=radix["kernel"],
+             tokens=sum(len(s) for s in streams["kernel"]))
+        if not same:
+            raise AssertionError(f"{label}: fp32 token streams differ "
+                                 f"between the kernels and their plain "
+                                 f"versions")
+        if err > 1e-3:
+            raise AssertionError(f"{label}: first decode-step logits "
+                                 f"differ by {err}")
+        if radix["kernel"]["hit_tokens"] < 2 * 192:
+            raise AssertionError(f"{label}: requests 3 and 4 did not share "
+                                 f"the preamble: {radix['kernel']}")
+        if label == "prefix" and not cold_same:
+            raise AssertionError(f"{label}: the radix changed the fp32 "
+                                 f"token streams")
 
 
 # --------------------------------------------------------------------------- #
@@ -2682,6 +2987,8 @@ def main() -> int:
         serving, _, _ = timed("tuner", tuner_phase, hw, timer, device)
         runs, params, reqs = timed("engine", engine_phase, device)
         timed("retune", retune_phase, device, params, reqs, tmp)
+        prefix_runs = timed("prefix", prefix_phase, device,
+                            params["smollm-135m"])
         timed("profile", profile_phase, device, params, reqs)
         timed("parity", parity_phase, device)
     finally:
@@ -2697,6 +3004,9 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{src}.cu",
             "replaces": replaces,
             "launches": runs[run]["launches"][name],
+            # the prefix phase's cold, shared, tight and gang runs
+            "prefix_launches": sum(r["launches"][name]
+                                   for r in prefix_runs.values()),
             "max_abs_err": main_case["max_abs_err"]["bfloat16"],
             "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

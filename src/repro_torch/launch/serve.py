@@ -12,8 +12,13 @@ profiler's store (none yet: the roofline's pick), "live" by CUDA-event
 times taken now and recorded, "off" by the roofline alone.
 ``--trace PATH`` writes the run's trace (``.json``: Perfetto's form, else
 the JSONL log; ``tools/trace_view_torch.py`` reads either) and
-``--retune inline|background`` runs the live retune loop.  Prints the
-run's summary and, as its last line, the summary as JSON.
+``--retune inline|background`` runs the live retune loop.
+``--prefix-cache`` turns on radix prefix sharing and ``--shared-prefix
+N`` gives 90% of the requests one common N-token preamble (the traffic
+it exists for); ``--bucket-mode`` picks the length lattice.  Prints the
+run's summary (with the radix line when sharing engaged), writes it to
+``--metrics-json PATH`` when asked and, as its last line, prints it as
+JSON.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.core.mapper import MappingPolicy
 from repro_torch.obs import Tracer, write_trace
-from repro_torch.serve import ServeEngine, TrafficConfig, drive
+from repro_torch.serve import BucketSpec, ServeEngine, TrafficConfig, drive
+from repro_torch.serve.buckets import BUCKET_MODES
 from repro_torch.serve.retune import RETUNE_MODES
 from repro_torch.tuner import MEASURE_MODES
 
@@ -56,10 +62,22 @@ def main(argv=None) -> dict:
                          "int8 stores symmetric per-(block, head) codes + "
                          "scales, dequantised inside the decode read; "
                          "requires the paged pool")
+    ap.add_argument("--bucket-mode", choices=BUCKET_MODES, default="pow2",
+                    help="the length lattice (the paged pool needs a "
+                         "finite one: 'exact' only with --no-paged)")
     ap.add_argument("--prefill-chunk", metavar="N|auto|none", default="auto",
                     help="prefill in N-token chunks between decode ticks; "
                          "'auto' uses the bucket's flash block_q, 'none' "
                          "prefills whole prompts")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix sharing: requests whose prompts "
+                         "share a leading token run map the same physical "
+                         "KV blocks and resume prefill mid-prompt; engages "
+                         "on the paged, chunked dense path, a no-op "
+                         "elsewhere")
+    ap.add_argument("--shared-prefix", type=int, metavar="N", default=0,
+                    help="give 90%% of the requests one common N-token "
+                         "preamble (0: independent prompts)")
     ap.add_argument("--policy", default="tuned",
                     choices=[p.value for p in MappingPolicy],
                     help="how the router plans each bucket's kernels")
@@ -76,6 +94,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="write the run's trace here (.json: Perfetto's "
                          "form, else versioned JSONL)")
+    ap.add_argument("--metrics-json", metavar="PATH", default=None,
+                    help="write the run's summary here as JSON")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the traffic and the random weights")
     ap.add_argument("--full", action="store_true",
@@ -94,11 +114,14 @@ def main(argv=None) -> dict:
         prompt_dist=("uniform", 4, min(hi, 48)),
         output_dist=("uniform", 2, args.max_new),
         concurrency=args.slots, vocab=vocab,
-        seed=int(rng.integers(1 << 30)))
+        seed=int(rng.integers(1 << 30)),
+        shared_prefix=((args.shared_prefix, 0.9)
+                       if args.shared_prefix else None))
     engine = ServeEngine(
         args.arch, slots=args.slots, max_len=max_len,
         reduced=not args.full, paged=not args.no_paged,
-        kv_dtype=args.kv_dtype,
+        spec=BucketSpec(max_len=max_len, mode=args.bucket_mode),
+        kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         prefill_chunk=parse_chunk(args.prefill_chunk), seed=args.seed,
         policy=args.policy, measure=args.measure, device=args.device,
         tracer=Tracer() if args.trace else None, retune=args.retune,
@@ -113,12 +136,23 @@ def main(argv=None) -> dict:
         st = report.retune["stats"]
         print(f"[serve] retune: scans={st['scans']} trials={st['trials']} "
               f"adopted={st['adopted']} rejected={st['rejected']}")
+    if report.radix is not None:
+        rx = report.radix
+        print(f"[serve] radix: hit rate {rx['hit_rate']:.2f} "
+              f"({rx['hits']}/{rx['lookups']}), "
+              f"{rx['hit_tokens']} prompt tokens reused, "
+              f"{rx['evicted_blocks']} blocks evicted")
     if args.trace:
         path = write_trace(engine.obs, args.trace)
         print(f"[serve] trace ({len(engine.obs.spans())} spans) -> {path}")
     payload = {"summary": s.as_dict(), "router_stats": report.router_stats,
                "pool_growths": report.pool_growths,
-               "n_rejected": len(report.rejected), "retune": report.retune}
+               "n_rejected": len(report.rejected), "retune": report.retune,
+               "radix": report.radix}
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+        print(f"[serve] metrics -> {args.metrics_json}")
     print(json.dumps(payload, sort_keys=True))
     return payload
 

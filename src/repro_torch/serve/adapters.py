@@ -1,20 +1,22 @@
 """CacheAdapter — each served family's face of the ragged decode pool.
 
-The dense and ssm subset of the JAX package's ``serve/adapters.py`` (no
-radix-resumed writes).  One generic ``FamilyCacheAdapter`` serves both,
-because the families differ only in which cache keys carry a time axis
-(``length_keys``) and whether prompt padding is safe
-(``prefill_buckets``): dense keeps K/V (L, slots, T, G, hd) — for the
-int8 pool with per-(physical block, KV group) scales — and a padded
-prompt is masked by each row's ``pos``; ssm keeps a length-free
-recurrent state and conv window, which padding would corrupt, so its
-prompts prefill at their exact length.  moe, hybrid, encdec and vlm come
+The dense and ssm subset of the JAX package's ``serve/adapters.py``.  One
+generic ``FamilyCacheAdapter`` serves both, because the families differ
+only in which cache keys carry a time axis (``length_keys``), whether
+prompt padding is safe (``prefill_buckets``) and whether a cached prompt
+prefix is complete context for another request (``shareable_prefix``):
+dense keeps K/V (L, slots, T, G, hd) — for the int8 pool with
+per-(physical block, KV group) scales — and a padded prompt is masked by
+each row's ``pos``; ssm keeps a length-free recurrent state and conv
+window, which padding would corrupt, so its prompts prefill at their
+exact length and it shares no prefix.  moe, hybrid, encdec and vlm come
 with ROADMAP queue 1 item 9.  The engine keeps one cache dict for the
 pool plus a per-row ``pos`` vector, and needs four operations on it:
 
   ``init_pool``    build the pool cache with a per-row ``pos`` vector
   ``prefill_len``  how long to pad a prompt before prefill
   ``write_row``    land one prefilled request's cache in the pool
+                   (from ``start`` on when a radix prefix is shared)
   ``grow``         pad the pool's time axis to a longer bucket
 
 Unlike the JAX package, ``write_row`` updates the pool IN PLACE
@@ -50,6 +52,11 @@ class FamilyCacheAdapter:
     family: str
     length_keys: tuple[str, ...] = ("k", "v")
     prefill_buckets: bool = True
+    #: True when the family's whole per-position sequence state lives in
+    #: the paged K/V blocks, so a prompt prefix cached by one request is
+    #: complete context for another (radix prefix sharing): dense only;
+    #: ssm carries its state outside any block
+    shareable_prefix: bool = False
 
     @property
     def grows_with_len(self) -> bool:
@@ -89,15 +96,23 @@ class FamilyCacheAdapter:
                   prompt_len: int, kv_len: int,
                   page_map: Optional[torch.Tensor] = None,
                   scale_map: Optional[torch.Tensor] = None,
-                  page_block: Optional[int] = None) -> dict:
+                  page_block: Optional[int] = None,
+                  start: int = 0) -> dict:
         """Land one prefilled request's prompt K/V in the pool, IN PLACE.
 
-        With ``page_map`` (prompt_len,) — the flat physical positions of
-        the prompt's tokens from the request's block table — only the
-        prompt's own tokens scatter into the leased blocks; positions
-        past the prompt are masked by ``pos`` until decode overwrites
-        them.  Without it (the contiguous pool) the row cache, padded
-        with zeros to ``kv_len``, replaces the slot's whole row.
+        With ``page_map`` (prompt_len - start,) — the flat physical
+        positions of the prompt's tokens ``[start, prompt_len)`` from the
+        request's block table — only those tokens scatter into the
+        leased blocks; positions past the prompt are masked by ``pos``
+        until decode overwrites them.  Without it (the contiguous pool)
+        the row cache, padded with zeros to ``kv_len``, replaces the
+        slot's whole row.
+
+        ``start`` (block-aligned, paged only) begins the write
+        mid-prompt: positions ``[0, start)`` live in radix-SHARED blocks
+        another request wrote, and this write never touches them —
+        neither their values nor, on the int8 pool, their scale rows
+        (shared blocks share their scales).
 
         On the int8 pool (``k_scale``/``v_scale`` present) ``scale_map``
         (the lease's flat physical blocks, logical order) and
@@ -105,6 +120,8 @@ class FamilyCacheAdapter:
         Keys with no time axis (the ssm state and conv window) land
         shape-exact in the slot.  The row's ``pos`` becomes the true
         prompt length."""
+        assert start == 0 or page_map is not None, \
+            "a mid-prompt write start needs the paged pool"
         for key, arr in row_cache.items():
             if key != "pos" and key not in self.length_keys:
                 cache[key][:, slot] = arr[:, 0].to(cache[key].dtype)
@@ -116,36 +133,45 @@ class FamilyCacheAdapter:
                 arr[:, slot, :row.shape[1]] = row.to(arr.dtype)
                 arr[:, slot, row.shape[1]:] = 0
                 continue
-            vals = row[:, :prompt_len]
+            vals = row[:, start:prompt_len]
             if key + "_scale" in cache:
-                vals = self._quantize_prompt(cache, key, vals, prompt_len,
-                                             kv_len, scale_map,
+                vals = self._quantize_prompt(cache, key, vals, start,
+                                             prompt_len, scale_map,
                                              int(page_block))
-            arr.view(n, b * kv_len, *arr.shape[3:])[:, page_map] = \
-                vals.to(arr.dtype)
+            if prompt_len > start:
+                arr.view(n, b * kv_len, *arr.shape[3:])[:, page_map] = \
+                    vals.to(arr.dtype)
         cache["pos"][slot] = prompt_len
         return cache
 
     def _quantize_prompt(self, cache: dict, key: str, vals: torch.Tensor,
-                         prompt_len: int, kv_len: int,
+                         start: int, prompt_len: int,
                          scale_map: torch.Tensor, bs: int) -> torch.Tensor:
-        """Quantise one prompt's (L, prompt_len, G, hd) values to int8
-        codes with per-(logical block, KV group) amax scales, and land
-        the scales on the lease's physical blocks IN PLACE: written
+        """Quantise one prompt's (L, prompt_len - start, G, hd) values to
+        int8 codes with per-(logical block, KV group) amax scales, and
+        land the scales on the lease's physical blocks IN PLACE: written
         blocks get their amax / 127, leased blocks past the prompt the
         zero dead sentinel (so a recycled block's old scale never
-        aliases into the new tenant).  Returns the codes."""
+        aliases into the new tenant), and the radix-shared blocks BEFORE
+        ``start`` are never touched (a shared block's scale row belongs
+        to the block, not the lease).  Returns the codes."""
+        assert start % bs == 0, "the write start must be block-aligned"
         n, g = vals.shape[0], vals.shape[2]
+        sb0 = start // bs
         npb = -(-prompt_len // bs)
-        scales = cache[key + "_scale"]              # (L, B, nb, G)
-        sflat = scales.view(n, -1, g)
-        v = F.pad(vals.float(), (0, 0, 0, 0, 0, npb * bs - prompt_len))
-        v = v.reshape(n, npb, bs, g, -1)
-        sc = v.abs().amax(dim=(2, 4)) / 127.0                   # (L, npb, G)
-        safe = torch.where(sc > 0, sc, 1.0)
-        codes = torch.round(v / safe[:, :, None, :, None]).clamp(-127, 127)
-        codes = codes.reshape(n, npb * bs, g, -1)[:, :prompt_len]
-        sflat[:, scale_map[:npb]] = sc
+        nw = npb - sb0                              # blocks being written
+        sflat = cache[key + "_scale"].view(n, -1, g)   # (L, B * nb, G)
+        if nw > 0:
+            v = F.pad(vals.float(), (0, 0, 0, 0, 0, npb * bs - prompt_len))
+            v = v.reshape(n, nw, bs, g, -1)
+            sc = v.abs().amax(dim=(2, 4)) / 127.0               # (L, nw, G)
+            safe = torch.where(sc > 0, sc, 1.0)
+            codes = torch.round(v / safe[:, :, None, :, None]).clamp(-127,
+                                                                    127)
+            codes = codes.reshape(n, nw * bs, g, -1)[:, :prompt_len - start]
+            sflat[:, scale_map[sb0:npb]] = sc
+        else:
+            codes = vals
         if len(scale_map) > npb:                    # zero the lease's tail
             sflat[:, scale_map[npb:]] = 0.0
         return codes.to(cache[key].dtype)
@@ -176,7 +202,7 @@ class FamilyCacheAdapter:
 
 
 ADAPTERS: dict[str, FamilyCacheAdapter] = {
-    "dense": FamilyCacheAdapter("dense"),
+    "dense": FamilyCacheAdapter("dense", shareable_prefix=True),
     "ssm": FamilyCacheAdapter("ssm", length_keys=(), prefill_buckets=False),
 }
 

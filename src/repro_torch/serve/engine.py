@@ -20,7 +20,13 @@ JAX package's ``serve/engine.py`` on PyTorch.
   * an attention-free family (ssm, Mamba-2) keeps a length-free state
     per slot: its prompts prefill at their exact length, its chunked
     prefill keeps the configured width ("auto" is 32: there are no
-    flash tiles), and the pool's growth is block accounting only.
+    flash tiles), and the pool's growth is block accounting only;
+  * ``prefix_cache=True`` (``serve.radix``) shares prompt prefixes on
+    the paged, chunked dense path: a request whose prompt begins with
+    blocks another request wrote maps those physical blocks into the
+    leading entries of its block table, seeds its row cache from them,
+    and resumes chunked prefill mid-prompt (flash at ``q_offset`` =
+    the resume position), writing only its private suffix.
 
 The engine's clock is injectable; when the pool is idle it fast-forwards
 to the next synthetic arrival, so open-loop traffic never sleeps.
@@ -54,6 +60,7 @@ from repro_torch.serve.adapters import get_adapter
 from repro_torch.serve.buckets import BucketRouter, BucketSpec
 from repro_torch.serve.kvcache import KVCachePool
 from repro_torch.serve.metrics import ServeMetrics, ServeSummary
+from repro_torch.serve.radix import RadixCache
 from repro_torch.serve.retune import RetuneConfig, RetuneController
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.tuner import TuningCache
@@ -75,6 +82,9 @@ class _ChunkTask:
     chunk: int                     # chunk width C
     blocks: list                   # leased block ids
     done: int = 0                  # prompt tokens consumed so far
+    #: first prompt position write_row scatters (block-aligned; the
+    #: positions before it live in radix-SHARED blocks, never rewritten)
+    start: int = 0
 
 
 @dataclasses.dataclass
@@ -105,6 +115,9 @@ class ServeReport:
     #: the retune controller's stats and concluded decisions (None when
     #: the engine runs with ``retune="off"``)
     retune: Optional[dict] = None
+    #: radix prefix-cache accounting (hit rate, evictions; None when
+    #: ``prefix_cache=False`` or the family cannot share prefixes)
+    radix: Optional[dict] = None
 
 
 class ServeEngine:
@@ -134,6 +147,12 @@ class ServeEngine:
     geometry as its ``meta``; ``retune`` ("off", "inline", "background"
     or a ``RetuneConfig``) runs the live retune loop, with a private
     tracer when the engine has none (its drift scan reads spans).
+    ``spec`` (a ``BucketSpec``, trimmed to ``max_len``) replaces the
+    default pow2 lattice; ``admission`` ("continuous" or "gang") is the
+    scheduler's rule; ``total_blocks`` budgets the paged pool below its
+    physical grid (admission control); ``prefix_cache`` turns on radix
+    prefix sharing, which engages only on a paged, chunked,
+    ``shareable_prefix`` family (dense) and is a no-op elsewhere.
 
     Example::
 
@@ -146,9 +165,12 @@ class ServeEngine:
                  slots: int = 4,
                  max_len: int = 256,
                  reduced: bool = True,
+                 spec: Optional[BucketSpec] = None,
+                 admission: str = "continuous",
                  params: Optional[dict] = None,
                  seed: int = 0,
                  block_size: int = 16,
+                 total_blocks: Optional[int] = None,
                  paged: bool = True,
                  kv_dtype: str = "fp32",
                  fused_decode: bool = True,
@@ -163,6 +185,7 @@ class ServeEngine:
                  device="cuda",
                  tracer: Optional[Any] = None,
                  retune: str | RetuneConfig | None = "off",
+                 prefix_cache: bool = False,
                  verbose: bool = False):
         self.device = resolve_device(device)
         self.kv_spec = kv_dtype_spec(kv_dtype)
@@ -180,12 +203,32 @@ class ServeEngine:
         self.adapter = get_adapter(cfg.family)
         self.cfg = cfg
         self.slots = slots
-        self.spec = BucketSpec(max_len=max_len, min_len=min(32, max_len))
-        for n in self.spec.lattice() if paged else ():
-            if n % block_size:
-                raise ValueError(f"the paged pool needs lattice lengths "
-                                 f"divisible by block_size={block_size}, "
-                                 f"got {n}")
+        self.spec = spec or BucketSpec(max_len=max_len,
+                                       min_len=min(32, max_len))
+        if self.spec.max_len > max_len:
+            self.spec = dataclasses.replace(
+                self.spec, max_len=max_len,
+                min_len=min(self.spec.min_len, max_len))
+        if paged:
+            # the physical grid maps block ids onto (slot, offset) pairs:
+            # every lattice length must be whole blocks, and the budget
+            # may undersubscribe the grid but never exceed it (ids past
+            # the grid have no location)
+            lattice = self.spec.lattice()
+            if not lattice:
+                raise ValueError(
+                    "the paged pool needs a finite length lattice; "
+                    "mode='exact' cannot guarantee block-multiple rows")
+            for n in lattice:
+                if n % block_size:
+                    raise ValueError(f"the paged pool needs lattice "
+                                     f"lengths divisible by "
+                                     f"block_size={block_size}, got {n}")
+            cap0 = slots * (self.spec.quantize(1) // block_size)
+            if total_blocks is not None and total_blocks > cap0:
+                raise ValueError(
+                    f"paged pool: total_blocks={total_blocks} exceeds the "
+                    f"physical block grid ({cap0})")
         self.eos_id = eos_id
         self.verbose = verbose
         self._clock = clock
@@ -215,8 +258,11 @@ class ServeEngine:
         self.paged = paged
         self.fused_decode = fused_decode
         self._block_size = block_size
+        self._total_blocks = total_blocks
+        self._admission = admission
         self._chunk_cfg = prefill_chunk
         self._chunked = prefill_chunk is not None
+        self.prefix_cache = bool(prefix_cache)
         if self.obs.enabled:
             # run-level context the trace's header carries: what
             # obs.feedback and obs.drift need to rebuild each bucket's
@@ -228,15 +274,35 @@ class ServeEngine:
                 dtype_bytes=self.router._dtype_bytes(), slots=slots,
                 max_len=self.spec.max_len, hw=self.hw.name, paged=paged,
                 fused_decode=fused_decode, kv_dtype=self.kv_spec.name,
+                prefix_cache=self._shares_prefixes(),
                 **(self.router._geometry() or {}))
         self.reset()
+
+    def _shares_prefixes(self) -> bool:
+        """Whether radix sharing engages: the feature is on, the pool is
+        paged (tables to alias through), prefill is chunked (a
+        mid-prompt resume) and the family's blocks are complete
+        per-position context (``adapter.shareable_prefix``)."""
+        return (self.prefix_cache and self.paged and self._chunked
+                and self.adapter.shareable_prefix)
+
+    def _make_radix(self) -> Optional[RadixCache]:
+        """A fresh radix prefix cache over the CURRENT pool's allocator,
+        or ``None`` when sharing cannot engage (``_shares_prefixes``)."""
+        if not self._shares_prefixes():
+            return None
+        return RadixCache(self.pool.allocator, self._block_size,
+                          tracer=self.obs)
 
     def reset(self) -> None:
         """Clear traffic state (pool, queue, metrics, outputs)."""
         kv0 = self.spec.quantize(1)
         self.pool = KVCachePool(self.slots, kv0, block_size=self._block_size,
+                                total_blocks=self._total_blocks,
                                 max_len=self.spec.max_len)
-        self.scheduler = Scheduler(self.pool)
+        self._radix = self._make_radix()
+        self.scheduler = Scheduler(self.pool, mode=self._admission,
+                                   radix=self._radix)
         self.metrics = ServeMetrics()
         self.outputs: dict[int, list[int]] = {}
         self._cache = self.adapter.init_pool(
@@ -299,11 +365,14 @@ class ServeEngine:
         if self.verbose:
             print(f"[serve] pool -> ({self.slots}, {new_len})")
 
-    def _page_map(self, blocks: list[int], n: int) -> torch.Tensor:
+    def _page_map(self, blocks: list[int], n: int,
+                  start: int = 0) -> torch.Tensor:
         """Flat physical positions of one request's logical tokens
-        ``[0, n)`` (the prefill write path)."""
+        ``[start, n)`` (the prefill write path).  ``start`` skips the
+        radix-shared prefix: positions another lease already wrote and
+        this one must never scatter into."""
         bs = self._block_size
-        tok = np.arange(n)
+        tok = np.arange(start, n)
         pid = np.asarray(blocks, np.int64)[tok // bs]
         return torch.from_numpy(
             flat_position(pid, tok, self.slots, self.pool.kv_len, bs)
@@ -320,23 +389,24 @@ class ServeEngine:
                                 + pid // self.slots).to(self.device)
 
     def _write_row(self, req: Request, row_cache: dict,
-                   blocks: list[int]) -> None:
+                   blocks: list[int], start: int = 0) -> None:
         """Land a prefilled row in the pool: through the request's page
         map (and, on the int8 pool, its scale map) when paged, publishing
         its block-table row to the decode step; into the slot's row
         otherwise (and always for a length-free cache, which has no
-        blocks to map)."""
+        blocks to map).  ``start`` (the radix's ``write_start``) keeps
+        the write off the shared prefix blocks."""
         pm = sm = None
         if self.paged and self.adapter.grows_with_len:
             self._tables[req.slot] = self.pool.block_table(req.rid)
             self._tables_dev = None
-            pm = self._page_map(blocks, req.prompt_len)
+            pm = self._page_map(blocks, req.prompt_len, start=start)
             if self.kv_spec.quantized:
                 sm = self._scale_map(blocks)
         self._cache = self.adapter.write_row(
             self._cache, req.slot, row_cache, req.prompt_len,
             self.pool.kv_len, page_map=pm, scale_map=sm,
-            page_block=self._block_size)
+            page_block=self._block_size, start=start)
 
     # -- intake -----------------------------------------------------------
 
@@ -400,7 +470,13 @@ class ServeEngine:
         chunk by chunk between decode ticks.  Its block-table row is NOT
         published until the row lands (``_finish_chunked``): a recycled
         slot's stale ``pos`` keeps advancing each tick, and an unpublished
-        (-1) row writes nothing.
+        (-1) row writes nothing — through a published table whose leading
+        entries alias radix-shared blocks, that stale write would land in
+        another request's prefix.
+
+        With a radix match pending (``RadixCache.prepare`` ran at
+        admission), the matched prefix seeds the row cache and chunked
+        prefill RESUMES mid-prompt, computing only the private suffix.
 
         A length-free row cache (ssm) keeps the configured chunk width;
         a length-bound one clamps it to the row."""
@@ -414,10 +490,63 @@ class ServeEngine:
                           toks=np.asarray(req.prompt, np.int64), pb=pb,
                           tiles=tiles, chunk=chunk,
                           blocks=self.pool.lease(req.rid).blocks)
+        if self._radix is not None:
+            m = self._radix.claim(req.rid)
+            if m is not None and m.hit:
+                self._radix_seed(task, m)
+            self._radix.seeded(req.rid)
         self._chunk_tasks.append(task)
         self._prefilling[req.rid] = task
         self.metrics.on_admit(req.rid, now)
         self.obs.count("admits")
+
+    def _radix_seed(self, task: _ChunkTask, m) -> None:
+        """Seed a chunk task's row cache from its radix match: read the
+        matched positions' K/V out of the pool's physical blocks (on the
+        int8 pool: codes times their f32 scales in f32, rounded once to
+        the row cache's dtype), land them at the row's leading positions
+        and move the resume offset past them.  The matched FULL blocks
+        stay shared (``task.start`` keeps ``write_row`` off them); the
+        tail's tokens become private data once in the row cache (the
+        int8 pool re-quantises its block at ``write_row``).  The pool is
+        indexed at its current length: growth since the donor wrote
+        moves the flat positions, never the block ids."""
+        bs = self._block_size
+        resume = m.resume(task.req.prompt_len, bs)
+        if resume <= 0:
+            return
+        tok = np.arange(resume)
+        pid = np.empty(resume, np.int64)
+        nfull = len(m.blocks) * bs
+        if nfull:
+            pid[:nfull] = np.asarray(m.blocks, np.int64)[tok[:nfull] // bs]
+        if resume > nfull:
+            pid[nfull:] = m.tail_block
+        kv_len = self.pool.kv_len
+        flat = torch.from_numpy(
+            flat_position(pid, tok, self.slots, kv_len, bs)).to(self.device)
+        for key in self.adapter.length_keys:
+            arr = self._cache[key]                   # (L, B, T, G, hd)
+            n, b = arr.shape[:2]
+            vals = arr.reshape((n, b * kv_len) + arr.shape[3:])[:, flat]
+            skey = key + "_scale"
+            if skey in self._cache:
+                nb = kv_len // bs
+                sidx = torch.from_numpy(
+                    (pid % self.slots) * nb + pid // self.slots).to(
+                        self.device)
+                sarr = self._cache[skey]             # (L, B, nb, G)
+                scl = sarr.reshape(n, b * nb, -1)[:, sidx]   # (L, r, G)
+                vals = vals.float() * scl[..., None]
+            row = task.cache[key]
+            row[:, 0, :resume] = vals.to(row.dtype)
+        task.cache["pos"] = resume
+        task.start = m.write_start(bs)
+        task.done = resume
+        self._radix.stats.hit_tokens += resume
+        self.obs.instant("radix_hit", rid=task.req.rid, tokens=resume,
+                         shared_blocks=len(m.blocks), tail=m.tail_len)
+        self.obs.count("radix_hit_tokens", resume)
 
     def _prefill_tick(self) -> bool:
         """Advance the oldest in-flight chunked prefill by ONE chunk — at
@@ -449,7 +578,20 @@ class ServeEngine:
 
     def _finish_chunked(self, task: _ChunkTask, first: int) -> None:
         req = task.req
-        self._write_row(req, task.cache, task.blocks)
+        if self.paged:
+            # decode appends land in the prompt's boundary block onward;
+            # shared blocks are read-only by contract, so that block
+            # must be private
+            assert self.pool.refcount(
+                task.blocks[req.prompt_len // self._block_size]) == 1, \
+                "decode-append block is shared"
+        self._write_row(req, task.cache, task.blocks, start=task.start)
+        if self._radix is not None:
+            # index the request's fully written prompt blocks (shared
+            # prefix nodes are reused; only new nodes retain); the
+            # partial tail joins at retirement, once decode stops
+            # appending into it
+            self._radix.insert(req.prompt, task.blocks)
         req.generated.append(first)
         self._tokens[req.slot, 0] = first
         self.metrics.on_first_token(req.rid, self._now())
@@ -535,6 +677,12 @@ class ServeEngine:
                 and req.generated[-1] == self.eos_id
             if req.done or eos:
                 slot = req.slot
+                if self._radix is not None \
+                        and req.rid not in self._prefilling:
+                    # the partial prompt-tail block becomes indexable
+                    # only now: its owner stops appending decode tokens
+                    self._radix.insert_tail(
+                        req.prompt, self.pool.lease(req.rid).blocks)
                 self.scheduler.finish(req)
                 if self.paged:
                     self._tables[slot] = -1      # unmap: blocks recycle
@@ -612,4 +760,6 @@ class ServeEngine:
                 "decisions": [dataclasses.asdict(d)
                               for d in self.retune.decisions],
             }),
+            radix=(self._radix.as_report()
+                   if self._radix is not None else None),
         )

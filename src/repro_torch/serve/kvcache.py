@@ -1,16 +1,23 @@
 """Block/paged KV-cache accounting for the serving pool.
 
-A copy of the JAX package's ``serve/kvcache.py`` without the radix
-prefix cache's sharing paths (retain, copy-on-write, aliased leases).
+A copy of the JAX package's ``serve/kvcache.py`` (the pool's storage
+dtype lives in the engine and its adapter here, not in the pool).  It
+accounts CAPACITY, blind to the cache arrays' layout:
 
-  * ``BlockAllocator`` — a shared pool of fixed-size KV blocks.  Every
-    admitted request acquires enough blocks to cover its projected
-    length and releases them on retirement; blocks are the admission
-    currency.  Invariant (``check``): every block is free XOR held by
-    exactly one holder.
+  * ``BlockAllocator`` — a shared pool of fixed-size KV blocks with
+    PER-BLOCK REFCOUNTS.  Every admitted request acquires enough blocks
+    to cover its projected length and releases them on retirement;
+    blocks are the admission currency.  A block's refcount is the
+    number of holders listing it — live requests, plus the radix prefix
+    cache (``serve.radix``), which retains prompt-prefix blocks under
+    the ``"radix"`` holder so later requests with the same prefix map
+    them instead of recomputing.  Invariant (``check``): every block is
+    free XOR has refcount >= 1, and the refcount equals its holder
+    count.
   * ``KVCachePool`` — slot bookkeeping on top: free-slot tracking,
-    admission (slot AND blocks, atomically), retirement, and growth when
-    the length bucket steps up.
+    admission (slot AND blocks, atomically; optionally aliasing a
+    shared block prefix), retirement, copy-on-write block promotion
+    (``ensure_private``), and growth when the length bucket steps up.
 
 Paging is PHYSICAL: block ids become cache locations through the
 column-major grid mapping (``kernels.paged_gather.flat_position``)
@@ -20,12 +27,20 @@ column-major grid mapping (``kernels.paged_gather.flat_position``)
 so pool growth appends new ids without remapping live blocks;
 ``KVCachePool.block_table`` exports each lease as a logical -> physical
 row for the scatter writes and the paged decode kernel.
+
+Sharing safety: a block with refcount > 1 is read-only by contract.  The
+engine enforces it by construction — prefix-shared blocks occupy only
+the LEADING table entries of a request, the prefill write starts at the
+first private block, and decode appends land past the prompt, in
+private blocks.  ``ensure_private`` is the accounting half of
+copy-on-write: it swaps a shared block out of one lease for a fresh
+private one without ever touching the shared block.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Hashable, Optional
+from typing import Hashable, Iterable, Optional, Sequence
 
 
 __all__ = ["BlockAllocator", "KVCachePool", "Lease"]
@@ -37,7 +52,7 @@ def ceil_div(a: int, b: int) -> int:
 
 
 class BlockAllocator:
-    """Fixed pool of KV blocks with per-holder tracking.
+    """Fixed pool of KV blocks with refcounted per-holder tracking.
 
     Example::
 
@@ -52,6 +67,7 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self._free: list[int] = list(range(num_blocks - 1, -1, -1))
+        self._ref: dict[int, int] = {}                 # block -> refcount
         self._held: dict[Hashable, list[int]] = {}     # holder -> blocks
 
     @property
@@ -62,27 +78,103 @@ class BlockAllocator:
         """Blocks needed to cover ``tokens`` KV positions."""
         return ceil_div(max(tokens, 1), self.block_size)
 
-    def can_alloc(self, tokens: int) -> bool:
-        """True when the free list covers ``tokens`` positions."""
-        return self.blocks_for(tokens) <= len(self._free)
+    def can_alloc(self, tokens: int, shared: int = 0) -> bool:
+        """True when the free list covers ``tokens`` positions, of which
+        the first ``shared`` blocks come aliased (no free block cost)."""
+        return self.blocks_for(tokens) - shared <= len(self._free)
 
-    def alloc(self, rid: Hashable, tokens: int) -> list[int]:
-        """Acquire blocks covering ``tokens`` for request ``rid``."""
+    def refcount(self, block: int) -> int:
+        """Current refcount of ``block`` (0 = free)."""
+        return self._ref.get(block, 0)
+
+    def alloc(self, rid: Hashable, tokens: int,
+              shared: Sequence[int] = ()) -> list[int]:
+        """Acquire blocks covering ``tokens`` for request ``rid``.
+
+        ``shared`` aliases already-live blocks (a radix prefix match) as
+        the lease's LEADING entries: their refcounts bump instead of
+        consuming the free list, and only the remainder is popped fresh.
+        """
         if rid in self._held:
             raise ValueError(f"request {rid} already holds blocks")
         n = self.blocks_for(tokens)
-        if n > len(self._free):
-            raise MemoryError(f"need {n} blocks, {len(self._free)} free")
-        got = [self._free.pop() for _ in range(n)]
+        if len(shared) > n:
+            raise ValueError(f"shared prefix ({len(shared)} blocks) longer "
+                             f"than the lease ({n})")
+        for b in shared:
+            if self._ref.get(b, 0) < 1:
+                raise ValueError(f"shared block {b} is not live")
+        fresh = n - len(shared)
+        if fresh > len(self._free):
+            raise MemoryError(f"need {fresh} blocks, {len(self._free)} free")
+        got = list(shared) + [self._free.pop() for _ in range(fresh)]
+        for b in got:
+            self._ref[b] = self._ref.get(b, 0) + 1
         self._held[rid] = got
         return list(got)
 
     def release(self, rid: Hashable) -> list[int]:
-        """Return ``rid``'s blocks to the free list (a double release is
-        a bug and raises)."""
+        """Drop ``rid``'s references; blocks reaching refcount 0 return
+        to the free list (a double release is a bug and raises)."""
         blocks = self._held.pop(rid)
-        self._free.extend(blocks)
+        for b in blocks:
+            self._decref(b)
         return blocks
+
+    def retain(self, holder: Hashable, blocks: Iterable[int]) -> None:
+        """Add references on live blocks under ``holder`` (the radix
+        cache's retention path; a holder never lists a block twice)."""
+        cur = self._held.setdefault(holder, [])
+        seen = set(cur)
+        for b in blocks:
+            if b in seen:
+                raise ValueError(f"holder {holder} already retains {b}")
+            if self._ref.get(b, 0) < 1:
+                raise ValueError(f"cannot retain free block {b}")
+            cur.append(b)
+            seen.add(b)
+            self._ref[b] += 1
+
+    def release_blocks(self, holder: Hashable,
+                       blocks: Iterable[int]) -> None:
+        """Drop ``holder``'s references on specific blocks (eviction /
+        pin release); blocks reaching refcount 0 free."""
+        cur = self._held.get(holder)
+        if cur is None:
+            raise KeyError(f"holder {holder} holds nothing")
+        for b in blocks:
+            cur.remove(b)                  # raises if not held: a bug
+            self._decref(b)
+        if not cur:
+            del self._held[holder]
+
+    def swap(self, holder: Hashable, old: int) -> int:
+        """Copy-on-write accounting: replace ``holder``'s reference on
+        ``old`` with a freshly popped private block.  ``old`` is NEVER
+        mutated — only the holder's reference moves.  Returns the new
+        private block id; raises ``MemoryError`` when the free list is
+        empty."""
+        cur = self._held[holder]
+        i = cur.index(old)
+        if self._ref.get(old, 0) < 1:
+            raise ValueError(f"block {old} is not live")
+        if not self._free:
+            raise MemoryError("no free block for copy-on-write")
+        new = self._free.pop()
+        cur[i] = new
+        self._ref[new] = 1
+        self._decref(old)
+        return new
+
+    def _decref(self, b: int) -> None:
+        self._ref[b] -= 1
+        if self._ref[b] == 0:
+            del self._ref[b]
+            self._free.append(b)
+
+    def holders(self) -> dict[Hashable, list[int]]:
+        """Snapshot of holder -> held block ids (copies, not views)."""
+        return {r: list(bs) for r, bs in self._held.items()}
 
     def add_blocks(self, n: int) -> None:
         """Grow the pool (backing a pool-length bucket step)."""
@@ -93,18 +185,26 @@ class BlockAllocator:
         self._free.extend(range(first, first + n))
 
     def check(self) -> None:
-        """Conservation: held and free partition the pool, no block is
-        held twice."""
-        held = [b for bs in self._held.values() for b in bs]
-        assert len(held) == len(set(held)), "block held twice"
-        assert not set(held) & set(self._free), "held block also free"
+        """Conservation: refcounts equal holder counts, and free XOR
+        referenced partitions the pool."""
+        counts: dict[int, int] = {}
+        for bs in self._held.values():
+            assert len(bs) == len(set(bs)), "holder lists a block twice"
+            for b in bs:
+                counts[b] = counts.get(b, 0) + 1
+        assert counts == self._ref, "refcounts out of sync with holders"
+        assert not set(counts) & set(self._free), "held block also free"
         assert len(self._free) == len(set(self._free)), "free list aliased"
-        assert len(held) + len(self._free) == self.num_blocks, "blocks lost"
+        assert len(counts) + len(self._free) == self.num_blocks, \
+            "blocks lost"
+        assert all(c >= 1 for c in counts.values())
 
 
 @dataclasses.dataclass
 class Lease:
-    """What one live request holds: a slot row + its KV blocks.
+    """What one live request holds: a slot row + its KV blocks.  The
+    first ``shared`` table entries alias radix-retained prefix blocks
+    (refcount > 1, read-only); the rest are private.
 
     Example::
 
@@ -116,6 +216,7 @@ class Lease:
     slot: int
     blocks: list[int]
     projected_len: int
+    shared: int = 0                        # leading aliased block count
 
 
 class KVCachePool:
@@ -155,37 +256,79 @@ class KVCachePool:
     def live(self) -> int:
         return len(self._leases)
 
-    def fits(self, projected_len: int) -> bool:
-        """Admission predicate: a free slot, enough blocks, and a row
-        long enough RIGHT NOW (a later, longer request waits for the pool
-        to grow on its turn at the head)."""
+    def fits(self, projected_len: int, shared: int = 0) -> bool:
+        """Admission predicate: a free slot, enough blocks (the first
+        ``shared`` come aliased from the radix cache at no free-list
+        cost), and a row long enough RIGHT NOW (a later, longer request
+        waits for the pool to grow on its turn at the head)."""
         return (bool(self._free_slots)
                 and projected_len <= self.kv_len
-                and self.allocator.can_alloc(projected_len))
+                and self.allocator.can_alloc(projected_len, shared))
 
-    def admit(self, rid: int, projected_len: int) -> Lease:
+    def admit(self, rid: int, projected_len: int,
+              shared: Sequence[int] = ()) -> Lease:
         """Seat a request: a slot + blocks for ``projected_len``,
-        atomically (raises without mutating when either is short)."""
+        atomically (raises without mutating when either is short).
+        ``shared`` aliases radix-retained prefix blocks as the lease's
+        leading table entries — their refcounts bump, the free list only
+        pays for the private remainder."""
         if not self._free_slots:
             raise MemoryError("no free slot")
         if projected_len > self.kv_len:
             raise MemoryError(f"row too short: projected {projected_len} "
                               f"> kv_len {self.kv_len}")
-        blocks = self.allocator.alloc(rid, projected_len)
+        blocks = self.allocator.alloc(rid, projected_len, shared=shared)
         slot = self._free_slots.pop()
         lease = Lease(rid=rid, slot=slot, blocks=blocks,
-                      projected_len=projected_len)
+                      projected_len=projected_len, shared=len(shared))
         self._leases[rid] = lease
         self._by_slot[slot] = rid
         return lease
 
     def retire(self, rid: int) -> Lease:
-        """Release ``rid``'s slot + blocks back to the pool."""
+        """Release ``rid``'s slot + block references back to the pool
+        (shared blocks survive under their remaining holders)."""
         lease = self._leases.pop(rid)
         self.allocator.release(rid)
         del self._by_slot[lease.slot]
         self._free_slots.append(lease.slot)
         return lease
+
+    def refcount(self, block: int) -> int:
+        """Refcount of a physical block (0 = free)."""
+        return self.allocator.refcount(block)
+
+    def ensure_private(self, rid: int, j: int) -> tuple[int, int]:
+        """Copy-on-write promotion for logical block ``j`` of ``rid``'s
+        lease: if the backing block is shared (refcount > 1), swap it
+        for a fresh private block and return ``(old, new)``; already
+        private returns ``(old, old)``.  PURE ACCOUNTING — the shared
+        block's contents are never touched; the caller owns moving any
+        live data into ``new``.
+
+        Copy-on-write is legal only at or past the shared run's LAST
+        block: a request never writes interior prefix positions (prefill
+        resumes at ``write_start``, decode appends past the prompt), so
+        an interior swap has no data to move and would strand aliased
+        entries behind a shrunken ``lease.shared`` — it raises instead.
+
+        Example::
+
+            old, new = pool.ensure_private(req.rid, prompt_len // bs)
+        """
+        lease = self._leases[rid]
+        old = lease.blocks[j]
+        if self.allocator.refcount(old) <= 1:
+            return old, old
+        if j < lease.shared - 1:
+            raise ValueError(
+                f"copy-on-write at interior shared block {j} (shared run "
+                f"is {lease.shared} blocks): prefix interiors are "
+                f"read-only; COW applies at the run boundary only")
+        new = self.allocator.swap(rid, old)
+        lease.blocks[j] = new
+        lease.shared = min(lease.shared, j)
+        return old, new
 
     def lease(self, rid: int) -> Lease:
         """The live ``Lease`` held by request ``rid`` (KeyError if not
@@ -208,6 +351,10 @@ class KVCachePool:
                              f"width {width}")
         return list(blocks) + [-1] * (width - len(blocks))
 
+    def slot_owner(self, slot: int) -> Optional[int]:
+        """The rid leasing ``slot``, or ``None`` when it is free."""
+        return self._by_slot.get(slot)
+
     def grow(self, new_len: int, extra_blocks: Optional[int] = None) -> None:
         """Step the row length up to the next bucket; the allocator gains
         the blocks backing the new tail capacity."""
@@ -227,7 +374,8 @@ class KVCachePool:
 
     def check(self) -> None:
         """Pool-level invariants on top of the allocator's: slots
-        partition cleanly and every lease fits its row."""
+        partition cleanly, every lease fits its row, and live tables are
+        pairwise disjoint EXCEPT on their shared leading prefixes."""
         self.allocator.check()
         slots_held = [l.slot for l in self._leases.values()]
         assert len(slots_held) == len(set(slots_held)), "slot double-booked"
@@ -239,3 +387,10 @@ class KVCachePool:
             assert self._by_slot[lease.slot] == rid
             assert lease.projected_len <= self.kv_len, \
                 "lease outgrew the pool row"
+            for b in lease.blocks[lease.shared:]:
+                # private region: this lease must be the sole live lease
+                # mapping the block (the radix cache may also retain it,
+                # so the refcount alone is not the test)
+                for r2, l2 in self._leases.items():
+                    assert r2 == rid or b not in l2.blocks[l2.shared:], \
+                        "private block aliased by two leases"

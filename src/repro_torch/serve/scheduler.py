@@ -1,7 +1,8 @@
 """Request queue, admission control, and slot recycling.
 
-A copy of the JAX package's ``serve/scheduler.py`` without the radix
-prefix-cache hooks.  Requests move through four states —
+A copy of the JAX package's ``serve/scheduler.py`` (no position offset:
+the port serves no family with cache positions before token 0).
+Requests move through four states —
 
     submitted (future arrival) -> ready (queued) -> live (holds a
     KVCachePool lease) -> done
@@ -9,9 +10,16 @@ prefix-cache hooks.  Requests move through four states —
 — under a strict FIFO rule: only the HEAD of the ready queue is ever
 considered, and it is admitted the moment the pool can seat it (a free
 slot + enough KV blocks).  A request that could never be seated is
-rejected at submission, so none starves.  Admission is continuous: a
-finished request frees its lease and the queue head takes it on the
-next tick (the JAX package's ``gang`` baseline is not ported).
+rejected at submission, so none starves.  Two admission modes:
+
+  ``continuous``  recycle slots mid-decode — a finished request frees
+                  its lease and the queue head takes it on the next tick;
+  ``gang``        a new batch is admitted only when the pool is EMPTY —
+                  the static fixed-batch baseline.
+
+With a radix cache (``serve.radix``) attached, admission matches each
+head request's prompt prefix first, and the matched blocks alias into
+the lease's leading table entries.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ from typing import Optional
 
 from repro_torch.serve.kvcache import KVCachePool
 
-__all__ = ["Request", "Scheduler"]
+__all__ = ["Request", "Scheduler", "ADMISSION_MODES"]
+
+ADMISSION_MODES = ("continuous", "gang")
 
 _rid_counter = itertools.count()
 
@@ -68,14 +78,23 @@ class Scheduler:
 
     Example::
 
-        sched = Scheduler(pool)
+        sched = Scheduler(pool, mode="continuous")
         sched.submit(req); sched.poll(now)
         for r in sched.admissible():
             ...  # prefill + seat r
     """
 
-    def __init__(self, pool: KVCachePool):
+    def __init__(self, pool: KVCachePool, *, mode: str = "continuous",
+                 radix=None):
+        if mode not in ADMISSION_MODES:
+            raise ValueError(f"mode must be one of {ADMISSION_MODES}, "
+                             f"got {mode!r}")
         self.pool = pool
+        self.mode = mode
+        #: optional ``serve.radix.RadixCache``: admission matches each
+        #: head request's prompt prefix, pins + evicts for room, and the
+        #: matched blocks alias into the lease's leading table entries
+        self.radix = radix
         self._future: deque[Request] = deque()    # submitted, not arrived
         self._ready: deque[Request] = deque()     # arrived, waiting
         self._live: dict[int, Request] = {}
@@ -100,14 +119,31 @@ class Scheduler:
 
     def admissible(self) -> list[Request]:
         """Pop every request admission can seat RIGHT NOW, strictly from
-        the queue head.  Callers prefill + seat each returned request."""
+        the queue head.  Callers prefill + seat each returned request.
+
+        With a radix cache attached, each head request's prompt is
+        matched FIRST (``RadixCache.prepare``: match, pin, evict for
+        room): the matched full-prefix blocks alias into the lease
+        (``KVCachePool.admit(shared=...)``), so admission charges the
+        free list only for the private remainder, and the pin keeps a
+        later head's eviction off the blocks this one maps."""
+        if self.mode == "gang" and self._live:
+            return []
         out = []
         while self._ready:
             req = self._ready[0]
-            if not self.pool.fits(req.projected_len):
+            shared: list[int] = []
+            if self.radix is not None:
+                shared = self.radix.prepare(req).blocks
+            if not self.pool.fits(req.projected_len, shared=len(shared)):
+                if self.radix is not None:
+                    self.radix.cancel(req.rid)
                 break
             self._ready.popleft()
-            lease = self.pool.admit(req.rid, req.projected_len)
+            lease = self.pool.admit(req.rid, req.projected_len,
+                                    shared=shared)
+            if self.radix is not None:
+                self.radix.admitted(req.rid)
             req.slot = lease.slot
             self._live[req.rid] = req
             out.append(req)

@@ -1,7 +1,7 @@
 """Synthetic serving traffic: Poisson arrivals, configurable length
-distributions, open- and closed-loop driving (a copy of the JAX
-package's ``serve/traffic.py`` without the shared-prefix mixes the radix
-cache is measured on).
+distributions, open- and closed-loop driving, shared-prefix mixes (a
+copy of the JAX package's ``serve/traffic.py``: one seed draws the same
+prompts in both packages).
 
 Open loop models an internet-facing frontend: arrivals are a Poisson
 process at ``rate`` req/s and do not care how busy the engine is — the
@@ -50,12 +50,24 @@ class TrafficConfig:
     concurrency: int = 4                    # closed-loop clients
     vocab: int = 512
     seed: int = 0
+    #: ``(prefix_len, fraction)`` — that fraction of requests start with
+    #: ONE common ``prefix_len``-token preamble (drawn once per mix)
+    #: followed by their private prompt draw: the system-prompt-heavy
+    #: traffic shape radix prefix sharing exists for.  ``None`` keeps
+    #: every prompt independent.
+    shared_prefix: Optional[tuple] = None
 
     def __post_init__(self):
         if self.mode not in ("open", "closed"):
             raise ValueError(f"mode must be open|closed, got {self.mode!r}")
         if self.rate <= 0 or self.n_requests <= 0:
             raise ValueError("rate and n_requests must be positive")
+        if self.shared_prefix is not None:
+            plen, frac = self.shared_prefix
+            if int(plen) < 1 or not (0.0 < float(frac) <= 1.0):
+                raise ValueError(
+                    f"shared_prefix must be (len >= 1, 0 < fraction <= 1), "
+                    f"got {self.shared_prefix!r}")
 
 
 def sample_length(dist: tuple, rng: random.Random) -> int:
@@ -86,6 +98,13 @@ def synthesize(cfg: TrafficConfig) -> list[Request]:
         reqs = synthesize(TrafficConfig(n_requests=4, seed=7))
     """
     rng = random.Random(cfg.seed)
+    preamble: list[int] = []
+    frac = 0.0
+    if cfg.shared_prefix is not None:
+        # ONE preamble per mix, drawn up front: every sharing request in
+        # the timeline prepends the same token run
+        plen, frac = cfg.shared_prefix
+        preamble = [rng.randrange(1, cfg.vocab) for _ in range(int(plen))]
     t = 0.0
     out = []
     for _ in range(cfg.n_requests):
@@ -94,6 +113,8 @@ def synthesize(cfg: TrafficConfig) -> list[Request]:
         plen = sample_length(cfg.prompt_dist, rng)
         olen = sample_length(cfg.output_dist, rng)
         prompt = [rng.randrange(1, cfg.vocab) for _ in range(plen)]
+        if preamble and rng.random() < frac:
+            prompt = preamble + prompt
         out.append(Request(prompt=prompt, max_new_tokens=olen,
                            arrival=t if cfg.mode == "open" else 0.0))
     return out

@@ -579,6 +579,45 @@ def test_trace_view_renders_a_port_trace(trace_view, runs, suffix, tmp_path,
     assert "drift vs roofline" in out and "decode_tick," in out
 
 
+def test_trace_view_prints_the_radix_section_of_a_cli_trace(
+        trace_view, tmp_path, capsys):
+    """The serving CLI's trace with the radix on: the radix section lists
+    each hit, and ``--require-prefix-hits`` passes on it and fails on a
+    trace without hits."""
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.profiler import TraceStore, set_default_store
+    from repro_torch.tuner import set_default_cache
+
+    path = str(tmp_path / "radix.jsonl")
+    # the CLI's TUNED plans from a memory-only cache and trace store
+    set_default_cache(TuningCache(path=None))
+    set_default_store(TraceStore(path=None))
+    try:
+        out = serve_main(["--device", "cpu", "--prefix-cache",
+                          "--shared-prefix", "24", "--mode", "closed",
+                          "--requests", "6", "--slots", "2",
+                          "--max-len", "96", "--max-new", "4",
+                          "--trace", path])
+    finally:
+        set_default_cache(None)
+        set_default_store(None)
+    capsys.readouterr()
+    rc = trace_view.main([path, "--hw", "cpu", "--require-prefix-hits"])
+    text = capsys.readouterr().out
+    assert rc == 0
+    rx = out["radix"]
+    assert (f"# radix: {rx['hits']}/{rx['lookups']} lookups hit, "
+            f"{rx['hit_tokens']} prompt tokens served from shared blocks"
+            in text)
+    assert "rid,tokens,shared_blocks,tail" in text
+    bare = Tracer(clock=FakeClock())
+    with bare.span("unrelated"):
+        pass
+    bare_path = write_trace(bare, str(tmp_path / "bare.jsonl"))
+    assert trace_view.main([bare_path, "--require-prefix-hits"]) == 1
+    capsys.readouterr()
+
+
 def test_trace_view_require_flags_fail_on_a_bare_trace(trace_view, tmp_path,
                                                        capsys):
     bare = Tracer(clock=FakeClock())

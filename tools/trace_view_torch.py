@@ -11,7 +11,8 @@ decisions and roofline drift.
 Reads either form ``repro_torch.obs.export`` writes (Perfetto/Chrome JSON
 or versioned JSONL; the JAX package's traces too), counts the spans by
 name, aggregates the serving spans per (phase, bucket, executed plan),
-lists the retune controller's decisions, and, when the trace's meta
+lists the retune controller's decisions and the radix prefix cache's
+hits and evictions, and, when the trace's meta
 carries the model's geometry, ranks measured-vs-roofline drift per
 bucket (``repro_torch.obs.drift``) on the ``--hw`` part: a
 ``GPU_REGISTRY`` name, or ``detect`` (the CUDA device where one is
@@ -61,6 +62,9 @@ def main(argv=None) -> int:
     ap.add_argument("--require-swaps", action="store_true",
                     help="exit 1 unless the trace records at least one "
                          "concluded retune decision")
+    ap.add_argument("--require-prefix-hits", action="store_true",
+                    help="exit 1 unless the trace records at least one "
+                         "radix prefix-cache hit")
     args = ap.parse_args(argv)
 
     tracer = load_trace(args.trace)
@@ -117,6 +121,32 @@ def main(argv=None) -> int:
         if args.require_swaps:
             print("trace_view_torch: FAIL — retune decisions required",
                   file=sys.stderr)
+            return 1
+
+    # the radix prefix cache's sharing, as the engine logged it
+    counters = tracer.counters()
+    hits = [s.attrs for s in spans if s.name == "radix_hit"]
+    evicts = [s.attrs for s in spans if s.name == "radix_evict"]
+    lookups = int(counters.get("radix_lookups", 0))
+    n_hits = int(counters.get("radix_hits", len(hits)))
+    hit_tok = int(counters.get("radix_hit_tokens",
+                               sum(h.get("tokens", 0) for h in hits)))
+    ev_blocks = int(counters.get("radix_evicted_blocks",
+                                 sum(e.get("blocks", 0) for e in evicts)))
+    print(f"\n# radix: {n_hits}/{lookups or '?'} lookups hit, "
+          f"{hit_tok} prompt tokens served from shared blocks, "
+          f"{ev_blocks} blocks evicted across {len(evicts)} sweeps")
+    if hits:
+        print("rid,tokens,shared_blocks,tail")
+        for h in hits:
+            print(f"{h.get('rid')},{h.get('tokens')},"
+                  f"{h.get('shared_blocks')},{h.get('tail')}")
+    else:
+        print("(no radix_hit spans: prefix cache off, unshareable family, "
+              "or no prompt overlap in this window)")
+        if args.require_prefix_hits:
+            print("trace_view_torch: FAIL — radix prefix-cache hits "
+                  "required", file=sys.stderr)
             return 1
 
     rep = drift_report(spans, meta, _hw(args.hw))
