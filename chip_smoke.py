@@ -22,7 +22,7 @@ Phases, each printing one JSON line:
            a 32-row chunk at q_offset 203 over a 256 cache (a radix
            resume: the first query tile straddles the diagonal off the
            16-row grid), and a 512 prompt at qwen3-8b's heads, head_dim
-           128, bf16 only), in float32 (atol
+           128, bf16), in float32 (atol
            = rtol = 2e-5: summation order only) and bfloat16 (atol = rtol
            = 1.6e-2: two bf16 ulps near 1); the two gathers bit for bit;
            the int8 decode and dequant gather over int8 codes with random
@@ -47,7 +47,14 @@ Phases, each printing one JSON line:
            cache at its buffer's start and at ``GATHER_OFFSETS`` past
            it, every item width of each launched by the wrappers' own
            plans, and at ``GATHER_WIDE`` (2.15 GB of int8 codes: the
-           64-bit index path);
+           64-bit index path); then the variants the dense phase's
+           models take (``add_variants``): flash in f32 at head_dim 128
+           (qwen3-8b's G 8, R 4: a 512 prompt and a 64-row chunk at
+           q_offset 385) and 32, and in bf16 at head_dim 192
+           (nemotron-4-340b's G 8, R 12: the prompt and the chunk); the
+           three decode kernels at R 12 / D 192 and R 16 / D 256 (runs of
+           4 heads a CTA); both gathers at D 192; ``DECODE_SHAPES`` also
+           holds R 12 / D 192 and R 16 / D 256;
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
@@ -135,6 +142,21 @@ Phases, each printing one JSON line:
            must be above 0, every other kernel 0 (the ssm path runs none:
            its prefill is the plain ``ssd_chunked``, as the reference's
            is jnp);
+  dense    qwen3-8b at full width (36 layers, qk-norm, untied; weights
+           drawn on the card): in float32 with the radix on, 2 slots, a
+           4-request sharing mix, the kernels against
+           ``kernels.force("plain")``: identical streams, first
+           decode-step logits within 1e-3, the preamble's 384 tokens hit,
+           flash (f32, head_dim 128) and the paged decode launched and no
+           other kernel, nothing launched by the plain run; in bf16,
+           chunked and whole-prompt on the mix's first ``DENSE_REQUESTS``
+           requests with the engine phase's gates, and the chunked run
+           under torch.profiler (``dense_profile``: busy time, idle
+           share); then nemotron-4-340b at its published width cut to
+           ``NEMOTRON_LAYERS`` layers (R 12, head_dim 192), bf16, on each
+           path of ``NEMOTRON_RUNS`` (default, int8, gather): the path's
+           kernels launched and no other, the streams equal to a
+           ``force("plain")`` run's (``dense_plain``);
   retune   smollm-135m at full width, default chunked path, TUNED, the
            engine phase's params, the mix's first ``RETUNE_REQUESTS``
            requests, each run in a private tuning cache: untraced, traced
@@ -187,7 +209,8 @@ them, the kernel summary as one JSON line (each row the tuner registers
 with ``tuned_ms`` beside AUTO's ``ms``; a suite row's ``launches``
 counts NAIVE, FIXED and AUTO over every case, and ``tuned_launches``
 TUNED's at its cases; a serving row's ``prefix_launches`` counts the
-prefix phase's runs), and as the last line
+prefix phase's runs; ``variants`` the added variants, each with the
+launches of the dense run that takes it), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  It needs one CUDA device and exits
 non-zero without one.
@@ -196,6 +219,7 @@ non-zero without one.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -306,13 +330,14 @@ RAGGED = (1, 17, 128, 300, 512, 700, 1000, 1024)
 ONE_ROW = (1024, 0, 0, 0, 0, 0, 0, 0)
 
 
-def decode_case(cfg, plan_block, device, dtype, split=None, lens=RAGGED):
+def decode_case(cfg, plan_block, device, dtype, split=None, lens=RAGGED,
+                heads=None):
     """The decode tick's shapes at full width: 8 slots, a 1024-long pool,
     cache lengths ``lens`` over permuted pages, -1 tails; ``split`` the
-    sweep's planned width."""
+    sweep's planned width; ``heads`` (G, R, D) overrides the config's."""
     rng = np.random.default_rng(SEED)
     b, t, pb = 8, 1024, 16
-    g, r, d = cfg.num_kv_heads, cfg.heads_per_group, cfg.head_dim
+    g, r, d = heads or (cfg.num_kv_heads, cfg.heads_per_group, cfg.head_dim)
     clen = np.array(lens, np.int32)
     tw = t // pb
     perm = list(rng.permutation(b * tw))
@@ -398,10 +423,11 @@ def int8_pool(case, gen):
                 v_scale=scales())
 
 
-def contiguous_case(cfg, block_s, device, dtype, split=None, lens=RAGGED):
+def contiguous_case(cfg, block_s, device, dtype, split=None, lens=RAGGED,
+                    heads=None):
     """The decode tick's shapes on the contiguous pool (and on a gathered
     view): decode_case's rows, lengths and caches, no tables."""
-    c = decode_case(cfg, block_s, device, dtype, split, lens)
+    c = decode_case(cfg, block_s, device, dtype, split, lens, heads)
     return dict(q=c["q"], k_cache=c["k_cache"], v_cache=c["v_cache"],
                 cache_len=c["cache_len"], block_s=block_s, split=split)
 
@@ -528,7 +554,9 @@ SPLIT_SWEEP = (16, 32, 64, 128, 256, 512, 1024)
 #: D 96 with a first chunk of 3 positions (at D 96 and 100 a lane group
 #: is 32 lanes over 128 values, so lanes 24/25-31 hold no column);
 #: 128 splits of one row merged; one split of 512 (32 chunks through the
-#: 4-stage ring); pages of 8 and 32 and a split planned by AUTO (None)
+#: 4-stage ring); pages of 8 and 32 and a split planned by AUTO (None);
+#: the wide groups: R 12 at D 192 (nemotron-4-340b; three runs of 4 heads
+#: a group, lanes 24-31 idle) and R 16 at D 256 (four runs of 4)
 DECODE_SHAPES = (
     (3, 80, 2, 2, 16, 16, 16, 16, (0, 17, 85)),
     (2, 96, 1, 8, 128, 32, 32, 64, (96, 33)),
@@ -537,7 +565,17 @@ DECODE_SHAPES = (
     (2, 64, 1, 3, 96, 16, 16, 16, (3, 35)),
     (1, 2048, 1, 3, 64, 16, 16, 16, (2000,)),
     (2, 512, 3, 3, 64, 16, 16, 512, (512, 300)),
+    (2, 128, 2, 12, 192, 16, 32, None, (128, 77)),
+    (2, 96, 1, 16, 256, 32, 32, 64, (96, 33)),
 )
+
+#: the head geometries (G, R, D) of the kernels phase's variants:
+#: qwen3-8b's, nemotron-4-340b's, the decode sweep's widest and the
+#: reduced configs'
+QWEN3_HEADS = (8, 4, 128)
+NEMOTRON_HEADS = (8, 12, 192)
+WIDEST_HEADS = (8, 16, 256)
+REDUCED_HEADS = (2, 2, 32)
 
 
 #: shapes the gather wrappers take beyond the serving one: (B, T, G, D,
@@ -778,6 +816,110 @@ def decode_shapes_check(device, hw):
     return rows
 
 
+def add_variants(results, cfg, hw, device, timer, measure):
+    """The variants the dense phase's models take, appended to each
+    serving kernel's cases (after the serving shape, which stays first):
+    flash in f32 at head_dim 128 (qwen3-8b's heads, a 512 prompt and a
+    64-row chunk at an odd q_offset) and 32 (the reduced configs'), and in
+    bf16 at head_dim 192 (nemotron-4-340b's G 8, R 12; the prompt and the
+    chunk); the three decode kernels at R 12 / D 192 and R 16 / D 256 over
+    ``decode_case``'s ragged lengths (nemotron's also timed at each
+    width of ``SPLIT_SWEEP``); the gathers at D 192.  Each case names the
+    dense run whose launches it reports (``dense_run``; None: no dense
+    run takes it)."""
+    from repro_torch.core.mapper import (decode_head_chunks,
+                                         plan_attention_blocks,
+                                         plan_cache_block, plan_decode_split,
+                                         plan_paged_block)
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.paged_gather import (paged_dequant_gather,
+                                                  paged_gather)
+
+    def flash(label, heads, sq, sk, off, dtype, dense_run):
+        p = plan_attention_blocks(sq, sk, heads[2], hw)
+        tiles = (p.block_q, p.block_k)
+        entry = measure("flash_attention", flash_attention,
+                        lambda dt: flash_case(cfg, sq, sk, off, tiles,
+                                              device, dt, heads=heads),
+                        flash_bound, sdpa_call, dtypes=(dtype,))
+        return dict(shape=f"{label}: G {heads[0]}, R {heads[1]}, "
+                          f"head_dim {heads[2]}, {sq} queries at q_offset "
+                          f"{off} over {sk} keys, tiles {tiles}",
+                    variant=label, dense_run=dense_run, **entry)
+
+    results["flash_attention"] += [
+        flash("f32 D 128", QWEN3_HEADS, 512, 512, 0, F32, "qwen3_fp32"),
+        flash("f32 D 128 chunk", QWEN3_HEADS, 64, 512, 385, F32,
+              "qwen3_fp32"),
+        flash("f32 D 32", REDUCED_HEADS, 512, 512, 0, F32, None),
+        flash("bf16 D 192", NEMOTRON_HEADS, 512, 512, 0, BF16, "nemotron"),
+        flash("bf16 D 192 chunk", NEMOTRON_HEADS, 64, 512, 385, BF16,
+              "nemotron")]
+
+    def decode(name, fn, heads, quant, contiguous, dense_run):
+        g, r, d = heads
+        if contiguous:
+            bs = plan_cache_block(1024, d, hw, heads_per_group=r)
+        else:
+            bs = plan_paged_block(1024, d, 16, hw, heads_per_group=r)
+        w = plan_decode_split(1024, 8 * g, bs, d, hw, heads_per_group=r,
+                              page_block=None if contiguous else 16)
+
+        def case(dt):
+            if contiguous:
+                return contiguous_case(cfg, bs, device, dt, w, heads=heads)
+            c = decode_case(cfg, bs, device, dt, w, heads=heads)
+            return int8_pool(c, torch.Generator().manual_seed(SEED + 2)) \
+                if quant else c
+
+        fn.last_grid = None
+        entry = measure(name, fn, case, decode_bound,
+                        sdpa_decode_call if contiguous else None,
+                        head_start=True)
+        grid = fn.last_grid
+        label = f"R {r} D {d}"
+        if dense_run:                # the same call at other split widths
+            args = {k: x for k, x in case(BF16).items()
+                    if not k.endswith("_bytes")}
+            entry["split_sweep_ms"] = {
+                width: timer.ms(lambda: fn(**dict(args, split=width)),
+                                head_start=True)
+                for width in SPLIT_SWEEP}
+        return dict(shape=f"{label}: slots 8, G {g}, pool 1024, ragged "
+                          f"lengths", variant=label, dense_run=dense_run,
+                    plan=dict(block_s=bs, split=w, grid=list(grid),
+                              ctas=math.prod(grid),
+                              head_runs=decode_head_chunks(d, r)),
+                    **entry)
+
+    for name, fn, quant, contiguous, run in (
+            ("paged_decode_attention", paged_decode_attention, False, False,
+             "nemotron"),
+            ("paged_decode_attention_int8", paged_decode_attention, True,
+             False, "nemotron_int8"),
+            ("decode_attention", decode_attention, False, True,
+             "nemotron_gather")):
+        results[name] += [decode(name, fn, NEMOTRON_HEADS, quant,
+                                 contiguous, run),
+                          decode(name, fn, WIDEST_HEADS, quant, contiguous,
+                                 None)]
+    shape = (8, 1024, NEMOTRON_HEADS[0], NEMOTRON_HEADS[2])
+    for name, fn, quant, run in (
+            ("paged_gather", paged_gather, False, "nemotron_gather"),
+            ("paged_dequant_gather", paged_dequant_gather, True, None)):
+        entry = measure(name, fn,
+                        lambda dt, q=quant: pool_gather_case(
+                            shape, device, dt, q, SEED + 6),
+                        gather_bound, None, exact=True, head_start=True)
+        results[name].append(dict(
+            shape=f"D 192: {shape}, page 16, every page mapped",
+            variant="D 192", dense_run=run,
+            plan=dataclasses.asdict(fn.last_plan), **entry))
+
+
 def kernels_phase(cfg, hw, timer, device):
     from repro_torch import kernels
     from repro_torch.core.mapper import (plan_attention_blocks,
@@ -807,9 +949,10 @@ def kernels_phase(cfg, hw, timer, device):
     def measure(name, fn, case, bound_fn, library, exact=False,
                 head_start=False, dtypes=(torch.float32, torch.bfloat16)):
         """Kernel vs plain in each of ``dtypes`` (``exact``: bit for bit),
-        then bf16 times (``head_start`` for microsecond kernels, see
-        ``Timer.ms``); ``case(dtype)`` builds the inputs, its ``*_bytes``
-        keys are bookkeeping, not arguments."""
+        then times in bf16, or in the one dtype a variant takes
+        (``head_start`` for microsecond kernels, see ``Timer.ms``);
+        ``case(dtype)`` builds the inputs, its ``*_bytes`` keys are
+        bookkeeping, not arguments."""
         entry = {"max_abs_err": {}}
         for dtype in dtypes:
             c = dict(case(dtype))
@@ -828,7 +971,9 @@ def kernels_phase(cfg, hw, timer, device):
             else:
                 entry["max_abs_err"][key] = check_close(got, want, dtype,
                                                         f"{name} {dtype}")
-        c = case(torch.bfloat16)               # the serving dtype
+        timed = torch.bfloat16 if torch.bfloat16 in dtypes else dtypes[0]
+        entry["timed_dtype"] = str(timed).split(".")[1]
+        c = case(timed)                        # the serving dtype
         args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
         entry["kernel_ms"] = timer.ms(lambda: fn(**args),
                                       head_start=head_start)
@@ -907,8 +1052,8 @@ def kernels_phase(cfg, hw, timer, device):
                        lambda dt: flash_case(cfg, 512, 512, 0, tiles, device,
                                              dt, causal=False),
                        flash_bound, sdpa_call)),
-        # qwen3-8b's attention heads (8 KV groups x 4, head_dim 128); the
-        # f32 kernel is built for head_dim 64 only, so bf16 alone
+        # qwen3-8b's attention heads (8 KV groups x 4, head_dim 128) in
+        # bf16; its f32 kernel is held among the variants (add_variants)
         dict(shape=f"prompt 512, G 8, R 4, head_dim 128, tiles {tiles128}",
              **measure("flash_attention", flash_attention,
                        lambda dt: flash_case(cfg, 512, 512, 0, tiles128,
@@ -953,6 +1098,7 @@ def kernels_phase(cfg, hw, timer, device):
     results["paged_dequant_gather"] = gather_entries(
         "paged_dequant_gather", paged_dequant_gather, True, None)
     emit("gather_shapes", cases=gather_shapes_check(device))
+    add_variants(results, cfg, hw, device, timer, measure)
     return results
 
 
@@ -2282,6 +2428,12 @@ def engine_run(label, eng, reqs, opts, expected, phase="engine",
     if s.n_completed != len(reqs):
         raise AssertionError(f"{label}: {s.n_completed}/{len(reqs)} "
                              f"completed")
+    check_launches(label, launches, expected)
+    return run, outs
+
+
+def check_launches(label, launches, expected):
+    """The path's own kernels launched, every other kernel not."""
     for k, n in launches.items():
         if k in expected and n <= 0:
             raise AssertionError(f"{label}: {k} was never launched on its "
@@ -2289,7 +2441,6 @@ def engine_run(label, eng, reqs, opts, expected, phase="engine",
         if k not in expected and n != 0:
             raise AssertionError(f"{label}: {k} launched {n} times on a "
                                  f"path that must not use it")
-    return run, outs
 
 
 def engine_phase(device):
@@ -2320,6 +2471,227 @@ def engine_phase(device):
         runs[label], _ = engine_run(label, eng, reqs[:MAMBA_REQUESTS],
                                     {"prefill_chunk": chunk}, set())
     return runs, params, reqs
+
+
+# --------------------------------------------------------------------------- #
+# dense: qwen3-8b and nemotron-4-340b at full width
+# --------------------------------------------------------------------------- #
+
+#: qwen3-8b's bf16 runs serve the engine mix's first requests (1,389
+#: prompt tokens)
+DENSE_REQUESTS = 4
+#: nemotron-4-340b at its published width with its depth cut to 2 layers
+#: (340 B parameters do not fit one card; two layers and the two
+#: 256,000 x 18,432 embedding tables hold 16.4 B, ~33 GB in bf16), on the
+#: mix's first prompts with a few new tokens each
+NEMOTRON_LAYERS = 2
+NEMOTRON_REQUESTS = 3
+NEMOTRON_NEW = 8
+#: nemotron's runs: label -> the ``ENGINE_RUNS`` path; each held against
+#: a ``force("plain")`` run on the same requests
+NEMOTRON_RUNS = {"nemotron": "chunked", "nemotron_int8": "int8",
+                 "nemotron_gather": "gather"}
+
+
+def free_cuda():
+    """Return the freed model's memory to the card before the next one
+    (engines hold reference cycles, so collect them first)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def draw_weights(cfg, device):
+    """The model's seeded weights, drawn on the card
+    (``Model.init``: a CUDA generator, per tensor in flat pieces), and
+    the seconds the draw took."""
+    from repro_torch.models import build_model
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = build_model(cfg, device=device).init(SEED)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+#: vocab columns of the unembedding held against a float32 product, and
+#: the tolerance (bf16 products are exact in float32; only the order of
+#: the float32 sums differs)
+UNEMBED_CHECK_COLS = 4096
+UNEMBED_TOL = 1e-3
+
+
+def unembed_check(label, params, device):
+    """The unembedding at a decode step's 8 rows (``layers.unembed``:
+    one product of the bf16 inputs with a float32 output): its logits
+    over the first ``UNEMBED_CHECK_COLS`` columns against a float32
+    product of the same inputs, the memory it takes beyond its logits
+    (a float32 copy of the table would show here), and its time beside
+    the bound of reading the table once."""
+    from repro_torch.core.hw import detect
+    from repro_torch.models.layers import unembed
+
+    emb = params["embed"]
+    w = emb["unembed"] if "unembed" in emb else emb["tok"].t()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(8, w.shape[0], generator=gen, device=device).to(w.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    out = unembed(emb, x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(device) - base \
+        - out.numel() * out.element_size()
+    want = x.float() @ w[:, :UNEMBED_CHECK_COLS].float()
+    err = float((out[:, :UNEMBED_CHECK_COLS] - want).abs().max())
+    ms = Timer(device).ms(lambda: unembed(emb, x))
+    table = w.numel() * w.element_size()
+    entry = dict(run=label, shape=[8, *w.shape], dtype=str(w.dtype),
+                 out_dtype=str(out.dtype), ms=ms,
+                 bound_ms=table / detect(device).mem_bw * 1e3,
+                 bound_by="bytes", max_abs_err=err, tol=UNEMBED_TOL,
+                 extra_bytes=extra, table_bytes=table)
+    emit("dense_unembed", **entry)
+    if out.dtype != torch.float32 or err > UNEMBED_TOL:
+        raise AssertionError(f"{label} unembed: {out.dtype}, {err}")
+    if extra > table // 4:
+        raise AssertionError(f"{label} unembed took {extra} bytes beyond "
+                             f"its logits: a copy of the table")
+    return entry
+
+
+def dense_phase(device, reqs):
+    """qwen3-8b at full width (36 layers): in float32 with the radix on,
+    the kernels against ``kernels.force("plain")`` on a 4-request sharing
+    mix (requests 3 and 4 resume behind the 200-token preamble):
+    identical streams, first decode-step logits within 1e-3, the radix
+    hit, flash (f32, head_dim 128) and the paged decode launched, nothing
+    launched by the plain run; then in bf16 chunked and whole-prompt on
+    the engine mix's first ``DENSE_REQUESTS`` requests (``engine_run``'s
+    gates), the chunked run again under torch.profiler (device busy
+    time, idle share).  nemotron-4-340b at full width, 2 layers, bf16, on
+    each path of ``NEMOTRON_RUNS`` (R 12, head_dim 192): the path's
+    kernels launched and no other, and the streams equal a
+    ``force("plain")`` run's.  Each bf16 model's unembedding is checked
+    and timed at a decode step (``unembed_check``).  Each model is freed
+    before the next."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+
+    runs = {}
+    qwen3 = get_config("qwen3-8b")
+    f32 = dataclasses.replace(qwen3, dtype="float32")
+    params, init_s = draw_weights(f32, device)
+    mix = prefix_mix(f32.vocab_size, n=4, new=8, order=(0, 1, 2, 3),
+                     seed=SEED + 1)
+    counters = launch_counters()
+    streams, first, launches, radix, wall = {}, {}, {}, {}, {}
+    for mode in ("kernel", "plain"):
+        eng = ServeEngine(f32, slots=PREFIX_SLOTS, max_len=1024,
+                          params=params, seed=SEED, device=device,
+                          prefix_cache=True)
+        step = eng.model.decode_step
+
+        def spy(*a, _step=step, _mode=mode, **kw):
+            out = _step(*a, **kw)
+            first.setdefault(_mode, out[0].detach().clone())
+            return out
+
+        eng.model.decode_step = spy
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        with kernels.force(mode):
+            report, streams[mode] = serve(eng, mix)
+        wall[mode] = time.perf_counter() - t0
+        launches[mode] = {k: getattr(fn, attr)
+                          for k, (fn, attr) in counters.items()}
+        radix[mode] = report.radix
+    same = streams["kernel"] == streams["plain"]
+    err = float((first["kernel"] - first["plain"]).abs().max())
+    runs["qwen3_fp32"] = dict(
+        arch=f32.name, dtype="float32", layers=f32.num_layers,
+        init_s=init_s, token_streams_identical=same,
+        first_decode_logits_max_abs_err=err, launches=launches["kernel"],
+        plain_launches=launches["plain"], radix=radix["kernel"],
+        wall_s=wall, tokens=sum(len(x) for x in streams["kernel"]))
+    emit("dense", run="qwen3_fp32", **runs["qwen3_fp32"])
+    if not same:
+        raise AssertionError("qwen3-8b fp32: token streams differ between "
+                             "the kernels and their plain versions")
+    if err > 1e-3:
+        raise AssertionError(f"qwen3-8b fp32: first decode-step logits "
+                             f"differ by {err}")
+    check_launches("qwen3-8b fp32", launches["kernel"],
+                   ENGINE_RUNS["chunked"][2])
+    check_launches("qwen3-8b fp32 plain", launches["plain"], set())
+    for mode, rx in radix.items():
+        if rx is None or rx["hit_tokens"] < 2 * (PREFIX_PREAMBLE // 16 * 16):
+            raise AssertionError(f"qwen3-8b fp32 {mode}: requests 3 and 4 "
+                                 f"did not share the preamble: {rx}")
+    del params, eng
+    free_cuda()
+
+    params, init_s = draw_weights(qwen3, device)
+    unembed_check("qwen3_bf16", params, device)
+    dense_reqs = reqs[:DENSE_REQUESTS]
+    for label in ("chunked", "whole_prompt"):
+        opts, chunk, expected = ENGINE_RUNS[label]
+        eng = ServeEngine("qwen3-8b", reduced=False, slots=8, max_len=1024,
+                          prefill_chunk=chunk, params=params, seed=SEED,
+                          device=device, **opts)
+        runs[f"qwen3_{label}"], _ = engine_run(
+            f"qwen3_{label}", eng, dense_reqs, opts, expected,
+            phase="dense", extra=lambda: {"init_s": init_s})
+    eng = ServeEngine("qwen3-8b", reduced=False, slots=8, max_len=1024,
+                      params=params, seed=SEED, device=device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve(eng, dense_reqs)
+    rows = device_kernels(prof)
+    busy_ms = sum(r[1] for r in rows)
+    unprofiled = runs["qwen3_chunked"]["wall_s"]
+    emit("dense_profile", run="qwen3_chunked", requests=len(dense_reqs),
+         wall_s=unprofiled, device_busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / 1e3 / unprofiled,
+         kernel_launches=sum(n for _, _, n in rows),
+         top=[{"kernel": k[:80], "ms": ms, "count": n,
+               "share": ms / busy_ms if busy_ms else 0.0}
+              for k, ms, n in rows[:12]])
+    del params, eng, prof
+    free_cuda()
+
+    nemotron = dataclasses.replace(get_config("nemotron-4-340b"),
+                                   num_layers=NEMOTRON_LAYERS)
+    params, init_s = draw_weights(nemotron, device)
+    unembed_check("nemotron_bf16", params, device)
+    nreqs = [(p, NEMOTRON_NEW) for p, _ in reqs[:NEMOTRON_REQUESTS]]
+    for label, path in NEMOTRON_RUNS.items():
+        opts, chunk, expected = ENGINE_RUNS[path]
+
+        def engine():
+            return ServeEngine(nemotron, slots=8, max_len=1024,
+                               prefill_chunk=chunk, params=params,
+                               seed=SEED, device=device, **opts)
+
+        runs[label], outs = engine_run(
+            label, engine(), nreqs, opts, expected, phase="dense",
+            extra=lambda: {"init_s": init_s, "layers": NEMOTRON_LAYERS})
+        with kernels.force("plain"):
+            _, plain = serve(engine(), nreqs)
+        same = outs == plain
+        runs[label]["streams_equal_plain"] = same
+        emit("dense_plain", run=label, streams_equal_plain=same,
+             kernel_streams=[o[-NEMOTRON_NEW:] for o in outs],
+             plain_streams=[o[-NEMOTRON_NEW:] for o in plain])
+        if not same:
+            raise AssertionError(f"{label}: bf16 token streams differ "
+                                 f"between the kernels and their plain "
+                                 f"versions")
+    del params
+    free_cuda()
+    return runs
 
 
 # --------------------------------------------------------------------------- #
@@ -2986,6 +3358,7 @@ def main() -> int:
             "suite", suite_phase, hw, timer, device)
         serving, _, _ = timed("tuner", tuner_phase, hw, timer, device)
         runs, params, reqs = timed("engine", engine_phase, device)
+        dense = timed("dense", dense_phase, device, reqs)
         timed("retune", retune_phase, device, params, reqs, tmp)
         prefix_runs = timed("prefix", prefix_phase, device,
                             params["smollm-135m"])
@@ -3021,6 +3394,19 @@ def main() -> int:
                                tuned_plan=tuned["tuned"],
                                seed_ms=tuned["seed_ms"],
                                tuned_ms=tuned["tuned_ms"])
+        # the dense phase's variants: each case's numbers and the launches
+        # of the dense run that takes it (0: none does)
+        summary[-1]["variants"] = [{
+            "variant": c["variant"], "shape": c["shape"],
+            "dtype": c["timed_dtype"], "max_abs_err": c["max_abs_err"],
+            "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+            "library_ms": c["library_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "plan": c.get("plan"),
+            "split_sweep_ms": c.get("split_sweep_ms"),
+            "dense_run": c["dense_run"],
+            "launches": (dense[c["dense_run"]]["launches"][name]
+                         if c["dense_run"] else 0)}
+            for c in cases if "variant" in c]
         if name in ("paged_gather", "paged_dequant_gather"):
             # the large case and one page (the launch's floor)
             large, page = cases[1], cases[2]

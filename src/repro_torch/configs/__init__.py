@@ -1,5 +1,6 @@
 """Served architecture configs (the port's own copy)."""
-from repro_torch.configs import mamba2_1_3b, smollm_135m  # noqa: F401
+from repro_torch.configs import (  # noqa: F401  (registration)
+    mamba2_1_3b, nemotron_4_340b, qwen3_8b, smollm_135m)
 from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
                                       register)
 

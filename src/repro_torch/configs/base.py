@@ -1,9 +1,11 @@
 """Model configuration schema and the registry of served architectures.
 
 A trimmed copy of the JAX package's ``configs/base.py``: only the fields
-the served families read (dense and, from the Mamba-2 slice, ssm).  The port keeps its own copy so it imports
-nothing of the JAX package.  ``reduced()`` yields the scaled-down variant
-the CPU tests run.
+the served families read (dense, with qk-norm and untied embeddings, and
+ssm).  ``window``, ``local_global_ratio``, the MoE, hybrid, encdec and
+vlm fields and ``skip_shapes`` (the port has no ``SHAPES``) stay out.
+The port keeps its own copy so it imports nothing of the JAX package.
+``reduced()`` yields the scaled-down variant the CPU tests run.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | ssm served; moe, hybrid,
+    family: str                      # dense (swiglu or squared_relu, tied
+                                     # or not) | ssm served; moe, hybrid,
                                      # encdec, vlm: ROADMAP queue 1 item 9
     num_layers: int
     d_model: int
@@ -26,8 +29,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None   # default d_model // num_heads
+    qk_norm: bool = False            # RMSNorm of q and k over head_dim
     rope_theta: float = 10_000.0
-    mlp_act: str = "swiglu"
+    mlp_act: str = "swiglu"          # swiglu | squared_relu
 
     # SSM (Mamba-2)
     ssm_state: int = 0

@@ -188,8 +188,10 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
            "plan_attention_blocks",
            "attention_plan_for_blocks", "flash_smem_bytes",
+           "flash_f32_lanes",
            "decode_smem_bytes", "decode_block_for", "plan_cache_block",
            "plan_paged_block", "decode_chunk", "decode_ctas_per_sm",
+           "decode_epl", "decode_head_chunks",
            "plan_decode_split", "decode_splits", "GatherPlan",
            "GATHER_WIDTHS", "DEQUANT_WIDTHS", "gather_width",
            "plan_gather", "gather_plan_for_block"]
@@ -748,14 +750,28 @@ class AttentionPlan:
     smem_bytes: int
 
 
+#: the f32 flash kernel's largest head_dim (csrc/flash_attention.cu)
+FLASH_F32_MAX_HEAD_DIM = 128
+
+
+def flash_f32_lanes(head_dim: int) -> int:
+    """Lanes a query row takes in the f32 flash kernel: one up to
+    head_dim 64, head_dim / 64 past it (``f32_lanes`` in the source)."""
+    return head_dim // 64 if head_dim > 64 else 1
+
+
 def flash_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
     """Dynamic shared memory of ``csrc/flash_attention.cu`` at these
     tiles, the larger of its two kernels', so a plan is legal whatever
     the dtype: the f32 kernel's K and V tiles plus one padded score row
-    per thread; the bf16 kernel's double-buffered K and V tiles, rows
+    per query row (counted only up to the f32 kernel's largest
+    head_dim); the bf16 kernel's double-buffered K and V tiles, rows
     padded by 8 values."""
-    threads = round_up(block_q, 32)
-    f32 = 4 * (2 * block_k * head_dim + threads * (block_k + 1))
+    f32 = 0
+    if head_dim <= FLASH_F32_MAX_HEAD_DIM:
+        lanes = flash_f32_lanes(head_dim)
+        rows = round_up(block_q * lanes, 32) // lanes
+        f32 = 4 * (2 * block_k * head_dim + rows * (block_k + 1))
     bf16 = 2 * 2 * 2 * block_k * (head_dim + 8)
     return max(f32, bf16)
 
@@ -799,10 +815,37 @@ DECODE_THREADS = 128      # both decode kernels' CTA: 4 warps
 DECODE_STAGES = 4         # cp.async ring depth
 DECODE_STAGE_BYTES = 4096 # K bytes one stage holds, at most
 DECODE_MAX_CHUNK = 32     # positions one stage holds, at most
-DECODE_EPL = 4            # head_dim values a lane holds
+DECODE_NARROW_D = 128     # up to it a lane holds 4 head_dim values, past 8
+DECODE_MAX_HEADS = 8      # heads a CTA takes at 4 values a lane (4 at 8)
 SMEM_RESERVED = 1024      # shared memory the runtime keeps per resident CTA
 DECODE_MIN_CTAS = 4       # the kernels' __launch_bounds__ minimum: ptxas
                           # keeps them within 128 registers, 4 CTAs an SM
+                          # (3, 168 registers, past DECODE_NARROW_D)
+
+
+def decode_epl(head_dim: int) -> int:
+    """head_dim values a lane holds in the decode sweep
+    (``csrc/decode_sweep.cuh::epl_of``)."""
+    return 8 if head_dim > DECODE_NARROW_D else 4
+
+
+def decode_head_chunks(head_dim: int, heads_per_group: int) -> int:
+    """Runs of heads a KV group's R query heads split into, each a CTA of
+    its own (``csrc/decode_sweep.cuh::head_chunks``): the run is the
+    largest divisor of R within 8 heads (4 past head_dim 128), so R <= 8
+    at head_dim <= 128 is one run.
+
+    Example::
+
+        >>> decode_head_chunks(192, 12), decode_head_chunks(128, 16)
+        (3, 2)
+    """
+    r = max(1, int(heads_per_group))
+    rh = min(r, DECODE_MAX_HEADS if head_dim <= DECODE_NARROW_D
+             else DECODE_MAX_HEADS // 2)
+    while r % rh:
+        rh -= 1
+    return r // rh
 
 
 @functools.lru_cache(maxsize=None)
@@ -810,7 +853,8 @@ def decode_chunk(head_dim: int, cache_bytes: int = 4) -> int:
     """Positions the decode sweep stages per ring stage: a power of two,
     at most 32 and at most what keeps a stage's K within 4 KB
     (``csrc/decode_sweep.cuh::chunk_rows``)."""
-    cap = DECODE_STAGE_BYTES // (round_up(head_dim, DECODE_EPL) * cache_bytes)
+    cap = DECODE_STAGE_BYTES // (round_up(head_dim, decode_epl(head_dim))
+                                 * cache_bytes)
     rows = 1
     while rows * 2 <= min(cap, DECODE_MAX_CHUNK):
         rows *= 2
@@ -826,13 +870,14 @@ def decode_smem_bytes(head_dim: int, heads_per_group: int,
     ``csrc/decode_attention.cu`` and ``csrc/paged_decode_attention.cu``):
     the larger of the staging (a ring of 4 stages of ``decode_chunk``
     K and V rows in the cache's dtype, ``cache_bytes`` a value, rows
-    padded to 4 values; on the paged path 5 page slots of (flat block,
-    two scales) and two scales beside each staged row) and the
-    end-of-sweep merge area (each lane group's (m, l, acc) of the R
-    heads).  It does not depend on ``block_s`` and stays under 48 KB for
-    any head_dim up to 128.  ``cache_bytes=None`` (what the planner
-    counts) takes the most over f32, bf16 and int8 caches; the wrappers
-    check each launch at its own dtype.
+    padded to ``decode_epl`` values; on the paged path 5 page slots of
+    (flat block, two scales) and two scales beside each staged row) and
+    the end-of-sweep merge area (each lane group's (m, l, acc) of the
+    CTA's run of heads, ``decode_head_chunks``).  It does not depend on
+    ``block_s`` and stays under 48 KB for any head_dim up to 256.
+    ``cache_bytes=None`` (what the planner counts) takes the most over
+    f32, bf16 and int8 caches; the wrappers check each launch at its own
+    dtype.
 
     Example::
 
@@ -843,17 +888,18 @@ def decode_smem_bytes(head_dim: int, heads_per_group: int,
         return max(decode_smem_bytes(head_dim, heads_per_group, page_block,
                                      es) for es in (1, 2, 4))
     c = decode_chunk(head_dim, cache_bytes)
+    epl = decode_epl(head_dim)
     ring = DECODE_STAGES * 2 * round_up(
-        c * round_up(head_dim, DECODE_EPL) * cache_bytes, 16)
+        c * round_up(head_dim, epl) * cache_bytes, 16)
     pages = 0
     if page_block is not None:
         ppc = min(c, (c + page_block - 2) // page_block + 1)
         pages = (DECODE_STAGES + 1) * ppc * 12 + DECODE_STAGES * c * 8
     lanes = 1
-    while lanes * DECODE_EPL < head_dim:
+    while lanes * epl < head_dim:
         lanes *= 2
-    merge = 4 * heads_per_group * (DECODE_THREADS // lanes) \
-        * (DECODE_EPL * lanes + 2)
+    heads = heads_per_group // decode_head_chunks(head_dim, heads_per_group)
+    merge = 4 * heads * (DECODE_THREADS // lanes) * (epl * lanes + 2)
     return max(ring + pages, merge)
 
 
@@ -862,11 +908,13 @@ def decode_ctas_per_sm(head_dim: int, heads_per_group: int, hw: GpuParams,
     """Resident decode CTAs per SM: the least of the thread limit
     (``warps_per_sm`` warps, 4 a CTA), the SM's shared memory at the
     sweep's size plus the runtime's 1 KB a CTA, and the 4 CTAs the
-    kernels' register bound (``__launch_bounds__(128, 4)``) guarantees."""
+    kernels' register bound (``__launch_bounds__(128, 4)``) guarantees
+    (3 past head_dim 128)."""
     by_threads = hw.warps_per_sm * hw.warp_size // DECODE_THREADS
     smem = decode_smem_bytes(head_dim, heads_per_group, page_block)
     by_smem = hw.smem_per_sm // (smem + SMEM_RESERVED)
-    return max(1, min(by_threads, by_smem, DECODE_MIN_CTAS))
+    by_regs = DECODE_MIN_CTAS - (head_dim > DECODE_NARROW_D)
+    return max(1, min(by_threads, by_smem, by_regs))
 
 
 def decode_block_for(s: int, d: int, hw: GpuParams, block: int,
@@ -948,9 +996,10 @@ def plan_decode_split(t: int, rows: int, block_s: int, head_dim: int,
       * NAIVE: one split, the row swept whole by one CTA per (row, group)
         whatever the card;
       * FIXED: the JAX package's fixed 512-position block;
-      * AUTO: Eq. 1 over the split: the (row, group, position) work
-        ``rows x t`` over the resident CTA slots, ``sm_count`` x
-        ``decode_ctas_per_sm``, so the grid fills the card once.
+      * AUTO: Eq. 1 over the split: the (row, group, run of heads,
+        position) work ``rows x decode_head_chunks x t`` over the
+        resident CTA slots, ``sm_count`` x ``decode_ctas_per_sm``, so
+        the grid fills the card once.
 
     Example::
 
@@ -968,7 +1017,8 @@ def plan_decode_split(t: int, rows: int, block_s: int, head_dim: int,
         return min(whole, round_up(FIXED_CACHE_BLOCK, bs))
     slots = hw.sm_count * decode_ctas_per_sm(head_dim, heads_per_group, hw,
                                              page_block)
-    w = resolve_lws(max(1, int(rows)) * max(1, int(t)), slots)
+    runs = decode_head_chunks(head_dim, heads_per_group)
+    w = resolve_lws(max(1, int(rows)) * runs * max(1, int(t)), slots)
     return min(whole, round_up(w, bs))
 
 

@@ -33,9 +33,10 @@
 // slot's length keeps growing and may pass T; a row of length 0 writes
 // zeros, not NaN.
 //
-// Launch geometry: grid (B, G, n_split), 128 threads, dynamic shared
-// memory decode_sweep::smem_bytes(D, R, 0, dtype bytes), under
-// 48 KB.  Inputs fp32 or bf16 (q and caches of one dtype); accumulation
+// Launch geometry: grid (B, G * n_hc, n_split), 128 threads, dynamic
+// shared memory decode_sweep::smem_bytes(D, R / n_hc, 0, dtype bytes),
+// under 48 KB; n_hc = decode_sweep::head_chunks(R, D) runs of heads a
+// group.  Inputs fp32 or bf16 (q and caches of one dtype); accumulation
 // fp32; output in q's dtype.
 
 #include "decode_sweep.cuh"
@@ -44,35 +45,48 @@ namespace {
 
 using decode_sweep::Params;
 
-template <typename T, int RB>
+template <typename T, int RB, int EPL>
 __global__ void __launch_bounds__(decode_sweep::kThreads,
-                                  decode_sweep::kMinCtasPerSm)
+                                  decode_sweep::min_ctas(EPL))
 decode_kernel(const Params p) {
-  decode_sweep::sweep<T, T, false, RB>(p);
+  decode_sweep::sweep<T, T, false, RB, EPL>(p);
 }
 
 template <typename T>
 int launch(Params p, cudaStream_t stream) {
-  switch (decode_sweep::heads_bucket(p.R)) {
+  constexpr int es = sizeof(T);
+  if (p.D > decode_sweep::kNarrowD) {   // 8 values a lane, up to 4 heads
+    switch (decode_sweep::heads_bucket(p.R, p.D)) {
+      case 1:
+        return decode_sweep::launch(decode_kernel<T, 1, 8>, p, es, stream);
+      case 2:
+        return decode_sweep::launch(decode_kernel<T, 2, 8>, p, es, stream);
+      case 3:
+        return decode_sweep::launch(decode_kernel<T, 3, 8>, p, es, stream);
+      default:
+        return decode_sweep::launch(decode_kernel<T, 4, 8>, p, es, stream);
+    }
+  }
+  switch (decode_sweep::heads_bucket(p.R, p.D)) {
     case 1:
-      return decode_sweep::launch(decode_kernel<T, 1>, p, sizeof(T), stream);
+      return decode_sweep::launch(decode_kernel<T, 1, 4>, p, es, stream);
     case 2:
-      return decode_sweep::launch(decode_kernel<T, 2>, p, sizeof(T), stream);
+      return decode_sweep::launch(decode_kernel<T, 2, 4>, p, es, stream);
     case 3:
-      return decode_sweep::launch(decode_kernel<T, 3>, p, sizeof(T), stream);
+      return decode_sweep::launch(decode_kernel<T, 3, 4>, p, es, stream);
     case 4:
-      return decode_sweep::launch(decode_kernel<T, 4>, p, sizeof(T), stream);
+      return decode_sweep::launch(decode_kernel<T, 4, 4>, p, es, stream);
     default:
-      return decode_sweep::launch(decode_kernel<T, 8>, p, sizeof(T), stream);
+      return decode_sweep::launch(decode_kernel<T, 8, 4>, p, es, stream);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  ws: (B * G * n_split, R, D + 2)
-// f32 partials (unused when n_split is 1); counters: >= B * G int32
-// zeros, left zero.  n_split must be ceil(Tlen / split): the grid's
-// third extent, which sized ws.  Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16.  R <= 16, D <= 256.  ws: (B * G *
+// n_split, R, D + 2) f32 partials (unused when n_split is 1); counters:
+// >= B * G * n_hc int32 zeros, left zero.  n_split must be ceil(Tlen /
+// split): the grid's third extent, which sized ws.  Returns cudaGetLastError() after the
 // launch (0 on success), cudaErrorInvalidValue for a shape or plan the
 // kernel does not take.
 extern "C" int decode_attention(const void* q, const void* k_cache,

@@ -3,9 +3,10 @@
 // paged_decode_attention.cu: rows read through block tables, f32/bf16 or
 // int8 codes).
 //
-// Launch geometry: grid (B, G, n_split), 128 threads (4 warps).  CTA
-// (b, g, s) owns the R query heads of KV group g of row b over the
-// positions [s W, min((s + 1) W, clen)) of the row, where W (the split,
+// Launch geometry: grid (B, G * n_hc, n_split), 128 threads (4 warps).
+// CTA (b, g n_hc + h, s) owns the h-th run of R / n_hc query heads of KV
+// group g of row b (n_hc = 1, all R heads, for R <= 8 at D <= 128) over
+// the positions [s W, min((s + 1) W, clen)) of the row, where W (the split,
 // a whole number of the plan's block_s, so whole pages on the paged
 // path) and n_split = ceil(T / W) come from the mapper's plan over the
 // pool row's length T: the host never reads cache_len.  A split that
@@ -16,10 +17,11 @@
 // next chunks' loads are in flight while this chunk is scored; a chunk
 // holds at most kStageBytes of K (and as many of V) and at most
 // kMaxChunk positions.  A position's head_dim is spread over `lp` lanes
-// (kEpl = 4 values each, lp the power of two covering D / 4): every lane
-// holds its 4 values of the R pre-scaled queries in registers, and each
-// group of lp lanes carries its own online softmax (m, l, acc of its 4
-// values) over the positions it takes (group i takes positions i,
+// (EPL values each: 4 up to D 128, 8 past it; lp the power of two
+// covering D / EPL, at most a warp): every lane holds its EPL values of
+// the CTA's pre-scaled queries in registers, and each group of lp lanes
+// carries its own online softmax (m, l, acc of its EPL values) over the
+// positions it takes (group i takes positions i,
 // i + 128 / lp, ... of a chunk).  A group scores kPB positions at once:
 // their loads, their R partial dots each, the xor-shuffle sums and the
 // softmax update (one rescale for the batch) are independent, so the
@@ -47,9 +49,22 @@
 // launch needs more.  The kernel allocates nothing and does not
 // synchronise.
 //
-// A staged row holds ds = round_up(D, 4) values; a lane whose 4 values
-// start at or past ds (4 lp > ds, e.g. D 96 or 100: lanes 24/25-31)
-// reads nothing, so no load leaves its row or the ring.
+// A staged row holds ds = round_up(D, EPL) values; a lane whose EPL
+// values start at or past ds (EPL lp > ds, e.g. D 96 or 100: lanes
+// 24/25-31; D 192: lanes 24-31, a quarter of each warp idle) reads
+// nothing, so no load leaves its row or the ring.
+//
+// Wide groups.  The registers a thread holds grow with the heads a CTA
+// takes times EPL (query and accumulator: 2 RB EPL floats), so a CTA
+// takes at most 8 heads at EPL 4 and 4 at EPL 8: R splits into n_hc runs
+// of rh = R / n_hc heads, rh the largest divisor of R within that cap (R
+// 12: two runs of 6 at D <= 128, three of 4 past it; R 16: two of 8, four
+// of 4).  Each run is a CTA of its own that stages the group's K/V (the
+// runs of one group are adjacent in the grid, so the repeats come from
+// L2); in the kernel a run is a virtual group: q, out, the partials and
+// the tickets are indexed as (B, G n_hc, rh, D), the caches and scales by
+// the true group g.  The EPL 8 kernels are bound to 3 CTAs an SM (168
+// registers), the others to 4.
 //
 // Dynamic shared memory: max(ring + page slots, merge area), at most
 // ~36 KB, under the 48 KB a launch takes without an attribute:
@@ -57,7 +72,7 @@
 //   pages  (kStages + 1) * ppc * 12 + kStages * chunk * 8
 //          (paged only; ppc pages a chunk spans; then each staged row's
 //          two scales)
-//   merge  4 * R * ng * (4 lp + 2),   ng = 128 / lp groups
+//   merge  4 * rh * ng * (EPL lp + 2),   ng = 128 / lp groups
 // (repro_torch.core.mapper.decode_smem_bytes mirrors it for the plan;
 // smem_bytes() below is what the launch uses, and it refuses more than
 // 48 KB.)
@@ -74,30 +89,47 @@
 namespace decode_sweep {
 
 constexpr int kThreads = 128;
-constexpr int kMaxR = 8;
-constexpr int kMaxD = 128;
-constexpr int kEpl = 4;             // head_dim values a lane holds
+constexpr int kMaxR = 16;
+constexpr int kMaxD = 256;
+constexpr int kNarrowD = 128;       // up to it a lane holds 4 values, past 8
+constexpr int kMaxRB = 8;           // heads a CTA takes at EPL 4
+constexpr int kMaxRBWide = 4;       // heads a CTA takes at EPL 8
 constexpr int kStages = 4;          // cp.async ring depth
 constexpr int kStageBytes = 4096;   // K bytes of one stage, at most
 constexpr int kMaxChunk = 32;       // positions of one stage, at most
 constexpr int kMaxSmem = 48 * 1024; // dynamic smem without an attribute
 constexpr int kMergeBatch = 16;     // partials a merging thread loads at once
-constexpr int kMinCtasPerSm = 4;    // __launch_bounds__: registers <= 128
+
+// __launch_bounds__ minimum: 4 CTAs an SM (128 registers) at EPL 4, 3
+// (168) at EPL 8
+__host__ __device__ constexpr int min_ctas(int epl) { return epl > 4 ? 3 : 4; }
 
 __host__ __device__ inline int round_up(int x, int q) {
   return (x + q - 1) / q * q;
 }
 
+// head_dim values a lane holds
+__host__ __device__ inline int epl_of(int D) { return D > kNarrowD ? 8 : 4; }
+
 // lanes a position's head_dim is spread over: a power of two, <= 32
 __host__ __device__ inline int lanes_per_pos(int D) {
+  const int epl = epl_of(D);
   int lp = 1;
-  while (lp * kEpl < D) lp <<= 1;
+  while (lp * epl < D) lp <<= 1;
   return lp;
+}
+
+// runs of heads a group's R query heads split into (see the header)
+inline int head_chunks(int R, int D) {
+  const int cap = D > kNarrowD ? kMaxRBWide : kMaxRB;
+  int rh = R < cap ? R : cap;
+  while (R % rh) --rh;
+  return R / rh;
 }
 
 // positions staged per ring stage
 __host__ __device__ inline int chunk_rows(int D, int es) {
-  const int cap = kStageBytes / (round_up(D, kEpl) * es);
+  const int cap = kStageBytes / (round_up(D, epl_of(D)) * es);
   int rows = 1;
   while (rows * 2 <= cap && rows * 2 <= kMaxChunk) rows <<= 1;
   return rows;
@@ -109,17 +141,18 @@ __host__ __device__ inline int pages_per_chunk(int chunk, int page) {
 }
 
 __host__ __device__ inline int ring_bytes(int chunk, int D, int es) {
-  return kStages * 2 * round_up(chunk * round_up(D, kEpl) * es, 16);
+  return kStages * 2 * round_up(chunk * round_up(D, epl_of(D)) * es, 16);
 }
 
-// page == 0: the contiguous layout (no page slots)
-inline size_t smem_bytes(int D, int R, int page, int es) {
+// rh: the heads one CTA takes; page == 0: the contiguous layout (no page
+// slots)
+inline size_t smem_bytes(int D, int rh, int page, int es) {
   const int chunk = chunk_rows(D, es);
   const int pages = page > 0 ? (kStages + 1) * pages_per_chunk(chunk, page) *
                                        12 + kStages * chunk * 8
                              : 0;
   const int lp = lanes_per_pos(D);
-  const int merge = 4 * R * (kThreads / lp) * (kEpl * lp + 2);
+  const int merge = 4 * rh * (kThreads / lp) * (epl_of(D) * lp + 2);
   const int staged = ring_bytes(chunk, D, es) + pages;
   return (size_t)(staged > merge ? staged : merge);
 }
@@ -136,9 +169,11 @@ struct Params {
   const int* cache_len;   // (B,)
   void* out;              // (B, G, R, D), T
   float* ws;              // (B * G * n_split, R, D + 2) f32 partials
-  int* counters;          // (>= B * G,) tickets, 0 between launches
+  int* counters;          // (>= B * G * n_hc,) tickets, 0 between launches
   int B, Tlen, G, R, D, tw, page, chunk, split, n_split, vec;
   float scale;
+  int n_hc;               // runs of heads a group splits into
+  int rh;                 // heads one CTA takes, R / n_hc
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -153,13 +188,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// four consecutive staged values as f32 (aligned: ds is a multiple of 4)
-__device__ __forceinline__ void load4(const float* p, float (&x)[kEpl]) {
+// EPL consecutive staged values as f32 (aligned: ds is a multiple of EPL)
+__device__ __forceinline__ void loadv(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&x)[kEpl]) {
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p,
+                                      float (&x)[4]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.x));
@@ -167,9 +202,34 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
   x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
 }
-__device__ __forceinline__ void load4(const int8_t* p, float (&x)[kEpl]) {
+__device__ __forceinline__ void loadv(const int8_t* p, float (&x)[4]) {
   const char4 v = *reinterpret_cast<const char4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void loadv(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p,
+                                      float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void loadv(const int8_t* p, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const char4 a = *reinterpret_cast<const char4*>(&u.x);
+  const char4 b = *reinterpret_cast<const char4*>(&u.y);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -201,21 +261,26 @@ struct DivWalk {
   }
 };
 
-// The sweep of one (row, group, split) CTA; see the header comment.
-// T: q/out dtype; C: cache dtype; RB sizes the register arrays: R itself
-// for R <= 4 (so no head loop is guarded), kMaxR for R of 5 to 8.
-template <typename T, typename C, bool kPaged, int RB>
+// The sweep of one (row, run of heads, split) CTA; see the header
+// comment.  T: q/out dtype; C: cache dtype; RB sizes the register arrays:
+// the CTA's heads themselves for up to 4 (so no head loop is guarded),
+// kMaxRB for 5 to 8; EPL the head_dim values a lane holds (epl_of(D)).
+template <typename T, typename C, bool kPaged, int RB, int EPL>
 __device__ __forceinline__ void sweep(const Params& p) {
   constexpr bool kQuant = std::is_same<C, int8_t>::value;
   constexpr int es = sizeof(C);
-  constexpr int kPB = RB > 4 ? 2 : 4;   // positions a group scores at once
+  // positions a group scores at once
+  constexpr int kPB = (RB > 4 || EPL > 4) ? 2 : 4;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
 
-  const int b = blockIdx.x, g = blockIdx.y, sp = blockIdx.z;
+  const int b = blockIdx.x, gv = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x;
-  const int R = p.R, D = p.D, G = p.G;
-  const int bg = b * G + g;
+  // R: the CTA's heads; gv: its virtual group (see the header); g: the KV
+  // group whose cache and scales it reads
+  const int R = p.rh, D = p.D, G = p.G;
+  const int g = gv / p.n_hc;
+  const int bg = b * G * p.n_hc + gv;
   // positions that exist in the row: a retired slot's cache_len keeps
   // growing every tick and may pass the row; no read may leave it
   const int clen = max(0, min(p.cache_len[b], p.Tlen));
@@ -228,12 +293,12 @@ __device__ __forceinline__ void sweep(const Params& p) {
   }
   const int hi = min(lo + p.split, clen);
   const int n_live = (clen + p.split - 1) / p.split;
-  const int ds = round_up(D, kEpl);
+  const int ds = round_up(D, EPL);
   const int lp = lanes_per_pos(D);
   const int lsh = __ffs(lp) - 1;
   const int ng = kThreads >> lsh;
   const int grp = tid >> lsh, j = tid & (lp - 1);
-  const bool col_in = j * kEpl < ds;   // the lane's 4 values lie in the row
+  const bool col_in = j * EPL < ds;   // the lane's values lie in the row
   const int chunk = p.chunk;
   const int tile = round_up(chunk * ds * es, 16) / es;   // elements
   C* ring = reinterpret_cast<C*>(smem);
@@ -244,17 +309,17 @@ __device__ __forceinline__ void sweep(const Params& p) {
   float* s_rk = s_vs + (kStages + 1) * ppc;   // (kStages, chunk) row scales
   float* s_rv = s_rk + kStages * chunk;
 
-  // heads past R exist only when RB is kMaxR
-  auto live = [&](int r) { return RB < kMaxR || r < R; };
+  // heads past R exist only when RB is kMaxRB
+  auto live = [&](int r) { return RB < kMaxRB || r < R; };
 
-  // the group's R queries, pre-scaled, 4 values a lane
-  float qr[RB][kEpl];
+  // the CTA's R queries, pre-scaled, EPL values a lane
+  float qr[RB][EPL];
   const T* qp = static_cast<const T*>(p.q) + (size_t)bg * R * D;
 #pragma unroll
   for (int r = 0; r < RB; ++r)
 #pragma unroll
-    for (int e = 0; e < kEpl; ++e) {
-      const int d = j * kEpl + e;
+    for (int e = 0; e < EPL; ++e) {
+      const int d = j * EPL + e;
       qr[r][e] = (r < R && d < D) ? to_f32(qp[r * D + d]) * p.scale : 0.f;
     }
 
@@ -334,13 +399,13 @@ __device__ __forceinline__ void sweep(const Params& p) {
     }
   };
 
-  float m[RB], l[RB], acc[RB][kEpl];
+  float m[RB], l[RB], acc[RB][EPL];
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kEpl; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   }
 
   for (int c = 0; c < kStages && c < n_chunks; ++c) resolve(c);
@@ -365,21 +430,21 @@ __device__ __forceinline__ void sweep(const Params& p) {
     // kPB positions a group at a time; the trip count is uniform over the
     // CTA, so the shuffles see every lane
     for (int i0 = 0; i0 < n; i0 += ng * kPB) {
-      float kf[kPB][kEpl], vf[kPB][kEpl], s[kPB][RB];
+      float kf[kPB][EPL], vf[kPB][EPL], s[kPB][RB];
       bool valid[kPB];
 #pragma unroll
       for (int u = 0; u < kPB; ++u) {
         const int i = i0 + u * ng + grp;
         valid[u] = i < n;
 #pragma unroll
-        for (int e = 0; e < kEpl; ++e) kf[u][e] = vf[u][e] = 0.f;
+        for (int e = 0; e < EPL; ++e) kf[u][e] = vf[u][e] = 0.f;
         if (valid[u] && col_in) {
-          load4(sk + i * ds + j * kEpl, kf[u]);
-          load4(sv + i * ds + j * kEpl, vf[u]);
+          loadv(sk + i * ds + j * EPL, kf[u]);
+          loadv(sv + i * ds + j * EPL, vf[u]);
           if constexpr (kQuant) {
             const float ks = rk[i], vs = rv[i];
 #pragma unroll
-            for (int e = 0; e < kEpl; ++e) {
+            for (int e = 0; e < EPL; ++e) {
               kf[u][e] *= ks;
               vf[u][e] *= vs;
             }
@@ -389,7 +454,7 @@ __device__ __forceinline__ void sweep(const Params& p) {
         for (int r = 0; r < RB; ++r) {
           s[u][r] = 0.f;
 #pragma unroll
-          for (int e = 0; e < kEpl; ++e) s[u][r] += qr[r][e] * kf[u][e];
+          for (int e = 0; e < EPL; ++e) s[u][r] += qr[r][e] * kf[u][e];
         }
       }
       // unguarded: a shuffle under a runtime branch costs the warp a
@@ -417,7 +482,7 @@ __device__ __forceinline__ void sweep(const Params& p) {
             }
             l[r] = l[r] * alpha + psum;
 #pragma unroll
-            for (int e = 0; e < kEpl; ++e) {
+            for (int e = 0; e < EPL; ++e) {
               float a = acc[r][e] * alpha;
 #pragma unroll
               for (int u = 0; u < kPB; ++u) a += pu[u] * vf[u][e];
@@ -434,7 +499,7 @@ __device__ __forceinline__ void sweep(const Params& p) {
   // merge the groups: the ring is free once every thread left the loop
   cp_async_wait<0>();
   __syncthreads();
-  const int accw = kEpl * lp;
+  const int accw = EPL * lp;
   float* s_acc = reinterpret_cast<float*>(smem);     // (ng, R, accw)
   float* s_m = s_acc + ng * R * accw;                // (ng, R)
   float* s_l = s_m + ng * R;
@@ -442,8 +507,8 @@ __device__ __forceinline__ void sweep(const Params& p) {
   for (int r = 0; r < RB; ++r) {
     if (live(r)) {
 #pragma unroll
-      for (int e = 0; e < kEpl; ++e)
-        s_acc[(grp * R + r) * accw + j * kEpl + e] = acc[r][e];
+      for (int e = 0; e < EPL; ++e)
+        s_acc[(grp * R + r) * accw + j * EPL + e] = acc[r][e];
       if (j == 0) {
         s_m[grp * R + r] = m[r];
         s_l[grp * R + r] = l[r];
@@ -523,29 +588,37 @@ __device__ __forceinline__ void sweep(const Params& p) {
   if (tid == 0) p.counters[bg] = 0;
 }
 
-// The register-array width for R query heads: R itself up to 4, else 8.
-inline int heads_bucket(int R) { return R <= 4 ? R : kMaxR; }
+// The register-array width for a group of R heads of head_dim D: the
+// heads a CTA takes (R / head_chunks) themselves up to 4, else kMaxRB.
+inline int heads_bucket(int R, int D) {
+  const int rh = R / head_chunks(R, D);
+  return rh <= 4 ? rh : kMaxRB;
+}
 
 inline bool aligned16(const void* x) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
-// Host side: fill the plan's derived fields (the chunk; vec, 16-byte
-// copies, when a row of D values is whole 16-byte units and both caches
-// are 16-byte aligned) and launch `kernel` on grid (B, G, n_split),
-// n_split = ceil(Tlen / split) as the caller sized the workspace.  The
-// dynamic shared memory stays under 48 KB, so no cudaFuncSetAttribute
-// is needed.
+// Host side: fill the plan's derived fields (the runs of heads; the
+// chunk; vec, 16-byte copies, when a row of D values is whole 16-byte
+// units and whole EPL values and both caches are 16-byte aligned) and
+// launch `kernel` on grid (B, G n_hc, n_split), n_split = ceil(Tlen /
+// split) as the caller sized the workspace.  The dynamic shared memory
+// stays under 48 KB, so no cudaFuncSetAttribute is needed.
 template <typename K>
 int launch(K kernel, Params p, int es, cudaStream_t stream) {
+  p.n_hc = head_chunks(p.R, p.D);
+  p.rh = p.R / p.n_hc;
   p.chunk = chunk_rows(p.D, es);
-  p.vec = (p.D * es) % 16 == 0 && aligned16(p.k) && aligned16(p.v);
-  const size_t smem = smem_bytes(p.D, p.R, p.tables ? p.page : 0, es);
+  p.vec = (p.D * es) % 16 == 0 && p.D % epl_of(p.D) == 0 &&
+          aligned16(p.k) && aligned16(p.v);
+  const size_t smem =
+      smem_bytes(p.D, p.rh, p.tables ? p.page : 0, es);
   const int want = p.Tlen > 0 ? (p.Tlen + p.split - 1) / p.split : 1;
   if (smem > (size_t)kMaxSmem || p.n_split != want || p.n_split > 65535 ||
-      p.G > 65535)
+      p.G * p.n_hc > 65535)
     return (int)cudaErrorInvalidValue;
-  kernel<<<dim3(p.B, p.G, p.n_split), kThreads, smem, stream>>>(p);
+  kernel<<<dim3(p.B, p.G * p.n_hc, p.n_split), kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

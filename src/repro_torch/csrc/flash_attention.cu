@@ -39,17 +39,26 @@
 // re-packs the S (C-layout) fragments as the A operand of P V with no trip
 // through shared memory.  The one change of numerics against the Pallas
 // kernel: P is rounded to bf16 for its product with V (the row sums stay
-// f32).  head_dim 32, 64 or 128.
+// f32).  head_dim 32, 64, 128 or 192.
 //
-// float32 (flash_kernel): CUDA cores, one thread a query row, holding its
-// scaled query and its f32 accumulator in registers; K/V tiles staged in
-// shared memory as f32 and read as broadcasts, the score row of each
-// thread in shared memory with an odd stride.  head_dim 64 only.  It keeps
-// the fp32 path bit-for-bit what it was (the serving parity check).
+// head_dim 192 (nemotron-4-340b) keeps the same warp tile: the O
+// accumulator is 96 f32 registers a thread and Q's fragments 48, within
+// the 255 a thread of a 256-thread CTA may hold.
+//
+// float32 (flash_kernel): CUDA cores, a query row on LPR lanes (one up to
+// head_dim 64; two at 128, each holding 64 values), each lane holding its
+// part of the scaled query and of the f32 accumulator in registers (at
+// D 128 one lane a row would need 256 registers for the two); a row's
+// partial dots are summed across its lanes by xor shuffles.  K/V tiles
+// staged in shared memory as f32 and read as broadcasts, the score row of
+// each query row in shared memory with an odd stride.  head_dim 32, 64 or
+// 128.  At D 64 and 32 (one lane a row) it keeps the fp32 path
+// bit-for-bit what it was (the serving parity check).
 //
 // Shared memory: bf16 2 * 2 * block_k * (D + 8) * 2 bytes; f32 4 * (2 *
-// block_k * D + threads * (block_k + 1)) bytes, threads = round_up(
-// block_q, 32).  Accumulation f32; output in the input dtype.
+// block_k * D + rows * (block_k + 1)) bytes, rows = threads / LPR,
+// threads = round_up(block_q * LPR, 32).  Accumulation f32; output in the
+// input dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,39 +67,52 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;              // the f32 kernel's head_dim
+// lanes a query row's head_dim is spread over in the f32 kernel: one up
+// to D 64, D / 64 past it (D 128: two lanes of 64 values each, so a
+// lane's query and accumulator stay within 128 registers)
+template <int D>
+__host__ __device__ constexpr int f32_lanes() {
+  return D > 64 ? D / 64 : 1;
+}
 
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 flash_kernel(const float* __restrict__ q,   // (B, Sq, G, R, D)
              const float* __restrict__ k,   // (B, Sk, G, D)
              const float* __restrict__ v,   // (B, Sk, G, D)
              float* __restrict__ out,       // (B, Sq, G, R, D)
              int B, int Sq, int Sk, int G, int R, int block_q, int block_k,
              int q_offset, float scale, int causal) {
+  constexpr int LPR = f32_lanes<D>();      // lanes a row
+  constexpr int DL = D / LPR;              // values a lane holds
   extern __shared__ float smem[];
   float* s_k = smem;                       // (block_k, D)
   float* s_v = s_k + block_k * D;          // (block_k, D)
-  float* s_s = s_v + block_k * D;          // (threads, block_k + 1)
+  float* s_s = s_v + block_k * D;          // (rows, block_k + 1)
   const int tid = threadIdx.x;
+  const int lrow = tid / LPR, part = tid % LPR;
+  // the LPR lanes of one row (adjacent, aligned): they share every branch
+  const unsigned pmask =
+      (LPR == 1 ? 1u : (1u << LPR) - 1u) << ((tid % 32) & ~(LPR - 1));
   const int bgr = blockIdx.y;
   const int r = bgr % R;
   const int g = (bgr / R) % G;
   const int b = bgr / (R * G);
   const int q0 = blockIdx.x * block_q;
-  const int row = q0 + tid;
-  const bool active = tid < block_q && row < Sq;
+  const int row = q0 + lrow;
+  const bool active = lrow < block_q && row < Sq;
   const int q_pos = row + q_offset;
-  const size_t qoff = ((((size_t)b * Sq + row) * G + g) * R + r) * D;
+  const size_t qoff =
+      ((((size_t)b * Sq + row) * G + g) * R + r) * D + part * DL;
 
-  float qr[D], acc[D];
+  float qr[DL], acc[DL];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DL; ++d) {
     qr[d] = active ? q[qoff + d] * scale : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
-  float* srow = s_s + tid * (block_k + 1);
+  float* srow = s_s + lrow * (block_k + 1);
 
   // the last key any row of this query tile may attend to
   const int q_last = min(q0 + block_q, Sq) - 1 + q_offset;
@@ -115,13 +137,16 @@ flash_kernel(const float* __restrict__ q,   // (B, Sq, G, R, D)
         const int kp = k0 + j;
         float s = -INFINITY;
         if (kp < Sk && (!causal || kp <= q_pos)) {
-          const float* kr = s_k + j * D;
+          const float* kr = s_k + j * D + part * DL;
           float dot = 0.f;
 #pragma unroll
-          for (int d = 0; d < D; ++d) dot += qr[d] * kr[d];
+          for (int d = 0; d < DL; ++d) dot += qr[d] * kr[d];
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(pmask, dot, o);
           s = dot;
         }
-        srow[j] = s;
+        srow[j] = s;                       // the row's lanes write one value
         mt = fmaxf(mt, s);
       }
       const float m_new = fmaxf(m, mt);
@@ -129,15 +154,15 @@ flash_kernel(const float* __restrict__ q,   // (B, Sq, G, R, D)
       const float alpha = isinf(m) ? 0.f : expf(m - m_safe);
       l *= alpha;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < DL; ++d) acc[d] *= alpha;
       for (int j = 0; j < block_k; ++j) {
         const float s = srow[j];
         if (isinf(s)) continue;
         const float p = expf(s - m_safe);
         l += p;
-        const float* vr = s_v + j * D;
+        const float* vr = s_v + j * D + part * DL;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] += p * vr[d];
+        for (int d = 0; d < DL; ++d) acc[d] += p * vr[d];
       }
       m = m_new;
     }
@@ -146,7 +171,7 @@ flash_kernel(const float* __restrict__ q,   // (B, Sq, G, R, D)
   if (active) {
     const float lsafe = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[qoff + d] = acc[d] / lsafe;
+    for (int d = 0; d < DL; ++d) out[qoff + d] = acc[d] / lsafe;
   }
 }
 
@@ -369,9 +394,11 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int B, int Sq, int Sk, int G, int R, int block_q, int block_k,
                int q_offset, float scale, int causal, cudaStream_t stream) {
-  const int threads = (block_q + 31) / 32 * 32;
+  constexpr int LPR = f32_lanes<D>();
+  const int threads = (block_q * LPR + 31) / 32 * 32;
+  const size_t rows = threads / LPR;       // score rows: one a query row
   const size_t smem =
-      sizeof(float) * (2 * (size_t)block_k * D + (size_t)threads * (block_k + 1));
+      sizeof(float) * (2 * (size_t)block_k * D + rows * (block_k + 1));
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -405,10 +432,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32 (D 64, block_q 1..128), 1 = bfloat16 (D 32, 64 or
-// 128; block_q a multiple of 16 in 16..128; block_k a multiple of 16;
-// 16-byte-aligned pointers).  causal: 1 masks k > i + q_offset.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32 (D 32, 64 or 128; block_q 1..128), 1 = bfloat16
+// (D 32, 64, 128 or 192; block_q a multiple of 16 in 16..128; block_k a
+// multiple of 16; 16-byte-aligned pointers).  causal: 1 masks k > i +
+// q_offset.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Sk, int G, int R,
                                int D, int block_q, int block_k, int q_offset,
@@ -418,9 +445,18 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D != kHeadDim) return (int)cudaErrorInvalidValue;
-    return launch_f32<kHeadDim>(q, k, v, out, B, Sq, Sk, G, R, block_q,
-                                block_k, q_offset, scale, causal, st);
+    switch (D) {
+      case 32:
+        return launch_f32<32>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
+                              q_offset, scale, causal, st);
+      case 64:
+        return launch_f32<64>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
+                              q_offset, scale, causal, st);
+      case 128:
+        return launch_f32<128>(q, k, v, out, B, Sq, Sk, G, R, block_q,
+                               block_k, q_offset, scale, causal, st);
+    }
+    return (int)cudaErrorInvalidValue;
   }
   if (dtype != 1 || block_q % 16 != 0 || block_k % 16 != 0 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -436,6 +472,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                              q_offset, scale, causal, st);
     case 128:
       return launch_bf16<128>(q, k, v, out, B, Sq, Sk, G, R, block_q,
+                              block_k, q_offset, scale, causal, st);
+    case 192:
+      return launch_bf16<192>(q, k, v, out, B, Sq, Sk, G, R, block_q,
                               block_k, q_offset, scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -40,10 +40,12 @@
 // does) as they are scored, so the f32 view of the cache never exists.
 // Its bound is the int8 prefix: a quarter of the f32 bytes.
 //
-// Launch geometry: grid (B, G, n_split), 128 threads, dynamic shared
-// memory decode_sweep::smem_bytes(D, R, page, cache bytes),
-// under 48 KB.  q fp32 or bf16; caches q's dtype or int8; accumulation
-// fp32; output in q's dtype.
+// Launch geometry: grid (B, G * n_hc, n_split), 128 threads, dynamic
+// shared memory decode_sweep::smem_bytes(D, R / n_hc, page, cache bytes),
+// under 48 KB; n_hc = decode_sweep::head_chunks(R, D) runs of heads a
+// group (1 for R <= 8 at D <= 128; R 12 at D 192: three runs of 4).  q
+// fp32 or bf16; caches q's dtype or int8; accumulation fp32; output in
+// q's dtype.
 
 #include "decode_sweep.cuh"
 
@@ -51,27 +53,48 @@ namespace {
 
 using decode_sweep::Params;
 
-template <typename T, typename C, int RB>
+template <typename T, typename C, int RB, int EPL>
 __global__ void __launch_bounds__(decode_sweep::kThreads,
-                                  decode_sweep::kMinCtasPerSm)
+                                  decode_sweep::min_ctas(EPL))
 paged_decode_kernel(const Params p) {
-  decode_sweep::sweep<T, C, true, RB>(p);
+  decode_sweep::sweep<T, C, true, RB, EPL>(p);
 }
 
 template <typename T, typename C>
 int launch(Params p, cudaStream_t stream) {
   constexpr int es = sizeof(C);
-  switch (decode_sweep::heads_bucket(p.R)) {
+  if (p.D > decode_sweep::kNarrowD) {   // 8 values a lane, up to 4 heads
+    switch (decode_sweep::heads_bucket(p.R, p.D)) {
+      case 1:
+        return decode_sweep::launch(paged_decode_kernel<T, C, 1, 8>, p, es,
+                                    stream);
+      case 2:
+        return decode_sweep::launch(paged_decode_kernel<T, C, 2, 8>, p, es,
+                                    stream);
+      case 3:
+        return decode_sweep::launch(paged_decode_kernel<T, C, 3, 8>, p, es,
+                                    stream);
+      default:
+        return decode_sweep::launch(paged_decode_kernel<T, C, 4, 8>, p, es,
+                                    stream);
+    }
+  }
+  switch (decode_sweep::heads_bucket(p.R, p.D)) {
     case 1:
-      return decode_sweep::launch(paged_decode_kernel<T, C, 1>, p, es, stream);
+      return decode_sweep::launch(paged_decode_kernel<T, C, 1, 4>, p, es,
+                                  stream);
     case 2:
-      return decode_sweep::launch(paged_decode_kernel<T, C, 2>, p, es, stream);
+      return decode_sweep::launch(paged_decode_kernel<T, C, 2, 4>, p, es,
+                                  stream);
     case 3:
-      return decode_sweep::launch(paged_decode_kernel<T, C, 3>, p, es, stream);
+      return decode_sweep::launch(paged_decode_kernel<T, C, 3, 4>, p, es,
+                                  stream);
     case 4:
-      return decode_sweep::launch(paged_decode_kernel<T, C, 4>, p, es, stream);
+      return decode_sweep::launch(paged_decode_kernel<T, C, 4, 4>, p, es,
+                                  stream);
     default:
-      return decode_sweep::launch(paged_decode_kernel<T, C, 8>, p, es, stream);
+      return decode_sweep::launch(paged_decode_kernel<T, C, 8, 4>, p, es,
+                                  stream);
   }
 }
 
@@ -94,8 +117,9 @@ int dispatch(Params p, int dtype, bool quant, cudaStream_t st) {
 }  // namespace
 
 // dtype (of q, the output and, here, the caches): 0 = float32,
-// 1 = bfloat16.  ws: (B * G * n_split, R, D + 2) f32 partials (unused
-// when n_split is 1); counters: >= B * G int32 zeros, left zero.
+// 1 = bfloat16.  R <= 16, D <= 256.  ws: (B * G * n_split, R, D + 2) f32
+// partials (unused when n_split is 1); counters: >= B * G * n_hc int32
+// zeros, left zero.
 // n_split must be ceil(Tlen / split): the grid's third extent, which
 // sized ws.  Returns cudaGetLastError() after the launch (0 on success),
 // cudaErrorInvalidValue for a shape or plan the kernel does not take.

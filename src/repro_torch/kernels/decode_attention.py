@@ -12,7 +12,10 @@ positions of one (row, group) once for all R query heads by cp.async
 into a ring and stops at ``cache_len``, and the last split of a row to
 finish merges the row's partials, in the same launch.  ``block_s`` and
 ``split`` are the mapper's plan (``plan_cache_block``,
-``plan_decode_split``), both required.  It is the read
+``plan_decode_split``), both required.  A group of R query heads past
+what one CTA's registers hold (R > 8, or R > 4 past head_dim 128) is
+swept in runs of heads, each a CTA of its own (``decode_head_chunks``:
+R 12 at head_dim 192 is three runs of 4).  It is the read
 of the engine's contiguous pool (``paged=False``), of both
 gather-then-sweep paths (``fused_decode=False``, after
 ``kernels.paged_gather``) and of ``kernels.ops.decode_attention``.
@@ -34,15 +37,15 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.hw import GpuParams, ceil_div, detect
-from repro_torch.core.mapper import (CACHE_BLOCK_QUANTUM, decode_smem_bytes,
-                                     decode_splits)
+from repro_torch.core.mapper import (CACHE_BLOCK_QUANTUM, decode_head_chunks,
+                                     decode_smem_bytes, decode_splits)
 from repro_torch.kernels import _build
 
 __all__ = ["decode_attention", "decode_attention_plain", "split_buffers",
            "check_split", "hw_of"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_R, _MAX_D = 8, 128
+_MAX_R, _MAX_D = 16, 256
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _MAX_SPLITS = 65535          # the grid's z extent
@@ -70,16 +73,18 @@ def _entry():
 def split_buffers(q: torch.Tensor, n_split: int, stream: int):
     """Scratch of the split sweep for q (B, G, R, D) on ``stream``: the
     f32 partials, at least B G n_split x R x (D + 2) values (from
-    ``torch.empty``), and at least B G int32 (row, group) tickets
-    (zeroed), kept per device and stream and reallocated only when this
-    launch needs more; the kernel leaves the tickets zero."""
+    ``torch.empty``), and at least B G n_hc int32 (row, group, run of
+    heads) tickets (zeroed; ``decode_head_chunks``), kept per device and
+    stream and reallocated only when this launch needs more; the kernel
+    leaves the tickets zero."""
     b, g, r, d = q.shape
     key = (q.device, stream)
     tickets, ws = _SCRATCH.get(key, (None, None))
     need = b * g * n_split * r * (d + 2)
-    if tickets is None or tickets.numel() < b * g or ws.numel() < need:
-        if tickets is None or tickets.numel() < b * g:
-            tickets = torch.zeros(max(b * g, 256), dtype=torch.int32,
+    runs = b * g * decode_head_chunks(d, r)
+    if tickets is None or tickets.numel() < runs or ws.numel() < need:
+        if tickets is None or tickets.numel() < runs:
+            tickets = torch.zeros(max(runs, 256), dtype=torch.int32,
                                   device=q.device)
         if ws is None or ws.numel() < need:
             ws = torch.empty(max(need, 1 << 16), dtype=torch.float32,
@@ -175,7 +180,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, block_s: int,
     """Contiguous grouped decode.  CPU tensors (or
     ``kernels.force("plain")``) run the plain version, which ``split``
     does not change; CUDA tensors launch the kernel on the grid
-    (B, G, ceil(T / split)), ``split`` the mapper's width, with the
+    (B, G n_hc, ceil(T / split)), n_hc the runs of heads
+    (``decode_head_chunks``), ``split`` the mapper's width, with the
     launch count in ``decode_attention.launches`` and the grid in
     ``decode_attention.last_grid``."""
     if kernels.use_plain(q):
@@ -199,7 +205,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, block_s: int,
                   float(scale), _DTYPES[q.dtype], stream)
     _build.check(rc, "decode_attention")
     decode_attention.launches += 1
-    decode_attention.last_grid = (b, g, n_split)
+    decode_attention.last_grid = (b, g * decode_head_chunks(d, r), n_split)
     return out
 
 

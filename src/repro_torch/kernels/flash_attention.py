@@ -10,10 +10,11 @@ paths) masks keys past ``q_pos + q_offset``; False attends to every key.
 Tiles ``(block_q, block_k)`` come from the serving router's plan.
 
 The dtype picks the kernel: bfloat16 runs on the tensor cores
-(``mma.sync``, 16 query rows a warp; head_dim 32, 64 or 128), float32 on
-the CUDA cores (one query row a thread; head_dim 64).  Anything else
-raises a ``ValueError`` naming ROADMAP §2 A.1, where the other head_dims
-are listed.  Both count in ``flash_attention.launches``.
+(``mma.sync``, 16 query rows a warp; head_dim 32, 64, 128 or 192),
+float32 on the CUDA cores (a query row on one lane, or on two at head_dim
+128; head_dim 32, 64 or 128).  Anything else raises a ``ValueError``
+naming ROADMAP §2 A.1, where the other head_dims are listed.  Both count
+in ``flash_attention.launches``.
 
 ``flash_attention_plain`` is the plain PyTorch version, the schedule of
 ``tiled_prefill_attention``: query tiles of ``block_q`` rows, key tiles
@@ -33,9 +34,11 @@ from repro_torch.kernels import _build
 __all__ = ["flash_attention", "flash_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head_dims each kernel is built for: the f32 kernel smollm-135m's, the
-#: bf16 kernel the reduced configs', smollm's and qwen3's / the MoE configs'
-HEAD_DIMS = {torch.float32: (64,), torch.bfloat16: (32, 64, 128)}
+#: head_dims each kernel is built for: the reduced configs' (32),
+#: smollm-135m's (64), qwen3-8b's and the MoE configs' (128) in both, and
+#: nemotron-4-340b's (192) in bf16
+HEAD_DIMS = {torch.float32: (32, 64, 128),
+             torch.bfloat16: (32, 64, 128, 192)}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -124,7 +127,8 @@ def flash_attention(q, k, v, *, block_q: int, block_k: int,
     are not supported and raise."""
     if window is not None or prefix_len is not None:
         raise NotImplementedError("flash_attention: window and prefix_len "
-                                  "masks are not ported (smollm has neither)")
+                                  "masks are not ported (no served config "
+                                  "has either)")
     q_offset = int(q_offset)
     if kernels.use_plain(q):
         return flash_attention_plain(q, k, v, block_q=block_q,

@@ -12,8 +12,11 @@ per CTA), stages their K/V rows by cp.async into a ring for all R query
 heads of the group and stops at ``cache_len``; the last split of a row
 to finish merges the row's partials, in the same launch.  ``block_s``
 (whole pages) and ``split`` (whole ``block_s``) are the mapper's plan
-(``plan_paged_block``, ``plan_decode_split``), both required.  With ``k_scale``/``v_scale`` the caches hold the int8 pool's
-codes and a second instantiation of the kernel
+(``plan_paged_block``, ``plan_decode_split``), both required.  R <= 16
+and head_dim <= 256; a group past what one CTA's registers hold (R > 8,
+or R > 4 past head_dim 128) is swept in runs of heads, a CTA each
+(``decode_head_chunks``).  With ``k_scale``/``v_scale`` the caches hold
+the int8 pool's codes and a second instantiation of the kernel
 (``paged_decode_attention_int8`` in the same source; it replaces
 ``_paged_decode_kernel_int8``) stages the codes and dequantises each by
 its page's group scale as it scores it; its launches count in
@@ -37,7 +40,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.hw import ceil_div
-from repro_torch.core.mapper import decode_smem_bytes, decode_splits
+from repro_torch.core.mapper import (decode_head_chunks, decode_smem_bytes,
+                                     decode_splits)
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import hw_of, split_buffers
 from repro_torch.kernels.paged_gather import paged_flat_indices
@@ -45,7 +49,7 @@ from repro_torch.kernels.paged_gather import paged_flat_indices
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_R, _MAX_D = 8, 128
+_MAX_R, _MAX_D = 16, 256
 #: C entry point -> its argument types (pointers, ints, scale, dtype,
 #: stream)
 _ARGTYPES = {
@@ -180,15 +184,17 @@ def paged_decode_attention(q, k_cache, v_cache, tables, cache_len, *,
                            v_scale=None) -> torch.Tensor:
     """Fused paged decode.  CPU tensors (or ``kernels.force("plain")``)
     run the plain version, which ``split`` does not change; CUDA tensors
-    launch the kernel on the grid (B, G, ceil(T / split)), ``split`` the
-    mapper's width, counted in ``paged_decode_attention.launches`` (int8
-    codes with ``k_scale``/``v_scale``:
-    ``paged_decode_attention.int8_launches``), the grid in
+    launch the kernel on the grid (B, G n_hc, ceil(T / split)), n_hc the
+    runs of heads (``decode_head_chunks``), ``split`` the mapper's width,
+    counted in ``paged_decode_attention.launches`` (int8 codes with
+    ``k_scale``/``v_scale``: ``paged_decode_attention.int8_launches``),
+    the grid in
     ``paged_decode_attention.last_grid``.  Sliding windows are not
     supported by the kernel and raise."""
     if window is not None:
         raise NotImplementedError("paged_decode_attention: sliding windows "
-                                  "are not ported (smollm has none)")
+                                  "are not ported (no served config has "
+                                  "one)")
     if kernels.use_plain(q):
         return paged_decode_attention_plain(
             q, k_cache, v_cache, tables, cache_len, page_block=page_block,
@@ -223,7 +229,8 @@ def paged_decode_attention(q, k_cache, v_cache, tables, cache_len, *,
             k_scale.data_ptr(), v_scale.data_ptr(), *ptrs, *shape)
         _build.check(rc, "paged_decode_attention_int8")
         paged_decode_attention.int8_launches += 1
-    paged_decode_attention.last_grid = (b, g, n_split)
+    paged_decode_attention.last_grid = (b, g * decode_head_chunks(d, r),
+                                        n_split)
     return out
 
 

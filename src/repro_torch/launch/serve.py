@@ -2,6 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --requests 12 --slots 8 --max-len 1024 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --full
+
+``--arch`` takes any registered config (``repro_torch.configs``:
+smollm-135m, qwen3-8b, nemotron-4-340b, mamba2-1.3b).
 
 Runs on the CUDA device by default and raises without one;
 ``--device cpu`` runs the kernels' plain versions (reduced width is the

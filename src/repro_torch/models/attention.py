@@ -38,7 +38,7 @@ from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.paged_gather import (flat_position,
                                               paged_dequant_gather,
                                               paged_gather)
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 __all__ = ["project_qkv", "attention_block", "paged_write_index",
            "row_write_index", "cache_write", "paged_quant_write",
@@ -47,12 +47,17 @@ __all__ = ["project_qkv", "attention_block", "paged_write_index",
 
 def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin):
     """Project into the grouped layout: q (B, S, G, R, D), k/v
-    (B, S, G, D), rope applied, all contiguous."""
+    (B, S, G, D), q and k RMS-normed over head_dim when ``cfg.qk_norm``,
+    then rope applied, all contiguous.  Every path projects here:
+    prefill, prefill chunks (a radix resume's too) and decode."""
     b, s, _ = x.shape
     g = max(cfg.num_kv_heads, 1)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dgk->bsgk", x, params["wk"])
     v = torch.einsum("bsd,dgk->bsgk", x, params["wv"])
+    if cfg.qk_norm:          # over head_dim, before RoPE (qwen3)
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     q = q.reshape(b, s, g, cfg.heads_per_group, cfg.head_dim)

@@ -3,10 +3,12 @@
 Params are nested dicts of tensors in the JAX package's layout (layers
 stacked on a leading axis):
 
-    embed.tok (V, D)
+    embed.tok (V, D), and embed.unembed (D, V) when untied
     blocks.ln1 (L, D), blocks.ln2 (L, D)
-    blocks.attn.{wq (L, D, H, hd), wk/wv (L, D, G, hd), wo (L, H, hd, D)}
-    blocks.mlp.{w_gate, w_up (L, D, F), w_down (L, F, D)}
+    blocks.attn.{wq (L, D, H, hd), wk/wv (L, D, G, hd), wo (L, H, hd, D)},
+        and q_norm / k_norm (L, hd) with ``qk_norm``
+    blocks.mlp.{w_gate, w_up (L, D, F), w_down (L, F, D)} (swiglu) or
+        {w_in (L, D, F), w_down (L, F, D)} (squared_relu)
     ln_f (D,)
 
 and for the ssm family (Mamba-2) ``blocks.ln (L, D)`` and ``blocks.ssm``
@@ -31,32 +33,41 @@ __all__ = ["param_shapes", "init_params", "rmsnorm", "embed", "unembed",
 def param_shapes(cfg: ModelConfig) -> dict:
     """The param tree as {name: (shape, init, scale)}; ``init`` is
     "normal", "zeros" or "ones", ``scale`` None means min(0.02,
-    fan_in^-0.5)."""
+    fan_in^-0.5).  The keys are the JAX package's (``embed_specs``,
+    ``attention_specs``, ``mlp_specs``)."""
     d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     n, f = cfg.num_layers, cfg.d_ff
-    served = cfg.tie_embeddings and (
-        cfg.family == "ssm"
-        or (cfg.family == "dense" and cfg.mlp_act == "swiglu"))
+    served = (cfg.family == "ssm" and cfg.tie_embeddings) or (
+        cfg.family == "dense" and cfg.mlp_act in ("swiglu", "squared_relu"))
     if not served:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense swiglu and the ssm "
-            f"families with tied embeddings; moe, hybrid, encdec and vlm "
-            f"come with ROADMAP queue 1 item 9")
+            f"{cfg.name}: the port serves the dense family (swiglu or "
+            f"squared_relu, tied or untied) and the tied ssm family; "
+            f"geglu, moe, hybrid, encdec and vlm come with ROADMAP queue 1 "
+            f"item 9")
     if cfg.family == "ssm":
         return _ssm_shapes(cfg)
+    emb = {"tok": ((cfg.vocab_size, d), "normal", 0.02)}
+    if not cfg.tie_embeddings:
+        emb["unembed"] = ((d, cfg.vocab_size), "normal", 0.02)
+    attn = {"wq": ((n, d, h, hd), "normal", None),
+            "wk": ((n, d, g, hd), "normal", None),
+            "wv": ((n, d, g, hd), "normal", None),
+            "wo": ((n, h, hd, d), "normal", None)}
+    if cfg.qk_norm:
+        attn["q_norm"] = ((n, hd), "zeros", None)
+        attn["k_norm"] = ((n, hd), "zeros", None)
+    if cfg.mlp_act == "swiglu":
+        mlp_ = {"w_gate": ((n, d, f), "normal", None),
+                "w_up": ((n, d, f), "normal", None),
+                "w_down": ((n, f, d), "normal", None)}
+    else:
+        mlp_ = {"w_in": ((n, d, f), "normal", None),
+                "w_down": ((n, f, d), "normal", None)}
     return {
-        "embed": {"tok": ((cfg.vocab_size, d), "normal", 0.02)},
-        "blocks": {
-            "ln1": ((n, d), "zeros", None),
-            "attn": {"wq": ((n, d, h, hd), "normal", None),
-                     "wk": ((n, d, g, hd), "normal", None),
-                     "wv": ((n, d, g, hd), "normal", None),
-                     "wo": ((n, h, hd, d), "normal", None)},
-            "ln2": ((n, d), "zeros", None),
-            "mlp": {"w_gate": ((n, d, f), "normal", None),
-                    "w_up": ((n, d, f), "normal", None),
-                    "w_down": ((n, f, d), "normal", None)},
-        },
+        "embed": emb,
+        "blocks": {"ln1": ((n, d), "zeros", None), "attn": attn,
+                   "ln2": ((n, d), "zeros", None), "mlp": mlp_},
         "ln_f": ((d,), "zeros", None),
     }
 
@@ -85,13 +96,23 @@ def _ssm_shapes(cfg: ModelConfig) -> dict:
     }
 
 
+#: values a CUDA generator draws at once (``init_params``)
+INIT_PIECE = 1 << 28
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype, device) -> dict:
     """Random params from ``generator`` with the JAX package's spec
     shapes and scales: ``normal x min(0.02, fan_in^-0.5)`` with fan_in
-    the second-to-last dim of the stacked shape, ``tok`` at 0.02, the
-    ``zeros`` and ``ones`` kinds constant.  Drawn in float32 on the CPU
-    (the same numbers on every device), then cast and moved."""
+    the second-to-last dim of the stacked shape, ``tok`` and ``unembed``
+    at 0.02, the ``zeros`` and ``ones`` kinds constant.  Drawn in float32
+    on the generator's device, in flat pieces of at most ``INIT_PIECE``
+    values, each scaled, cast and copied into place, so the float32
+    transient stays ~1 GB however large the tensor (nemotron-4-340b's
+    embedding table is 4.7 B values).  A tensor of one piece gets the
+    numbers a whole-tensor draw gives."""
+    draw_dev = generator.device
+
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
@@ -101,8 +122,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return fill(shape, dtype=dtype, device=device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = scale if scale is not None else min(0.02, fan_in ** -0.5)
-        w = torch.randn(shape, generator=generator, dtype=torch.float32)
-        return (w * scale).to(dtype=dtype, device=device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in out.view(-1).split(INIT_PIECE):
+            w = torch.randn(part.shape, generator=generator,
+                            dtype=torch.float32, device=draw_dev)
+            part.copy_(w * scale)
+        return out
 
     return make(param_shapes(cfg))
 
@@ -119,13 +144,31 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding; float32 logits from float32 accumulation."""
-    return x.float() @ params["tok"].float().t()
+    """Float32 logits from float32 accumulation over the untied
+    ``unembed`` (D, V) or, tied, ``tok.T``.  A float32 table takes one
+    float32 product.  Any other, on a card, takes one product of the
+    stored inputs with a float32 output (``out_dtype``: the GEMM
+    accumulates in float32), so no float32 copy of the table is made, as
+    the reference's ``preferred_element_type``; the CPU has no such
+    product and multiplies float32 copies."""
+    w = params.get("unembed")
+    w = params["tok"].t() if w is None else w
+    if w.dtype == torch.float32 or not x.is_cuda:
+        return x.float() @ w.float()
+    out = torch.mm(x.reshape(-1, x.shape[-1]).to(w.dtype), w,
+                   out_dtype=torch.float32)
+    return out.view(*x.shape[:-1], w.shape[1])
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x W_gate) * x W_up) W_down``."""
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+def mlp(params: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """SwiGLU ``(silu(x W_gate) * x W_up) W_down`` or squared ReLU
+    ``relu(x W_in)^2 W_down``."""
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif act == "squared_relu":
+        h = torch.square(F.relu(x @ params["w_in"]))
+    else:
+        raise NotImplementedError(f"mlp_act {act!r} is not ported")
     return h @ params["w_down"]
 
 

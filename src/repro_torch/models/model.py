@@ -45,8 +45,12 @@ class Model:
         return _DTYPES[self.cfg.dtype]
 
     def init(self, seed: int = 0) -> dict:
-        """Random params drawn from ``torch.Generator().manual_seed(seed)``."""
-        gen = torch.Generator().manual_seed(seed)
+        """Random params drawn on the model's device from
+        ``torch.Generator(device).manual_seed(seed)``: on the CPU the
+        numbers the CPU tests have always drawn, on a card a card's own
+        (so full-width weights take seconds, not minutes, and never pass
+        through the host)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.cfg, gen, self.dtype, self.device)
 
     def init_cache(self, batch: int, max_len: int,
@@ -142,6 +146,7 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense "
-            f"and ssm, and moe, hybrid, encdec and vlm come with ROADMAP "
-            f"queue 1 item 9")
+            f"(swiglu or squared_relu, qk-norm, tied or untied) and ssm, "
+            f"and moe, hybrid, encdec and vlm come with ROADMAP queue 1 "
+            f"item 9")
     return Model(cfg, resolve_device(device))

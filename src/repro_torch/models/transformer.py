@@ -44,7 +44,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         a, (k, v) = attention_block(lp["attn"], h, cfg, cos=cos, sin=sin,
                                     prefill_tiles=prefill_tiles)
         x = x + a
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                    cfg.mlp_act)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -90,7 +91,8 @@ def chunk_prefill_step(params: dict, cache: dict, tokens: torch.Tensor,
         o = flash_attention(q, k_c, v_c, block_q=bq, block_k=bk,
                             q_offset=start)
         x = x + out_proj(lp["attn"], o, cfg)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                    cfg.mlp_act)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params["embed"], x), dict(cache, pos=start + c)
 
@@ -134,6 +136,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             paged_decode_split=paged_decode_split,
             k_scale=cache["k_scale"][i] if quant else None,
             v_scale=cache["v_scale"][i] if quant else None)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                    cfg.mlp_act)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params["embed"], x), dict(cache, pos=pos + 1)

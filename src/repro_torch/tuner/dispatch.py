@@ -68,7 +68,8 @@ from repro_torch.core.autotune import refine_discrete
 from repro_torch.core.hw import GpuParams, ceil_div, detect, round_up
 from repro_torch.core.mapper import (
     CTA_THREADS, NN_CTAS_PER_SM, MappingPolicy, attention_plan_for_blocks,
-    decode_block_for, decode_ctas_per_sm, gcn_plan_for_block,
+    decode_block_for, decode_ctas_per_sm, decode_head_chunks,
+    gcn_plan_for_block,
     matmul_plan_for_blocks, nn_plan_for_block, plan_attention_blocks,
     plan_cache_block, plan_decode_split, plan_gcn, plan_matmul_blocks,
     plan_nn, plan_paged_block, plan_rows, plan_stencil, plan_vector_blocks,
@@ -688,7 +689,8 @@ def _flash_call(q, k, v, *, block_q, block_k, causal=True, scale=None):
 
 
 def _register_flash_attention():
-    from repro_torch.core.mapper import MAX_BLOCK_Q, TILE_QUANTUM
+    from repro_torch.core.mapper import (MAX_BLOCK_Q, TILE_QUANTUM,
+                                         flash_f32_lanes)
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     def describe(q, k, v, *, causal=True, **kwargs):
@@ -734,13 +736,14 @@ def _register_flash_attention():
             byts = (2 * sq * hd + 2 * skv * hd * gq * half) * db * batch
             flops = 4.0 * sq * skv * hd * half * batch
             # the kernel the dtype launches: bf16 two threads a row on
-            # mma.sync, f32 one thread a row (csrc/flash_attention.cu)
+            # mma.sync, f32 one or two lanes a row (csrc/flash_attention.cu)
             if bf16:
                 threads, smem = 2 * bq, 2 * 2 * bk * (hd + 8) * 2
                 rate = hw.peak_flops_bf16
             else:
-                threads = round_up(bq, 32)
-                smem = 4 * (2 * bk * hd + threads * (bk + 1))
+                lanes = flash_f32_lanes(hd)
+                threads = round_up(bq * lanes, 32)
+                smem = 4 * (2 * bk * hd + threads // lanes * (bk + 1))
                 rate = hw.peak_flops_fp32
             per_sm = max(1, min(hw.smem_per_sm // (smem + 1024),
                                 hw.warps_per_sm * hw.warp_size // threads))
@@ -883,6 +886,7 @@ def _register_decode(name: str, paged: bool):
         s, d, rows = desc["s"], desc["d"], desc["rows"]
         r, cb = desc["heads_per_group"], desc["dtype_bytes"]
         per_sm = decode_ctas_per_sm(d, r, hw, desc.get("page_block"))
+        runs = decode_head_chunks(d, r)      # CTAs a (row, group) a split
 
         def cost(value):
             plan = legal(desc, hw, value)
@@ -893,7 +897,7 @@ def _register_decode(name: str, paged: bool):
             if n_split > 1:            # each split's partial, out and back
                 byts += 2.0 * rows * n_split * r * (d + 2) * 4
             flops = 4.0 * rows * r * s * d
-            return _roofline(flops, byts, rows * n_split, hw,
+            return _roofline(flops, byts, rows * runs * n_split, hw,
                              hw.peak_flops_fp32, per_sm)
 
         return cost

@@ -354,8 +354,8 @@ def _no_build(name):
     raise AssertionError(f"{name} was built on the CPU")
 
 
-@pytest.mark.parametrize("dtype,d", [(BF16, 96), (torch.float32, 128),
-                                     (torch.float32, 32), (BF16, 256)])
+@pytest.mark.parametrize("dtype,d", [(BF16, 96), (torch.float32, 96),
+                                     (BF16, 168), (BF16, 256)])
 def test_flash_kernel_path_raises_on_what_no_kernel_takes(dtype, d,
                                                           monkeypatch):
     """The kernel path raises a ValueError naming ROADMAP §2 A.1 before
