@@ -51,10 +51,13 @@ Phases, each printing one JSON line:
            models take (``add_variants``): flash in f32 at head_dim 128
            (qwen3-8b's G 8, R 4: a 512 prompt and a 64-row chunk at
            q_offset 385) and 32, and in bf16 at head_dim 192
-           (nemotron-4-340b's G 8, R 12: the prompt and the chunk); the
-           three decode kernels at R 12 / D 192 and R 16 / D 256 (runs of
-           4 heads a CTA); both gathers at D 192; ``DECODE_SHAPES`` also
-           holds R 12 / D 192 and R 16 / D 256;
+           (nemotron-4-340b's G 8, R 12: the prompt and the chunk) and
+           128 (deepseek-moe-16b's G 16, R 1, also in f32, and
+           qwen3-moe-235b-a22b's G 4, R 16); the three decode kernels at
+           R 12 / D 192, R 16 / D 256 (runs of 4 heads a CTA), R 1 / D 128
+           (G 16) and R 16 / D 128 (G 4); both gathers at D 192 and at
+           the moe models' KV heads; ``DECODE_SHAPES`` also holds those
+           four geometries;
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
@@ -131,8 +134,9 @@ Phases, each printing one JSON line:
            (fused paged decode) with chunked and with whole-prompt
            prefill, then ``paged=False``, ``fused_decode=False``,
            ``kv_dtype="int8"`` and int8 with ``fused_decode=False``
-           (chunked); then ``ServeEngine("mamba2-1.3b", reduced=False)``
-           on the mix's first 4 requests, chunked and whole-prompt
+           (chunked); then mamba2-1.3b at its published width cut to
+           ``MAMBA_LAYERS`` layers (``engine_config``) on the mix's
+           first 4 requests, chunked and whole-prompt
            (``MAMBA_RUNS``), every engine on its default policy, TUNED;
            each run prints the decode plans that ran (``block_s`` and
            split per pool length) and each bucket's TUNED plan beside
@@ -157,6 +161,36 @@ Phases, each printing one JSON line:
            path of ``NEMOTRON_RUNS`` (default, int8, gather): the path's
            kernels launched and no other, the streams equal to a
            ``force("plain")`` run's (``dense_plain``);
+  moe      deepseek-moe-16b at full width (64 routed experts top-6, 2
+           shared, G 16 / R 1 / D 128, untied; weights drawn on the
+           card): in float32 cut to ``MOE_FP32_LAYERS`` layers, 8 slots,
+           the mix's first ``MOE_REQUESTS`` requests, the kernels against
+           ``kernels.force("plain")`` (``kernel_plain``, as the dense
+           phase's qwen3-8b): identical streams, first decode-step logits
+           within 1e-3, flash (f32, D 128) and the paged decode launched
+           and no other kernel, nothing by plain, and the (token, layer)
+           top-k sets that differ between the two runs with plain's
+           smallest gap between the k-th and (k+1)-th probability
+           (``RouteSpy``, ``route_diff``); in bf16 at full depth (28
+           layers) chunked and whole-prompt with ``engine_run``'s gates
+           and the chunked run under torch.profiler (``bf16_runs``,
+           ``moe_profile``), then the chunked run's streams
+           teacher-forced, untimed (``teacher_run``: fed through
+           ``TeacherForce`` to a kernel run and a plain run; each step's
+           logits within the model's ``TEACHER_TOL`` and the greedy
+           picks equal wherever plain's top-2 margin exceeds it; plain
+           launches nothing; a third run with a planted fault, the last
+           layer's decode reading the wrong KV group (``WrongGroup``),
+           must leave the bound); then qwen3-moe-235b-a22b at full width
+           (128 experts top-8, G 4 / R 16 / D 128, qk-norm) cut to
+           ``QWEN3_MOE_LAYERS`` layers on each path of
+           ``QWEN3_MOE_RUNS`` (default, int8, gather, int8 gather), each
+           teacher-forced (the default path with the planted fault); the
+           teacher-forced kernel runs print the routing counts (calls,
+           routed tokens, dropped slots; the timed runs carry no spy)
+           and every run the decode tick's bound (``tick_bound``: every
+           weight but the token embedding read once, the dense expert
+           buffers multiply every expert);
   retune   smollm-135m at full width, default chunked path, TUNED, the
            engine phase's params, the mix's first ``RETUNE_REQUESTS``
            requests, each run in a private tuning cache: untraced, traced
@@ -190,13 +224,16 @@ Phases, each printing one JSON line:
            p50 and p95 cold and shared, the prefill chunks and the hit
            rate (``prefix_summary``);
   profile  smollm's chunked path, fp and int8 pools, on the mix's first 4
-           requests, and mamba2's chunked path on its first request
+           requests, and mamba2's chunked path (``MAMBA_LAYERS``
+           layers) on its first request
            (``PROFILE_RUNS``), unprofiled (wall time) and under
            torch.profiler (device time by kernel from the raw device
            events, busy time, idle share; no check: a reading);
-  parity   the same engine in float32 on each path (chunked), once on the
-           kernels and once under ``kernels.force("plain")``: identical
-           token streams, first decode-step logits within atol 1e-3;
+  parity   the same engine in float32 on each path (chunked), once on
+           the kernels and once under ``kernels.force("plain")``
+           (``kernel_plain``): identical token streams, first decode-step
+           logits within atol 1e-3, the path's kernels launched and no
+           other, nothing by plain;
            then ``prefix`` (the radix at the prefix phase's tight budget)
            and ``prefix_int8`` (the radix on the int8 pool) at 2 slots on
            a 4-request sharing mix, the same gates, and the kernel run's
@@ -210,7 +247,7 @@ with ``tuned_ms`` beside AUTO's ``ms``; a suite row's ``launches``
 counts NAIVE, FIXED and AUTO over every case, and ``tuned_launches``
 TUNED's at its cases; a serving row's ``prefix_launches`` counts the
 prefix phase's runs; ``variants`` the added variants, each with the
-launches of the dense run that takes it), and as the last line
+launches of the dense or moe run that takes it), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  It needs one CUDA device and exits
 non-zero without one.
@@ -218,6 +255,7 @@ non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -556,7 +594,8 @@ SPLIT_SWEEP = (16, 32, 64, 128, 256, 512, 1024)
 #: 128 splits of one row merged; one split of 512 (32 chunks through the
 #: 4-stage ring); pages of 8 and 32 and a split planned by AUTO (None);
 #: the wide groups: R 12 at D 192 (nemotron-4-340b; three runs of 4 heads
-#: a group, lanes 24-31 idle) and R 16 at D 256 (four runs of 4)
+#: a group, lanes 24-31 idle) and R 16 at D 256 (four runs of 4); the
+#: moe models' G 16, R 1 and G 4, R 16 (two runs of 8) at D 128
 DECODE_SHAPES = (
     (3, 80, 2, 2, 16, 16, 16, 16, (0, 17, 85)),
     (2, 96, 1, 8, 128, 32, 32, 64, (96, 33)),
@@ -567,15 +606,21 @@ DECODE_SHAPES = (
     (2, 512, 3, 3, 64, 16, 16, 512, (512, 300)),
     (2, 128, 2, 12, 192, 16, 32, None, (128, 77)),
     (2, 96, 1, 16, 256, 32, 32, 64, (96, 33)),
+    (2, 80, 16, 1, 128, 16, 16, None, (80, 41)),
+    (2, 96, 4, 16, 128, 32, 32, 64, (96, 33)),
 )
 
 #: the head geometries (G, R, D) of the kernels phase's variants:
-#: qwen3-8b's, nemotron-4-340b's, the decode sweep's widest and the
-#: reduced configs'
+#: qwen3-8b's, nemotron-4-340b's, the decode sweep's widest, the
+#: reduced configs' and the two moe models'
 QWEN3_HEADS = (8, 4, 128)
 NEMOTRON_HEADS = (8, 12, 192)
 WIDEST_HEADS = (8, 16, 256)
 REDUCED_HEADS = (2, 2, 32)
+#: the moe phase's models: deepseek-moe-16b (full multi-head attention)
+#: and qwen3-moe-235b-a22b
+DEEPSEEK_HEADS = (16, 1, 128)
+QWEN3_MOE_HEADS = (4, 16, 128)
 
 
 #: shapes the gather wrappers take beyond the serving one: (B, T, G, D,
@@ -817,16 +862,19 @@ def decode_shapes_check(device, hw):
 
 
 def add_variants(results, cfg, hw, device, timer, measure):
-    """The variants the dense phase's models take, appended to each
-    serving kernel's cases (after the serving shape, which stays first):
-    flash in f32 at head_dim 128 (qwen3-8b's heads, a 512 prompt and a
-    64-row chunk at an odd q_offset) and 32 (the reduced configs'), and in
-    bf16 at head_dim 192 (nemotron-4-340b's G 8, R 12; the prompt and the
-    chunk); the three decode kernels at R 12 / D 192 and R 16 / D 256 over
-    ``decode_case``'s ragged lengths (nemotron's also timed at each
-    width of ``SPLIT_SWEEP``); the gathers at D 192.  Each case names the
-    dense run whose launches it reports (``dense_run``; None: no dense
-    run takes it)."""
+    """The variants the dense and moe phases' models take, appended to
+    each serving kernel's cases (after the serving shape, which stays
+    first): flash in f32 at head_dim 128 (qwen3-8b's heads, a 512 prompt
+    and a 64-row chunk at an odd q_offset; deepseek-moe-16b's G 16, R 1)
+    and 32 (the reduced configs'), and in bf16 at head_dim 192
+    (nemotron-4-340b's G 8, R 12; the prompt and the chunk) and 128
+    (deepseek-moe-16b's R 1, qwen3-moe-235b-a22b's G 4, R 16); the three
+    decode kernels at R 12 / D 192, R 16 / D 256, R 1 / D 128 (G 16) and
+    R 16 / D 128 (G 4) over ``decode_case``'s ragged lengths (nemotron's
+    also timed at each width of ``SPLIT_SWEEP``); the gathers at D 192
+    and at the two moe models' KV heads.  Each case names the dense or
+    moe run whose launches it reports (``run``; None: no run takes
+    it)."""
     from repro_torch.core.mapper import (decode_head_chunks,
                                          plan_attention_blocks,
                                          plan_cache_block, plan_decode_split,
@@ -838,7 +886,7 @@ def add_variants(results, cfg, hw, device, timer, measure):
     from repro_torch.kernels.paged_gather import (paged_dequant_gather,
                                                   paged_gather)
 
-    def flash(label, heads, sq, sk, off, dtype, dense_run):
+    def flash(label, heads, sq, sk, off, dtype, run):
         p = plan_attention_blocks(sq, sk, heads[2], hw)
         tiles = (p.block_q, p.block_k)
         entry = measure("flash_attention", flash_attention,
@@ -848,7 +896,7 @@ def add_variants(results, cfg, hw, device, timer, measure):
         return dict(shape=f"{label}: G {heads[0]}, R {heads[1]}, "
                           f"head_dim {heads[2]}, {sq} queries at q_offset "
                           f"{off} over {sk} keys, tiles {tiles}",
-                    variant=label, dense_run=dense_run, **entry)
+                    variant=label, run=run, **entry)
 
     results["flash_attention"] += [
         flash("f32 D 128", QWEN3_HEADS, 512, 512, 0, F32, "qwen3_fp32"),
@@ -857,9 +905,15 @@ def add_variants(results, cfg, hw, device, timer, measure):
         flash("f32 D 32", REDUCED_HEADS, 512, 512, 0, F32, None),
         flash("bf16 D 192", NEMOTRON_HEADS, 512, 512, 0, BF16, "nemotron"),
         flash("bf16 D 192 chunk", NEMOTRON_HEADS, 64, 512, 385, BF16,
-              "nemotron")]
+              "nemotron"),
+        flash("bf16 D 128 R 1", DEEPSEEK_HEADS, 512, 512, 0, BF16,
+              "deepseek_chunked"),
+        flash("f32 D 128 R 1", DEEPSEEK_HEADS, 512, 512, 0, F32,
+              "deepseek_fp32"),
+        flash("bf16 D 128 R 16", QWEN3_MOE_HEADS, 512, 512, 0, BF16,
+              "qwen3_moe")]
 
-    def decode(name, fn, heads, quant, contiguous, dense_run):
+    def decode(name, fn, heads, quant, contiguous, run, sweep=False):
         g, r, d = heads
         if contiguous:
             bs = plan_cache_block(1024, d, hw, heads_per_group=r)
@@ -881,7 +935,7 @@ def add_variants(results, cfg, hw, device, timer, measure):
                         head_start=True)
         grid = fn.last_grid
         label = f"R {r} D {d}"
-        if dense_run:                # the same call at other split widths
+        if sweep:                    # the same call at other split widths
             args = {k: x for k, x in case(BF16).items()
                     if not k.endswith("_bytes")}
             entry["split_sweep_ms"] = {
@@ -889,35 +943,42 @@ def add_variants(results, cfg, hw, device, timer, measure):
                                 head_start=True)
                 for width in SPLIT_SWEEP}
         return dict(shape=f"{label}: slots 8, G {g}, pool 1024, ragged "
-                          f"lengths", variant=label, dense_run=dense_run,
+                          f"lengths", variant=label, run=run,
                     plan=dict(block_s=bs, split=w, grid=list(grid),
                               ctas=math.prod(grid),
                               head_runs=decode_head_chunks(d, r)),
                     **entry)
 
-    for name, fn, quant, contiguous, run in (
+    # kernel, wrapper, int8 pool, contiguous, the run of each geometry:
+    # nemotron's, the widest, deepseek-moe's and qwen3-moe's
+    for name, fn, quant, contiguous, runs in (
             ("paged_decode_attention", paged_decode_attention, False, False,
-             "nemotron"),
+             ("nemotron", None, "deepseek_chunked", "qwen3_moe")),
             ("paged_decode_attention_int8", paged_decode_attention, True,
-             False, "nemotron_int8"),
+             False, ("nemotron_int8", None, None, "qwen3_moe_int8")),
             ("decode_attention", decode_attention, False, True,
-             "nemotron_gather")):
-        results[name] += [decode(name, fn, NEMOTRON_HEADS, quant,
-                                 contiguous, run),
-                          decode(name, fn, WIDEST_HEADS, quant, contiguous,
-                                 None)]
-    shape = (8, 1024, NEMOTRON_HEADS[0], NEMOTRON_HEADS[2])
-    for name, fn, quant, run in (
-            ("paged_gather", paged_gather, False, "nemotron_gather"),
-            ("paged_dequant_gather", paged_dequant_gather, True, None)):
-        entry = measure(name, fn,
-                        lambda dt, q=quant: pool_gather_case(
-                            shape, device, dt, q, SEED + 6),
-                        gather_bound, None, exact=True, head_start=True)
-        results[name].append(dict(
-            shape=f"D 192: {shape}, page 16, every page mapped",
-            variant="D 192", dense_run=run,
-            plan=dataclasses.asdict(fn.last_plan), **entry))
+             ("nemotron_gather", None, None, "qwen3_moe_gather"))):
+        results[name] += [
+            decode(name, fn, heads, quant, contiguous, run,
+                   sweep=heads is NEMOTRON_HEADS)
+            for heads, run in zip((NEMOTRON_HEADS, WIDEST_HEADS,
+                                   DEEPSEEK_HEADS, QWEN3_MOE_HEADS), runs)]
+    for name, fn, quant, runs in (
+            ("paged_gather", paged_gather, False,
+             ("nemotron_gather", None, "qwen3_moe_gather")),
+            ("paged_dequant_gather", paged_dequant_gather, True,
+             (None, None, "qwen3_moe_int8_gather"))):
+        for (g, _, d), run in zip((NEMOTRON_HEADS, DEEPSEEK_HEADS,
+                                   QWEN3_MOE_HEADS), runs):
+            shape = (8, 1024, g, d)
+            entry = measure(name, fn,
+                            lambda dt, q=quant, shape=shape: pool_gather_case(
+                                shape, device, dt, q, SEED + 6),
+                            gather_bound, None, exact=True, head_start=True)
+            results[name].append(dict(
+                shape=f"G {g}, D {d}: {shape}, page 16, every page mapped",
+                variant=f"G {g} D {d}", run=run,
+                plan=dataclasses.asdict(fn.last_plan), **entry))
 
 
 def kernels_phase(cfg, hw, timer, device):
@@ -2346,6 +2407,25 @@ MAMBA_RUNS = {"mamba2": "auto", "mamba2_whole": None}
 #: token) the two runs took 238 s and the smoke 772 s; the first 4 hold
 #: 1,389 prompt tokens
 MAMBA_REQUESTS = 4
+#: mamba2-1.3b's depth in the engine and profile phases: its published
+#: width, 12 of its 48 layers.  With all 48 the mamba2 runs of the two
+#: phases took ~355 s of a 1,067 s smoke (the chunked prefill is a
+#: decode step a prompt token, ~59 launches a layer); at 24 the smoke
+#: would sit near 950 s on a slow host.  Their gates (completion, no
+#: kernel launched) do not depend on the depth
+MAMBA_LAYERS = 12
+
+
+def engine_config(arch):
+    """The engine and profile phases' config of ``arch``: smollm-135m at
+    its published width and depth, mamba2-1.3b at its published width cut
+    to ``MAMBA_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "mamba2-1.3b":
+        cfg = dataclasses.replace(cfg, num_layers=MAMBA_LAYERS)
+    return cfg
 
 
 def launch_counters():
@@ -2463,7 +2543,7 @@ def engine_phase(device):
     # the same token lists (drawn below smollm's vocabulary, so inside
     # mamba2's 50,280)
     for label, chunk in MAMBA_RUNS.items():
-        eng = ServeEngine("mamba2-1.3b", reduced=False, slots=8,
+        eng = ServeEngine(engine_config("mamba2-1.3b"), slots=8,
                           max_len=1024, prefill_chunk=chunk,
                           params=params["mamba2-1.3b"], seed=SEED,
                           device=device)
@@ -2559,23 +2639,123 @@ def unembed_check(label, params, device):
     return entry
 
 
+def keep_first_logits(eng, sink, key):
+    """Wraps ``eng``'s decode step: the first tick's logits kept in
+    ``sink[key]``; returns ``eng``."""
+    step = eng.model.decode_step
+
+    def spy(*a, **kw):
+        out = step(*a, **kw)
+        sink.setdefault(key, out[0].detach().clone())
+        return out
+
+    eng.model.decode_step = spy
+    return eng
+
+
+def kernel_plain(engine, reqs, watch=None):
+    """``engine()`` (float32) served on ``reqs`` twice: on the kernels and
+    under ``kernels.force("plain")``, the counts reset just before each
+    serve and read just after.  ``watch(mode, eng)``, if given, installs
+    a run's spies and returns the context its serve runs in.  Returns the
+    reading (identical streams, the first decode-step logits' largest
+    difference, each run's launches and wall time, the tokens) and each
+    mode's (report, streams, first decode-step logits)."""
+    from repro_torch import kernels
+
+    counters = launch_counters()
+    streams, first, launches, wall, reports = {}, {}, {}, {}, {}
+    for mode in ("kernel", "plain"):
+        eng = keep_first_logits(engine(), first, mode)
+        ctx = watch(mode, eng) if watch else contextlib.nullcontext()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        with kernels.force(mode), ctx:
+            reports[mode], streams[mode] = serve(eng, reqs)
+        wall[mode] = time.perf_counter() - t0
+        launches[mode] = {k: getattr(fn, attr)
+                          for k, (fn, attr) in counters.items()}
+    reading = dict(
+        token_streams_identical=streams["kernel"] == streams["plain"],
+        first_decode_logits_max_abs_err=float(
+            (first["kernel"] - first["plain"]).abs().max()),
+        launches=launches["kernel"], plain_launches=launches["plain"],
+        wall_s=wall, tokens=sum(len(s) for s in streams["kernel"]))
+    return reading, {m: (reports[m], streams[m], first[m]) for m in reports}
+
+
+def check_kernel_plain(label, reading, expected):
+    """``kernel_plain``'s gates: identical token streams, first
+    decode-step logits within 1e-3, the path's kernels launched and no
+    other, nothing launched by plain."""
+    if not reading["token_streams_identical"]:
+        raise AssertionError(f"{label}: fp32 token streams differ between "
+                             f"the kernels and their plain versions")
+    err = reading["first_decode_logits_max_abs_err"]
+    if err > 1e-3:
+        raise AssertionError(f"{label}: first decode-step logits differ "
+                             f"by {err}")
+    check_launches(label, reading["launches"], expected)
+    check_launches(f"{label} plain", reading["plain_launches"], set())
+
+
+def bf16_runs(name, cfg, params, reqs, device, phase, extra):
+    """``cfg`` served on ``reqs`` chunked and whole-prompt with
+    ``engine_run``'s gates (runs ``{name}_chunked`` and
+    ``{name}_whole_prompt``, ``extra`` on their lines), then the chunked
+    run again under torch.profiler: device busy time and idle share
+    against the unprofiled run's wall time (run ``{name}_profile``, a
+    ``{phase}_profile`` line).  Returns the runs and the chunked run's
+    outputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
+    def engine(label):
+        opts, chunk, _ = ENGINE_RUNS[label]
+        return ServeEngine(cfg, slots=8, max_len=1024, prefill_chunk=chunk,
+                           params=params, seed=SEED, device=device, **opts)
+
+    runs, outs = {}, {}
+    for label in ("chunked", "whole_prompt"):
+        opts, _, expected = ENGINE_RUNS[label]
+        runs[f"{name}_{label}"], outs[label] = engine_run(
+            f"{name}_{label}", engine(label), reqs, opts, expected,
+            phase=phase, extra=lambda: extra)
+    eng = engine("chunked")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve(eng, reqs)
+    rows = device_kernels(prof)
+    busy_ms = sum(r[1] for r in rows)
+    unprofiled = runs[f"{name}_chunked"]["wall_s"]
+    runs[f"{name}_profile"] = dict(
+        requests=len(reqs), wall_s=unprofiled, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / 1e3 / unprofiled,
+        kernel_launches=sum(n for _, _, n in rows),
+        top=[{"kernel": k[:80], "ms": ms, "count": n,
+              "share": ms / busy_ms if busy_ms else 0.0}
+             for k, ms, n in rows[:12]])
+    emit(f"{phase}_profile", run=f"{name}_chunked",
+         **runs[f"{name}_profile"])
+    return runs, outs["chunked"]
+
+
 def dense_phase(device, reqs):
     """qwen3-8b at full width (36 layers): in float32 with the radix on,
     the kernels against ``kernels.force("plain")`` on a 4-request sharing
-    mix (requests 3 and 4 resume behind the 200-token preamble):
-    identical streams, first decode-step logits within 1e-3, the radix
-    hit, flash (f32, head_dim 128) and the paged decode launched, nothing
-    launched by the plain run; then in bf16 chunked and whole-prompt on
-    the engine mix's first ``DENSE_REQUESTS`` requests (``engine_run``'s
-    gates), the chunked run again under torch.profiler (device busy
-    time, idle share).  nemotron-4-340b at full width, 2 layers, bf16, on
+    mix (requests 3 and 4 resume behind the 200-token preamble;
+    ``kernel_plain``): identical streams, first decode-step logits within
+    1e-3, the radix hit, flash (f32, head_dim 128) and the paged decode
+    launched, nothing launched by the plain run; then in bf16 chunked and
+    whole-prompt on the engine mix's first ``DENSE_REQUESTS`` requests
+    (``engine_run``'s gates), the chunked run again under torch.profiler
+    (``bf16_runs``).  nemotron-4-340b at full width, 2 layers, bf16, on
     each path of ``NEMOTRON_RUNS`` (R 12, head_dim 192): the path's
     kernels launched and no other, and the streams equal a
     ``force("plain")`` run's.  Each bf16 model's unembedding is checked
     and timed at a decode step (``unembed_check``).  Each model is freed
     before the next."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine
@@ -2586,80 +2766,29 @@ def dense_phase(device, reqs):
     params, init_s = draw_weights(f32, device)
     mix = prefix_mix(f32.vocab_size, n=4, new=8, order=(0, 1, 2, 3),
                      seed=SEED + 1)
-    counters = launch_counters()
-    streams, first, launches, radix, wall = {}, {}, {}, {}, {}
-    for mode in ("kernel", "plain"):
-        eng = ServeEngine(f32, slots=PREFIX_SLOTS, max_len=1024,
-                          params=params, seed=SEED, device=device,
-                          prefix_cache=True)
-        step = eng.model.decode_step
-
-        def spy(*a, _step=step, _mode=mode, **kw):
-            out = _step(*a, **kw)
-            first.setdefault(_mode, out[0].detach().clone())
-            return out
-
-        eng.model.decode_step = spy
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        t0 = time.perf_counter()
-        with kernels.force(mode):
-            report, streams[mode] = serve(eng, mix)
-        wall[mode] = time.perf_counter() - t0
-        launches[mode] = {k: getattr(fn, attr)
-                          for k, (fn, attr) in counters.items()}
-        radix[mode] = report.radix
-    same = streams["kernel"] == streams["plain"]
-    err = float((first["kernel"] - first["plain"]).abs().max())
+    reading, out = kernel_plain(
+        lambda: ServeEngine(f32, slots=PREFIX_SLOTS, max_len=1024,
+                            params=params, seed=SEED, device=device,
+                            prefix_cache=True), mix)
+    radix = {mode: report.radix for mode, (report, _, _) in out.items()}
     runs["qwen3_fp32"] = dict(
         arch=f32.name, dtype="float32", layers=f32.num_layers,
-        init_s=init_s, token_streams_identical=same,
-        first_decode_logits_max_abs_err=err, launches=launches["kernel"],
-        plain_launches=launches["plain"], radix=radix["kernel"],
-        wall_s=wall, tokens=sum(len(x) for x in streams["kernel"]))
+        init_s=init_s, radix=radix["kernel"], **reading)
     emit("dense", run="qwen3_fp32", **runs["qwen3_fp32"])
-    if not same:
-        raise AssertionError("qwen3-8b fp32: token streams differ between "
-                             "the kernels and their plain versions")
-    if err > 1e-3:
-        raise AssertionError(f"qwen3-8b fp32: first decode-step logits "
-                             f"differ by {err}")
-    check_launches("qwen3-8b fp32", launches["kernel"],
-                   ENGINE_RUNS["chunked"][2])
-    check_launches("qwen3-8b fp32 plain", launches["plain"], set())
+    check_kernel_plain("qwen3-8b fp32", reading, ENGINE_RUNS["chunked"][2])
     for mode, rx in radix.items():
         if rx is None or rx["hit_tokens"] < 2 * (PREFIX_PREAMBLE // 16 * 16):
             raise AssertionError(f"qwen3-8b fp32 {mode}: requests 3 and 4 "
                                  f"did not share the preamble: {rx}")
-    del params, eng
+    del params, out
     free_cuda()
 
     params, init_s = draw_weights(qwen3, device)
     unembed_check("qwen3_bf16", params, device)
-    dense_reqs = reqs[:DENSE_REQUESTS]
-    for label in ("chunked", "whole_prompt"):
-        opts, chunk, expected = ENGINE_RUNS[label]
-        eng = ServeEngine("qwen3-8b", reduced=False, slots=8, max_len=1024,
-                          prefill_chunk=chunk, params=params, seed=SEED,
-                          device=device, **opts)
-        runs[f"qwen3_{label}"], _ = engine_run(
-            f"qwen3_{label}", eng, dense_reqs, opts, expected,
-            phase="dense", extra=lambda: {"init_s": init_s})
-    eng = ServeEngine("qwen3-8b", reduced=False, slots=8, max_len=1024,
-                      params=params, seed=SEED, device=device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        serve(eng, dense_reqs)
-    rows = device_kernels(prof)
-    busy_ms = sum(r[1] for r in rows)
-    unprofiled = runs["qwen3_chunked"]["wall_s"]
-    emit("dense_profile", run="qwen3_chunked", requests=len(dense_reqs),
-         wall_s=unprofiled, device_busy_ms=busy_ms,
-         idle_share=1.0 - busy_ms / 1e3 / unprofiled,
-         kernel_launches=sum(n for _, _, n in rows),
-         top=[{"kernel": k[:80], "ms": ms, "count": n,
-               "share": ms / busy_ms if busy_ms else 0.0}
-              for k, ms, n in rows[:12]])
-    del params, eng, prof
+    new, _ = bf16_runs("qwen3", qwen3, params, reqs[:DENSE_REQUESTS],
+                       device, "dense", {"init_s": init_s})
+    runs.update(new)
+    del params
     free_cuda()
 
     nemotron = dataclasses.replace(get_config("nemotron-4-340b"),
@@ -2689,6 +2818,375 @@ def dense_phase(device, reqs):
             raise AssertionError(f"{label}: bf16 token streams differ "
                                  f"between the kernels and their plain "
                                  f"versions")
+    del params
+    free_cuda()
+    return runs
+
+
+# --------------------------------------------------------------------------- #
+# moe: deepseek-moe-16b at full width, qwen3-moe-235b-a22b's layers
+# --------------------------------------------------------------------------- #
+
+#: the engine mix's first requests each moe run serves (1,389 prompt
+#: tokens)
+MOE_REQUESTS = 4
+#: deepseek-moe-16b's float32 check at its published width, depth cut
+#: from 28 layers to 4 (~11 GB; all 28 in float32 would be ~67.6 GB)
+MOE_FP32_LAYERS = 4
+#: qwen3-moe-235b-a22b at its published width, depth cut from 94 layers
+#: to 4 (~2.49 B parameters a layer: 4 layers and the two embedding
+#: tables hold ~11.2 B, ~22 GB in bf16), a few new tokens a request
+QWEN3_MOE_LAYERS = 4
+QWEN3_MOE_NEW = 8
+#: new tokens a request in deepseek-moe-16b's teacher-forced runs
+MOE_TEACHER_NEW = 8
+#: qwen3-moe's runs: label -> the ``ENGINE_RUNS`` path
+QWEN3_MOE_RUNS = {"qwen3_moe": "chunked", "qwen3_moe_int8": "int8",
+                  "qwen3_moe_gather": "gather",
+                  "qwen3_moe_int8_gather": "int8_gather"}
+#: the teacher-forced check's bound on a step's logits, kernels against
+#: plain in bf16, a model each, between the kernels' rounding and a
+#: planted fault (``WrongGroup``), both read on an H100: deepseek's 28
+#: layers 0.358 sound, 1.107 with the fault; qwen3-moe's 4 layers
+#: 0.117-0.152 sound on its four paths, 6.10 with the fault
+TEACHER_TOL = {"deepseek-moe-16b": 0.6, "qwen3-moe-235b-a22b": 0.3}
+
+
+class RouteSpy:
+    """While installed, wraps ``models.moe.route``: a run's routing
+    counts (calls, routed tokens, dropped slots; device tensors read once
+    at the end) and, with ``keep_sets``, each call's top-k expert sets
+    (ids sorted) and its smallest gap between the k-th and (k+1)-th
+    probability, tagged prefill or decode (``attach`` marks the engine's
+    decode steps)."""
+
+    def __init__(self, keep_sets=False):
+        self.keep_sets = keep_sets
+        self.calls = self.tokens = 0
+        self.dropped = []
+        self.sets, self.gaps = [], []
+        self.phase = "prefill"
+
+    def attach(self, eng):
+        step = eng.model.decode_step
+
+        def decode(*a, **kw):
+            self.phase = "decode"
+            try:
+                return step(*a, **kw)
+            finally:
+                self.phase = "prefill"
+
+        eng.model.decode_step = decode
+        return eng
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe.route
+
+        def route(x, router, e, k, c):
+            out = self._route(x, router, e, k, c)
+            keep, probs, eidx = out[1][3], out[3], out[4]
+            self.calls += 1
+            self.tokens += x.shape[0]
+            self.dropped.append((~keep).sum())
+            if self.keep_sets:
+                top = probs.topk(k + 1, dim=-1).values
+                self.sets.append((self.phase, eidx.sort(-1).values))
+                self.gaps.append((self.phase,
+                                  (top[:, k - 1] - top[:, k]).min()))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def counts(self):
+        return dict(route_calls=self.calls, routed_tokens=self.tokens,
+                    dropped_slots=int(sum(int(d) for d in self.dropped)))
+
+
+def route_diff(kernel, plain):
+    """(token, layer) top-k sets that differ between two runs' calls of
+    one schedule, per phase, and plain's smallest k-th to (k+1)-th
+    probability gap, per phase."""
+    if len(kernel.sets) != len(plain.sets):
+        raise AssertionError("the two runs routed a different number of "
+                             "calls")
+    out = {}
+    for phase in ("prefill", "decode"):
+        pairs = [(a, b) for (pa, a), (_, b) in zip(kernel.sets, plain.sets)
+                 if pa == phase]
+        gaps = [g for p, g in plain.gaps if p == phase]
+        out[phase] = dict(
+            sets=sum(a.shape[0] for a, _ in pairs),
+            sets_differ=int(sum(int((a != b).any(-1).sum())
+                                for a, b in pairs)),
+            min_gap=float(torch.stack(gaps).min()) if gaps else None)
+    return out
+
+
+class TeacherForce:
+    """Records the logits an engine takes each request's tokens from
+    (the last prompt position at prefill, each live row at a decode
+    tick), keyed by (prompt, step); with ``force`` (prompt -> the stream
+    to feed) it writes a one-hot of the stream's token over those logits
+    once recorded, so the engine feeds that stream whatever its own
+    logits say."""
+
+    def __init__(self, eng, force=None):
+        self.logits = {}
+        m = eng.model
+        prefill, chunk, step = m.prefill, m.prefill_chunk, m.decode_step
+
+        def take(prompt, j, row):
+            self.logits[prompt, j] = row.float().clone()
+            if force is not None:
+                row.zero_()
+                row[force[prompt][len(prompt) + j]] = 1.0
+
+        def prefill_spy(params, toks, pb, **kw):
+            logits, cache = prefill(params, toks, pb, **kw)
+            plen = int(kw["last_pos"][0]) + 1
+            take(tuple(toks[0, :plen].tolist()), 0, logits[0, -1])
+            return logits, cache
+
+        def chunk_spy(params, cache, toks, n, **kw):
+            task = eng._chunk_tasks[0]
+            last = task.done + n >= len(task.toks)
+            logits, cache = chunk(params, cache, toks, n, **kw)
+            if last:
+                take(tuple(task.req.prompt), 0, logits[0, n - 1])
+            return logits, cache
+
+        def step_spy(*a, **kw):
+            logits, cache = step(*a, **kw)
+            for slot, req in eng.scheduler.live_by_slot().items():
+                if not req.done and req.rid not in eng._prefilling:
+                    take(tuple(req.prompt), len(req.generated),
+                         logits[slot, 0])
+            return logits, cache
+
+        m.prefill, m.prefill_chunk, m.decode_step = (prefill_spy, chunk_spy,
+                                                     step_spy)
+
+
+def teacher_reading(kernel, plain, tol):
+    """Each step's logits, kernels against plain on the same tokens (two
+    ``TeacherForce`` records): the largest and median difference, the
+    greedy picks that differ, and those where plain's top-2 margin
+    exceeds ``tol``."""
+    if set(kernel.logits) != set(plain.logits):
+        raise AssertionError("the teacher-forced runs recorded different "
+                             "steps")
+    keys = list(plain.logits)
+    kl = torch.stack([kernel.logits[k] for k in keys])
+    pl = torch.stack([plain.logits[k] for k in keys])
+    err = (kl - pl).abs().amax(-1).cpu()
+    top2 = pl.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu()
+    differ = (kl.argmax(-1) != pl.argmax(-1)).cpu()
+    return dict(steps=len(keys), max_abs_err=float(err.max()),
+                p50_abs_err=float(err.median()), tol=tol,
+                logit_std=float(pl.std()),
+                argmax_differ=int(differ.sum()),
+                argmax_differ_above_tol=int((differ & (margin > tol)).sum()),
+                min_margin=float(margin.min()),
+                steps_above_tol_margin=int((margin > tol).sum()))
+
+
+class WrongGroup:
+    """While installed, one layer's fused paged decode reads the wrong KV
+    group: at layer ``layer`` of every tick the queries are rolled one
+    group along before the kernel and its output rolled back, so group g
+    attends over group g - 1's keys and values.  A planted fault the
+    teacher-forced bound must see (``faulted``: the calls it changed)."""
+
+    def __init__(self, layers, layer):
+        self.layers, self.layer = layers, layer
+        self.calls = self.faulted = 0
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self._mod, self._fn = attention, attention.paged_decode_attention
+
+        def decode(q, *a, **kw):
+            i, self.calls = self.calls, self.calls + 1
+            if i % self.layers != self.layer:
+                return self._fn(q, *a, **kw)
+            self.faulted += 1
+            return self._fn(q.roll(1, 1), *a, **kw).roll(-1, 1)
+
+        attention.paged_decode_attention = decode
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.paged_decode_attention = self._fn
+
+
+def teacher_run(label, engine, reqs, outs, tol, fault=False):
+    """The teacher-forced check, untimed: ``engine()`` on the kernels and
+    under ``kernels.force("plain")``, both fed ``outs`` (the timed run's
+    outputs for ``reqs``' prompts), each step's logits recorded
+    (``TeacherForce``), the kernel run's routing counts (``RouteSpy``);
+    with ``fault``, a third run on the kernels with the last layer's
+    decode reading the wrong KV group (``WrongGroup``).  Gates: plain
+    launches nothing; every step's logits within ``tol`` of plain's and
+    the greedy picks equal wherever plain's top-2 margin exceeds ``tol``;
+    the fault's logits more than ``tol`` from plain's.
+    Prints a ``moe_teacher`` line; returns its reading."""
+    from repro_torch import kernels
+
+    force = {tuple(p): o for (p, _), o in zip(reqs, outs)}
+    counters = launch_counters()
+    spy, recs, planted = RouteSpy(), {}, None
+    for mode in ("kernel", "plain", "fault")[:3 if fault else 2]:
+        eng = engine()
+        recs[mode] = TeacherForce(eng, force)
+        if mode == "fault":
+            planted = WrongGroup(eng.cfg.num_layers, eng.cfg.num_layers - 1)
+        ctx = {"kernel": spy, "fault": planted}.get(mode)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        with kernels.force("plain" if mode == "plain" else "kernel"), \
+                ctx or contextlib.nullcontext():
+            serve(eng, reqs)
+        if mode == "plain":
+            check_launches(f"{label} plain",
+                           {k: getattr(fn, attr)
+                            for k, (fn, attr) in counters.items()}, set())
+    reading = teacher_reading(recs["kernel"], recs["plain"], tol)
+    reading["routing"] = spy.counts()
+    if fault:
+        f = teacher_reading(recs["fault"], recs["plain"], tol)
+        reading["fault"] = dict(layer=planted.layer,
+                                faulted_calls=planted.faulted,
+                                max_abs_err=f["max_abs_err"],
+                                p50_abs_err=f["p50_abs_err"],
+                                argmax_differ=f["argmax_differ"])
+    emit("moe_teacher", run=label, **reading)
+    if reading["max_abs_err"] > tol or reading["argmax_differ_above_tol"]:
+        raise AssertionError(f"{label}: teacher-forced logits {reading}")
+    f = reading.get("fault")
+    if f is not None and (not f["faulted_calls"]
+                          or f["max_abs_err"] <= tol):
+        raise AssertionError(f"{label}: the bound {tol} does not see the "
+                             f"planted fault {f}")
+    return reading
+
+
+def tick_bound(params, hw):
+    """Bytes a decode tick must read, every weight but the token
+    embedding (its rows are gathered): the dense (E, C, d) buffers
+    multiply every expert, so every expert's weights; and the time at
+    the card's memory rate."""
+    def nbytes(tree):
+        return sum(nbytes(v) if isinstance(v, dict)
+                   else v.numel() * v.element_size() for v in tree.values())
+
+    tok = params["embed"]["tok"]
+    total = nbytes(params) - tok.numel() * tok.element_size()
+    experts = nbytes({k: v for k, v in params["blocks"]["moe"].items()
+                      if k != "shared"})
+    return dict(tick_bytes=total, expert_bytes=experts,
+                tick_bound_ms=total / hw.mem_bw * 1e3)
+
+
+def moe_phase(device, reqs, hw):
+    """deepseek-moe-16b at full width: in float32 cut to
+    ``MOE_FP32_LAYERS`` layers, kernels against ``force("plain")``
+    (``kernel_plain``: identical streams, first decode-step logits within
+    1e-3, flash and row 1 launched, nothing by plain; the top-k sets that
+    differ and plain's smallest top-k gap printed); in bf16 at full depth
+    chunked and whole-prompt with ``engine_run``'s gates and the chunked
+    run under torch.profiler (``bf16_runs``), then the chunked run's
+    streams teacher-forced on ``MOE_TEACHER_NEW`` new tokens a request
+    (``teacher_run``, with the planted fault); then qwen3-moe-235b-a22b
+    at full width cut to ``QWEN3_MOE_LAYERS`` layers on each path of
+    ``QWEN3_MOE_RUNS``, each teacher-forced (the default path with the
+    planted fault).  The timed runs carry no spy: the routing counts come
+    from the teacher-forced kernel runs.  Every run prints the tick's
+    bound (every weight read once); each model is freed before the
+    next."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+
+    runs = {}
+    mreqs = reqs[:MOE_REQUESTS]
+    if len({tuple(p) for p, _ in mreqs}) != len(mreqs):
+        raise AssertionError("the teacher-forced runs key steps by prompt")
+    deepseek = get_config("deepseek-moe-16b")
+    f32 = dataclasses.replace(deepseek, dtype="float32",
+                              num_layers=MOE_FP32_LAYERS)
+    params, init_s = draw_weights(f32, device)
+    recs, spies = {}, {}
+
+    def watch(mode, eng):
+        recs[mode] = TeacherForce(eng)
+        spies[mode] = RouteSpy(keep_sets=True)
+        spies[mode].attach(eng)
+        return spies[mode]
+
+    reading, _ = kernel_plain(
+        lambda: ServeEngine(f32, slots=8, max_len=1024, params=params,
+                            seed=SEED, device=device), mreqs, watch)
+    same = reading["token_streams_identical"]
+    # every step (prefill's last position and each decode step)
+    all_err = max(float((recs["kernel"].logits[k] - v).abs().max())
+                  for k, v in recs["plain"].logits.items()) if same else None
+    runs["deepseek_fp32"] = dict(
+        arch=f32.name, dtype="float32", layers=f32.num_layers,
+        init_s=init_s, **reading, all_steps_logits_max_abs_err=all_err,
+        routing=spies["kernel"].counts(),
+        routing_differ=route_diff(spies["kernel"], spies["plain"])
+        if same else None, **tick_bound(params, hw))
+    emit("moe", run="deepseek_fp32", **runs["deepseek_fp32"])
+    check_kernel_plain("deepseek-moe-16b fp32", reading,
+                       ENGINE_RUNS["chunked"][2])
+    del params, recs, spies
+    free_cuda()
+
+    params, init_s = draw_weights(deepseek, device)
+    unembed_check("deepseek_bf16", params, device)
+    bound = tick_bound(params, hw)
+    new, outs = bf16_runs("deepseek", deepseek, params, mreqs, device, "moe",
+                          {"init_s": init_s, **bound})
+    runs.update(new)
+    # a few new tokens a request: plain's decode at full depth takes
+    # ~1.7 s a tick
+    runs["deepseek_teacher"] = teacher_run(
+        "deepseek_teacher", lambda: ServeEngine(
+            deepseek, slots=8, max_len=1024, params=params, seed=SEED,
+            device=device), [(p, MOE_TEACHER_NEW) for p, _ in mreqs], outs,
+        TEACHER_TOL[deepseek.name], fault=True)
+    del params
+    free_cuda()
+
+    qwen3_moe = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                                    num_layers=QWEN3_MOE_LAYERS)
+    params, init_s = draw_weights(qwen3_moe, device)
+    unembed_check("qwen3_moe_bf16", params, device)
+    bound = tick_bound(params, hw)
+    qreqs = [(p, QWEN3_MOE_NEW) for p, _ in mreqs]
+    for label, path in QWEN3_MOE_RUNS.items():
+        opts, chunk, expected = ENGINE_RUNS[path]
+
+        def engine():
+            return ServeEngine(qwen3_moe, slots=8, max_len=1024,
+                               prefill_chunk=chunk, params=params,
+                               seed=SEED, device=device, **opts)
+
+        runs[label], outs = engine_run(
+            label, engine(), qreqs, opts, expected, phase="moe",
+            extra=lambda: {"init_s": init_s, "layers": QWEN3_MOE_LAYERS,
+                           **bound})
+        runs[label]["teacher"] = teacher_run(
+            label, engine, qreqs, outs, TEACHER_TOL[qwen3_moe.name],
+            fault=path == "chunked")
     del params
     free_cuda()
     return runs
@@ -3100,9 +3598,10 @@ def prefix_phase(device, params):
 # --------------------------------------------------------------------------- #
 
 #: profiled runs: label -> (arch, engine options, requests of the mix).
-#: mamba2 is cut to the mix's first request: on its 4 (1,389 prompt
-#: tokens, ~4.1M device kernels, each prompt token a 48-layer decode
-#: step) the phase took 329 s and the smoke 694 s
+#: mamba2 is cut to the mix's first request (and ``MAMBA_LAYERS``
+#: layers): on its 4 (1,389 prompt tokens, ~4.1M device kernels, each
+#: prompt token a 48-layer decode step) the phase took 329 s and the
+#: smoke 694 s
 PROFILE_RUNS = {"chunked": ("smollm-135m", {}, 4),
                 "int8": ("smollm-135m", dict(kv_dtype="int8"), 4),
                 "mamba2": ("mamba2-1.3b", {}, 1)}
@@ -3139,7 +3638,7 @@ def profile_phase(device, params, reqs):
         reqs = mix[:n_reqs]
 
         def engine():
-            return ServeEngine(arch, reduced=False, slots=8, max_len=1024,
+            return ServeEngine(engine_config(arch), slots=8, max_len=1024,
                                params=params[arch], seed=SEED,
                                device=device, **opts)
 
@@ -3165,48 +3664,22 @@ def profile_phase(device, params, reqs):
 
 def parity_phase(device):
     """Full width in float32, for the default path and each of the other
-    decode paths: kernels vs plain on the same requests."""
-    from repro_torch import kernels
+    decode paths: kernels vs plain on the same requests
+    (``kernel_plain``)."""
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine
 
     cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
     reqs = requests(6, 16, 200, 16, cfg.vocab_size, SEED + 1)
-    params = None
-    for label, (opts, _, _) in ENGINE_RUNS.items():
+    params, _ = draw_weights(cfg, device)
+    for label, (opts, _, expected) in ENGINE_RUNS.items():
         if label == "whole_prompt":
             continue
-        streams, first = {}, {}
-        for mode in ("kernel", "plain"):
-            eng = ServeEngine(cfg, slots=8, max_len=1024, params=params,
-                              seed=SEED, device=device, **opts)
-            params = eng.params
-            step = eng.model.decode_step
-
-            def spy(*a, _step=step, _mode=mode, **kw):
-                out = _step(*a, **kw)
-                first.setdefault(_mode, out[0].detach().clone())
-                return out
-
-            eng.model.decode_step = spy
-            t0 = time.perf_counter()
-            with kernels.force(mode):
-                _, streams[mode] = serve(eng, reqs)
-            if mode == "plain":
-                plain_s = time.perf_counter() - t0
-        same = streams["kernel"] == streams["plain"]
-        err = float((first["kernel"] - first["plain"]).abs().max())
-        emit("parity", run=label, options=opts,
-             token_streams_identical=same,
-             first_decode_logits_max_abs_err=err, plain_wall_s=plain_s,
-             tokens=sum(len(s) for s in streams["kernel"]))
-        if not same:
-            raise AssertionError(f"{label}: fp32 token streams differ "
-                                 f"between the kernels and their plain "
-                                 f"versions")
-        if err > 1e-3:
-            raise AssertionError(f"{label}: first decode-step logits "
-                                 f"differ by {err}")
+        reading, _ = kernel_plain(
+            lambda: ServeEngine(cfg, slots=8, max_len=1024, params=params,
+                                seed=SEED, device=device, **opts), reqs)
+        emit("parity", run=label, options=opts, **reading)
+        check_kernel_plain(label, reading, expected)
     parity_prefix(cfg, params, device)
 
 
@@ -3214,58 +3687,41 @@ def parity_prefix(cfg, params, device):
     """The radix on, fp32 at full width, ``PREFIX_SLOTS`` slots, on a
     4-request sharing mix with 8 new tokens (requests 3 and 4 hit):
     ``prefix`` at the prefix phase's tight budget, ``prefix_int8`` on the
-    int8 pool.  Kernel vs plain: identical streams, first decode logits
-    within 1e-3; and the kernel run's streams equal to the same engine's
-    with the radix off (a gate on the fp32 pool, a reading on int8)."""
-    from repro_torch import kernels
+    int8 pool.  Kernel vs plain (``kernel_plain``): identical streams,
+    first decode logits within 1e-3, the path's kernels; and the kernel
+    run's streams equal to the same engine's with the radix off (a gate
+    on the fp32 pool, a reading on int8)."""
     from repro_torch.serve import BucketSpec, ServeEngine
 
     reqs = prefix_mix(cfg.vocab_size, n=4, new=8, order=(0, 1, 2, 3),
                       seed=SEED + 1)
     tight = tight_blocks(prefix_mix(cfg.vocab_size))
-    labels = {"prefix": dict(total_blocks=tight, spec=BucketSpec(
-                  max_len=1024, min_len=PREFIX_TIGHT_MIN_LEN)),
-              "prefix_int8": dict(kv_dtype="int8")}
-    for label, opts in labels.items():
-        streams, first, radix = {}, {}, {}
-        for mode in ("kernel", "plain", "cold"):
-            eng = ServeEngine(cfg, slots=PREFIX_SLOTS, max_len=1024,
-                              params=params, seed=SEED, device=device,
-                              prefix_cache=mode != "cold", **opts)
-            step = eng.model.decode_step
+    labels = {"prefix": ("chunked", dict(total_blocks=tight, spec=BucketSpec(
+                  max_len=1024, min_len=PREFIX_TIGHT_MIN_LEN))),
+              "prefix_int8": ("int8", dict(kv_dtype="int8"))}
+    for label, (path, opts) in labels.items():
+        def engine(shared=True):
+            return ServeEngine(cfg, slots=PREFIX_SLOTS, max_len=1024,
+                               params=params, seed=SEED, device=device,
+                               prefix_cache=shared, **opts)
 
-            def spy(*a, _step=step, _mode=mode, **kw):
-                out = _step(*a, **kw)
-                first.setdefault(_mode, out[0].detach().clone())
-                return out
-
-            eng.model.decode_step = spy
-            with kernels.force("plain" if mode == "plain" else "kernel"):
-                report, streams[mode] = serve(eng, reqs)
-            radix[mode] = report.radix
-        same = streams["kernel"] == streams["plain"]
-        cold_same = streams["kernel"] == streams["cold"]
-        err = float((first["kernel"] - first["plain"]).abs().max())
+        first = {}
+        _, cold = serve(keep_first_logits(engine(False), first, "cold"),
+                        reqs)
+        reading, out = kernel_plain(engine, reqs)
+        report, shared, first["kernel"] = out["kernel"]
+        radix = report.radix
         emit("parity", run=label, options={k: str(v) for k, v in
                                            opts.items()},
-             token_streams_identical=same,
-             first_decode_logits_max_abs_err=err,
-             shared_equals_cold=cold_same,
+             shared_equals_cold=shared == cold,
              cold_first_decode_logits_max_abs_err=float(
                  (first["kernel"] - first["cold"]).abs().max()),
-             radix=radix["kernel"],
-             tokens=sum(len(s) for s in streams["kernel"]))
-        if not same:
-            raise AssertionError(f"{label}: fp32 token streams differ "
-                                 f"between the kernels and their plain "
-                                 f"versions")
-        if err > 1e-3:
-            raise AssertionError(f"{label}: first decode-step logits "
-                                 f"differ by {err}")
-        if radix["kernel"]["hit_tokens"] < 2 * 192:
+             radix=radix, **reading)
+        check_kernel_plain(label, reading, ENGINE_RUNS[path][2])
+        if radix["hit_tokens"] < 2 * 192:
             raise AssertionError(f"{label}: requests 3 and 4 did not share "
-                                 f"the preamble: {radix['kernel']}")
-        if label == "prefix" and not cold_same:
+                                 f"the preamble: {radix}")
+        if label == "prefix" and shared != cold:
             raise AssertionError(f"{label}: the radix changed the fp32 "
                                  f"token streams")
 
@@ -3359,6 +3815,7 @@ def main() -> int:
         serving, _, _ = timed("tuner", tuner_phase, hw, timer, device)
         runs, params, reqs = timed("engine", engine_phase, device)
         dense = timed("dense", dense_phase, device, reqs)
+        moe = timed("moe", moe_phase, device, reqs, hw)
         timed("retune", retune_phase, device, params, reqs, tmp)
         prefix_runs = timed("prefix", prefix_phase, device,
                             params["smollm-135m"])
@@ -3394,8 +3851,8 @@ def main() -> int:
                                tuned_plan=tuned["tuned"],
                                seed_ms=tuned["seed_ms"],
                                tuned_ms=tuned["tuned_ms"])
-        # the dense phase's variants: each case's numbers and the launches
-        # of the dense run that takes it (0: none does)
+        # the dense and moe phases' variants: each case's numbers and the
+        # launches of the run that takes it (0: none does)
         summary[-1]["variants"] = [{
             "variant": c["variant"], "shape": c["shape"],
             "dtype": c["timed_dtype"], "max_abs_err": c["max_abs_err"],
@@ -3403,9 +3860,9 @@ def main() -> int:
             "library_ms": c["library_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "plan": c.get("plan"),
             "split_sweep_ms": c.get("split_sweep_ms"),
-            "dense_run": c["dense_run"],
-            "launches": (dense[c["dense_run"]]["launches"][name]
-                         if c["dense_run"] else 0)}
+            "run": c["run"],
+            "launches": ({**dense, **moe}[c["run"]]["launches"][name]
+                         if c["run"] else 0)}
             for c in cases if "variant" in c]
         if name in ("paged_gather", "paged_dequant_gather"):
             # the large case and one page (the launch's floor)

@@ -1,6 +1,7 @@
 """Served architecture configs (the port's own copy)."""
 from repro_torch.configs import (  # noqa: F401  (registration)
-    mamba2_1_3b, nemotron_4_340b, qwen3_8b, smollm_135m)
+    deepseek_moe_16b, mamba2_1_3b, nemotron_4_340b, qwen3_8b,
+    qwen3_moe_235b_a22b, smollm_135m)
 from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
                                       register)
 

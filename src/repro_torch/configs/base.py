@@ -1,8 +1,8 @@
 """Model configuration schema and the registry of served architectures.
 
 A trimmed copy of the JAX package's ``configs/base.py``: only the fields
-the served families read (dense, with qk-norm and untied embeddings, and
-ssm).  ``window``, ``local_global_ratio``, the MoE, hybrid, encdec and
+the served families read (dense, with qk-norm and untied embeddings, moe
+and ssm).  ``window``, ``local_global_ratio``, the hybrid, encdec and
 vlm fields and ``skip_shapes`` (the port has no ``SHAPES``) stay out.
 The port keeps its own copy so it imports nothing of the JAX package.
 ``reduced()`` yields the scaled-down variant the CPU tests run.
@@ -20,7 +20,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 class ModelConfig:
     name: str
     family: str                      # dense (swiglu or squared_relu, tied
-                                     # or not) | ssm served; moe, hybrid,
+                                     # or not) | moe | ssm served; hybrid,
                                      # encdec, vlm: ROADMAP queue 1 item 9
     num_layers: int
     d_model: int
@@ -32,6 +32,12 @@ class ModelConfig:
     qk_norm: bool = False            # RMSNorm of q and k over head_dim
     rope_theta: float = 10_000.0
     mlp_act: str = "swiglu"          # swiglu | squared_relu
+
+    # MoE
+    moe_experts: int = 0
+    moe_topk: int = 0
+    moe_shared_experts: int = 0
+    moe_dff: int = 0                 # per-expert hidden dim
 
     # SSM (Mamba-2)
     ssm_state: int = 0
@@ -67,10 +73,41 @@ class ModelConfig:
         """Query heads sharing one KV head (GQA's R)."""
         return self.num_heads // max(self.num_kv_heads, 1)
 
+    def n_params(self) -> float:
+        """Analytic parameter count (embedding included once if tied),
+        the reference's for the served families."""
+        d, hd = self.d_model, self.head_dim
+        h, kv = self.num_heads, self.num_kv_heads
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        mlp = (3 if self.mlp_act == "swiglu" else 2) * d * self.d_ff
+        if self.family == "moe":
+            e_mlp = 3 * d * self.moe_dff
+            mlp = (self.moe_experts + self.moe_shared_experts) * e_mlp \
+                + d * self.moe_experts          # router
+        per_layer = attn + mlp + 2 * d
+        if self.family == "ssm":
+            di, ns = self.d_inner, self.ssm_state
+            per_layer = (
+                d * (2 * di + 2 * self.ssm_groups * ns + self.ssm_heads)
+                + self.ssm_conv * (di + 2 * self.ssm_groups * ns)
+                + 2 * self.ssm_heads + di * d + di + 2 * d
+            )
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return float(self.num_layers * per_layer + emb + d)
+
+    def n_params_active(self) -> float:
+        """Active params per token (moe: the routed top-k and the shared
+        experts only)."""
+        if self.family != "moe":
+            return self.n_params()
+        inactive = (self.moe_experts - self.moe_topk) * 3 * self.d_model \
+            * self.moe_dff
+        return self.n_params() - self.num_layers * inactive
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
-        same numbers as the JAX package's ``reduced()`` for dense and
-        ssm)."""
+        same numbers as the JAX package's ``reduced()`` for dense, moe
+        and ssm)."""
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
@@ -81,6 +118,10 @@ class ModelConfig:
             d_ff=256,
             vocab_size=512,
             head_dim=32,
+            moe_experts=min(self.moe_experts, 8),
+            moe_topk=min(self.moe_topk, 2),
+            moe_shared_experts=min(self.moe_shared_experts, 1),
+            moe_dff=64 if self.moe_dff else 0,
             ssm_state=min(self.ssm_state, 16),
             ssm_head_dim=16,
         )

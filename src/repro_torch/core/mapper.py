@@ -194,7 +194,7 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "decode_epl", "decode_head_chunks",
            "plan_decode_split", "decode_splits", "GatherPlan",
            "GATHER_WIDTHS", "DEQUANT_WIDTHS", "gather_width",
-           "plan_gather", "gather_plan_for_block"]
+           "plan_gather", "gather_plan_for_block", "plan_moe_capacity"]
 
 MAX_BLOCK_Q = 128         # 16 rows a warp (bf16), a row a thread (f32)
 MAX_BLOCK_K = 128
@@ -1102,3 +1102,35 @@ def gather_plan_for_block(size: int, width: int, hw: GpuParams,
     grid = ceil_div(gws, GATHER_THREADS * lws)
     return GatherPlan(width=width, gws=gws, lws=lws, threads=GATHER_THREADS,
                       grid=grid, rounds=_rounds(grid, hw))
+
+
+#: AUTO's load-imbalance slack over the mean routed slots an expert
+_MOE_SLACK = 1.25
+
+
+def plan_moe_capacity(tokens: int, num_experts: int, top_k: int,
+                      policy: MappingPolicy = MappingPolicy.AUTO) -> int:
+    """Expert capacity: Eq. 1 over routed token slots, the reference's
+    numbers.  ``gws = tokens x top_k`` slots over ``hp = num_experts``
+    expert lanes; NAIVE takes the mean (drops under any imbalance),
+    FIXED ``4 FIXED_LWS`` whatever the call, AUTO (and TUNED, its seed)
+    the mean times 1.25; every capacity is rounded up to a multiple
+    of 8, at least 8.  Host arithmetic: the expert products are batched
+    GEMMs with no Hopper tile rule of their own.
+
+    Example::
+
+        >>> plan_moe_capacity(32, 64, 6)
+        8
+        >>> plan_moe_capacity(1024, 64, 6)
+        120
+    """
+    ideal = ceil_div(tokens * top_k, num_experts)
+    policy = MappingPolicy(policy)
+    if policy is MappingPolicy.NAIVE:
+        cap = ideal
+    elif policy is MappingPolicy.FIXED:
+        cap = FIXED_LWS * 4
+    else:
+        cap = int(ideal * _MOE_SLACK)
+    return max(8, round_up(cap, 8))

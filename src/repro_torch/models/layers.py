@@ -8,7 +8,10 @@ stacked on a leading axis):
     blocks.attn.{wq (L, D, H, hd), wk/wv (L, D, G, hd), wo (L, H, hd, D)},
         and q_norm / k_norm (L, hd) with ``qk_norm``
     blocks.mlp.{w_gate, w_up (L, D, F), w_down (L, F, D)} (swiglu) or
-        {w_in (L, D, F), w_down (L, F, D)} (squared_relu)
+        {w_in (L, D, F), w_down (L, F, D)} (squared_relu); for the moe
+        family blocks.moe.{router (L, D, E), w_gate, w_up (L, E, D, Fe),
+        w_down (L, E, Fe, D)} and, with shared experts,
+        blocks.moe.shared.{w_gate, w_up (L, D, S Fe), w_down (L, S Fe, D)}
     ln_f (D,)
 
 and for the ssm family (Mamba-2) ``blocks.ln (L, D)`` and ``blocks.ssm``
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe import moe_shapes
 
 __all__ = ["param_shapes", "init_params", "rmsnorm", "embed", "unembed",
            "mlp", "rope_tables", "apply_rope"]
@@ -34,17 +38,18 @@ def param_shapes(cfg: ModelConfig) -> dict:
     """The param tree as {name: (shape, init, scale)}; ``init`` is
     "normal", "zeros" or "ones", ``scale`` None means min(0.02,
     fan_in^-0.5).  The keys are the JAX package's (``embed_specs``,
-    ``attention_specs``, ``mlp_specs``)."""
+    ``attention_specs``, ``mlp_specs``, ``moe_specs``)."""
     d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     n, f = cfg.num_layers, cfg.d_ff
     served = (cfg.family == "ssm" and cfg.tie_embeddings) or (
-        cfg.family == "dense" and cfg.mlp_act in ("swiglu", "squared_relu"))
+        cfg.family == "dense" and cfg.mlp_act in ("swiglu", "squared_relu")
+    ) or cfg.family == "moe"
     if not served:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family (swiglu or "
-            f"squared_relu, tied or untied) and the tied ssm family; "
-            f"geglu, moe, hybrid, encdec and vlm come with ROADMAP queue 1 "
-            f"item 9")
+            f"squared_relu, tied or untied), the moe family and the tied "
+            f"ssm family; geglu, hybrid, encdec and vlm come with "
+            f"ROADMAP queue 1 item 9")
     if cfg.family == "ssm":
         return _ssm_shapes(cfg)
     emb = {"tok": ((cfg.vocab_size, d), "normal", 0.02)}
@@ -57,19 +62,24 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = ((n, hd), "zeros", None)
         attn["k_norm"] = ((n, hd), "zeros", None)
-    if cfg.mlp_act == "swiglu":
-        mlp_ = {"w_gate": ((n, d, f), "normal", None),
-                "w_up": ((n, d, f), "normal", None),
-                "w_down": ((n, f, d), "normal", None)}
+    blocks = {"ln1": ((n, d), "zeros", None), "attn": attn,
+              "ln2": ((n, d), "zeros", None)}
+    if cfg.family == "moe":
+        blocks["moe"] = _stacked(moe_shapes(cfg), n)
+    elif cfg.mlp_act == "swiglu":
+        blocks["mlp"] = {"w_gate": ((n, d, f), "normal", None),
+                         "w_up": ((n, d, f), "normal", None),
+                         "w_down": ((n, f, d), "normal", None)}
     else:
-        mlp_ = {"w_in": ((n, d, f), "normal", None),
-                "w_down": ((n, f, d), "normal", None)}
-    return {
-        "embed": emb,
-        "blocks": {"ln1": ((n, d), "zeros", None), "attn": attn,
-                   "ln2": ((n, d), "zeros", None), "mlp": mlp_},
-        "ln_f": ((d,), "zeros", None),
-    }
+        blocks["mlp"] = {"w_in": ((n, d, f), "normal", None),
+                         "w_down": ((n, f, d), "normal", None)}
+    return {"embed": emb, "blocks": blocks, "ln_f": ((d,), "zeros", None)}
+
+
+def _stacked(tree: dict, n: int) -> dict:
+    """A leading layer axis of ``n`` on every shape of ``tree``."""
+    return {k: _stacked(v, n) if isinstance(v, dict)
+            else ((n, *v[0]), *v[1:]) for k, v in tree.items()}
 
 
 def _ssm_shapes(cfg: ModelConfig) -> dict:

@@ -1,4 +1,5 @@
-"""Model facade — the dense and ssm branches of the JAX package's ``Model``.
+"""Model facade — the dense, moe and ssm branches of the JAX package's
+``Model``.
 
     m = build_model(get_config("smollm-135m"), device="cuda")
     params = m.init(seed=0)
@@ -143,10 +144,10 @@ class Model:
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     """The model on ``device`` (default "cuda"; raises when there is no
     CUDA device — pass device="cpu" for the plain versions)."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense "
-            f"(swiglu or squared_relu, qk-norm, tied or untied) and ssm, "
-            f"and moe, hybrid, encdec and vlm come with ROADMAP queue 1 "
-            f"item 9")
+            f"(swiglu or squared_relu, qk-norm, tied or untied), moe and "
+            f"ssm, and hybrid, encdec, vlm and the geglu MLP come with "
+            f"ROADMAP queue 1 item 9")
     return Model(cfg, resolve_device(device))

@@ -1,7 +1,10 @@
-"""Decoder-only dense transformer: prefill, chunked prefill, decode.
+"""Decoder-only transformer (dense and moe): prefill, chunked prefill,
+decode.
 
 A plain Python loop over layers (the JAX package scans them); the layer
-params are views into the stacked tensors.
+params are views into the stacked tensors.  A moe layer routes every
+token of the call as one group (``models.moe``), so a prompt's padded
+positions take expert capacity as in the reference.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from repro_torch.models.attention import (attention_block, attention_decode,
                                           row_write_index)
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_tables,
                                        unembed)
+from repro_torch.models.moe import moe_mlp
 
 __all__ = ["layer_params", "forward", "init_cache", "chunk_prefill_step",
            "decode_step"]
@@ -27,6 +31,14 @@ def layer_params(params: dict, i: int) -> dict:
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
     return pick(params["blocks"])
+
+
+def _mlp_or_moe(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's feed-forward: the moe layer (its aux loss unused in
+    serving) or the dense MLP."""
+    if cfg.family == "moe":
+        return moe_mlp(lp["moe"], h, cfg)[0]
+    return mlp(lp["mlp"], h, cfg.mlp_act)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -44,8 +56,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         a, (k, v) = attention_block(lp["attn"], h, cfg, cos=cos, sin=sin,
                                     prefill_tiles=prefill_tiles)
         x = x + a
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                    cfg.mlp_act)
+        x = x + _mlp_or_moe(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -91,8 +102,7 @@ def chunk_prefill_step(params: dict, cache: dict, tokens: torch.Tensor,
         o = flash_attention(q, k_c, v_c, block_q=bq, block_k=bk,
                             q_offset=start)
         x = x + out_proj(lp["attn"], o, cfg)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                    cfg.mlp_act)
+        x = x + _mlp_or_moe(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params["embed"], x), dict(cache, pos=start + c)
 
@@ -136,7 +146,6 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             paged_decode_split=paged_decode_split,
             k_scale=cache["k_scale"][i] if quant else None,
             v_scale=cache["v_scale"][i] if quant else None)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                    cfg.mlp_act)
+        x = x + _mlp_or_moe(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params["embed"], x), dict(cache, pos=pos + 1)

@@ -1,15 +1,19 @@
 """CacheAdapter — each served family's face of the ragged decode pool.
 
-The dense and ssm subset of the JAX package's ``serve/adapters.py``.  One
-generic ``FamilyCacheAdapter`` serves both, because the families differ
-only in which cache keys carry a time axis (``length_keys``), whether
-prompt padding is safe (``prefill_buckets``) and whether a cached prompt
-prefix is complete context for another request (``shareable_prefix``):
-dense keeps K/V (L, slots, T, G, hd) — for the int8 pool with
+The dense, moe and ssm subset of the JAX package's ``serve/adapters.py``.
+One generic ``FamilyCacheAdapter`` serves all three, because the families
+differ only in which cache keys carry a time axis (``length_keys``),
+whether prompt padding is safe (``prefill_buckets``) and whether a cached
+prompt prefix is complete context for another request
+(``shareable_prefix``):
+dense and moe keep K/V (L, slots, T, G, hd) — for the int8 pool with
 per-(physical block, KV group) scales — and a padded prompt is masked by
 each row's ``pos``; ssm keeps a length-free recurrent state and conv
 window, which padding would corrupt, so its prompts prefill at their
-exact length and it shares no prefix.  moe, hybrid, encdec and vlm come
+exact length and it shares no prefix.  moe shares none either: capacity
+routing couples a token's deeper K/V to the other tokens routed with it,
+so a cached block is not what another request would compute (the
+reference excludes it for the same reason).  hybrid, encdec and vlm come
 with ROADMAP queue 1 item 9.  The engine keeps one cache dict for the
 pool plus a per-row ``pos`` vector, and needs four operations on it:
 
@@ -55,7 +59,8 @@ class FamilyCacheAdapter:
     #: True when the family's whole per-position sequence state lives in
     #: the paged K/V blocks, so a prompt prefix cached by one request is
     #: complete context for another (radix prefix sharing): dense only;
-    #: ssm carries its state outside any block
+    #: ssm carries its state outside any block, and moe's blocks depend
+    #: on the tokens routed beside them
     shareable_prefix: bool = False
 
     @property
@@ -203,6 +208,7 @@ class FamilyCacheAdapter:
 
 ADAPTERS: dict[str, FamilyCacheAdapter] = {
     "dense": FamilyCacheAdapter("dense", shareable_prefix=True),
+    "moe": FamilyCacheAdapter("moe"),
     "ssm": FamilyCacheAdapter("ssm", length_keys=(), prefill_buckets=False),
 }
 
@@ -215,5 +221,5 @@ def get_adapter(family: str) -> FamilyCacheAdapter:
     except KeyError:
         raise NotImplementedError(
             f"no CacheAdapter for family {family!r}; the port serves "
-            f"{tuple(sorted(ADAPTERS))}, and moe, hybrid, encdec and vlm "
-            f"come with ROADMAP queue 1 item 9") from None
+            f"{tuple(sorted(ADAPTERS))}, and hybrid, encdec and vlm come "
+            f"with ROADMAP queue 1 item 9") from None

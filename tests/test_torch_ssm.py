@@ -203,10 +203,11 @@ def test_ssm_adapter_router_and_unported_families():
     plan = router.resolve(router.bucket(600))
     assert plan.decode_block is None and plan.paged_decode_block is None
     assert router.prefill_tiles(600) is None
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
-                      num_heads=1, num_kv_heads=1, d_ff=8, vocab_size=8)
+    encdec = ModelConfig(name="m", family="encdec", num_layers=1,
+                         d_model=8, num_heads=1, num_kv_heads=1, d_ff=8,
+                         vocab_size=8)
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        build_model(moe, device="cpu")
+        build_model(encdec, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         get_adapter("hybrid")
 

@@ -5,7 +5,7 @@ tree's on one CUDA card.
 
 OTHER_ROOT is the root of another checkout of this repository (for
 example a parent commit unpacked with ``git archive`` into the
-git-ignored ``out/``).  For each graph of ``chip_smoke.py``'s suite
+git-ignored ``build/``, which pytest does not collect).  For each graph of ``chip_smoke.py``'s suite
 (Cora- and Pubmed-sized, ``planetoid_like`` from the smoke's seed, f32
 and bf16 as its ``SUITE_CASES``) and each mapping policy, the script
 runs ``repro_torch.kernels.ops.gcn_aggregate`` from this tree and, in a

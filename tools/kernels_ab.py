@@ -16,10 +16,12 @@ spill lines for the attention kernels, the phase's results and the extra
 cases.
 
 To compare a change with its parent on one card, unpack the parent into
-a git-ignored directory and run both in one call, parent first and last:
+``build/`` (git-ignored, and a directory pytest never collects: a tree
+under another directory puts a second copy of every test file into the
+checkout's test run) and run both in one call, parent first and last:
 
-    mkdir -p out/parent && git archive HEAD | tar -x -C out/parent
-    for r in out/parent . . out/parent; do
+    mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
+    for r in build/parent . . build/parent; do
         python3 tools/kernels_ab.py --root $r; done
 """
 
