@@ -57,7 +57,7 @@ Phases, each printing one JSON line:
            R 12 / D 192, R 16 / D 256 (runs of 4 heads a CTA), R 1 / D 128
            (G 16) and R 16 / D 128 (G 4); both gathers at D 192 and at
            the moe models' KV heads; ``DECODE_SHAPES`` also holds those
-           four geometries;
+           four geometries and zamba2-7b's (G 32, R 1, D 112);
   suite    the paper's kernel suite through ``repro_torch.kernels.ops``
            (vecadd, saxpy, matmul, rmsnorm, gaussian_blur, nn_search,
            gcn_aggregate) and Mamba-2's ``ssd`` under each mapping policy
@@ -191,6 +191,30 @@ Phases, each printing one JSON line:
            and every run the decode tick's bound (``tick_bound``: every
            weight but the token embedding read once, the dense expert
            buffers multiply every expert);
+  hybrid   zamba2-7b (81 Mamba-2 layers padded to 14 groups of 6, each
+           led by one shared attention block, 32 heads over 32 KV heads
+           at head_dim 112, a GELU MLP, tied; weights drawn on the card):
+           first its kernel rows (``hybrid_kernel_rows``, a
+           ``hybrid_kernels`` line): flash in f32 and bf16 at G 32, R 1,
+           D 112 (a 512 prompt, causal), rows 1, 3 and 4 at G 32 / R 1 /
+           D 112 over ``decode_case``'s ragged lengths, rows 5 and 6 at
+           (8, 1024, 32, 112), each against its plain version and timed
+           beside SDPA where one call computes it and its bound; then in
+           float32 cut to ``HYBRID_CUT_LAYERS`` (9: two groups, the
+           second with 3 active and 3 padded layers, the shape of the
+           published 81) on each path of ``HYBRID_FP32_RUNS`` (chunked,
+           whole-prompt, int8, gather, int8 with the gather), the
+           kernels against ``kernels.force("plain")`` (``kernel_plain``:
+           identical streams, first decode-step logits within 1e-3, the
+           path's kernels launched and no other: the chunked paths'
+           prompt steps run the contiguous decode, row 4, and no flash),
+           then in bf16 on each run of ``HYBRID_BF16_RUNS`` (chunked at 9
+           layers, whole-prompt at all 81) with ``engine_run``'s gates
+           and the tick's bound (``hybrid_tick_bound``), each
+           teacher-forced against plain with the planted fault at the
+           last group's shared block (``teacher_run``, ``TEACHER_TOL``;
+           ``hybrid_teacher`` lines), on ``HYBRID_REQUESTS`` seeded
+           prompts of 16-160 tokens with ``HYBRID_NEW`` new tokens each;
   retune   smollm-135m at full width, default chunked path, TUNED, the
            engine phase's params, the mix's first ``RETUNE_REQUESTS``
            requests, each run in a private tuning cache: untraced, traced
@@ -247,7 +271,8 @@ with ``tuned_ms`` beside AUTO's ``ms``; a suite row's ``launches``
 counts NAIVE, FIXED and AUTO over every case, and ``tuned_launches``
 TUNED's at its cases; a serving row's ``prefix_launches`` counts the
 prefix phase's runs; ``variants`` the added variants, each with the
-launches of the dense or moe run that takes it), and as the last line
+launches of the dense, moe or hybrid run that takes it), and as the
+last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  It needs one CUDA device and exits
 non-zero without one.
@@ -595,7 +620,8 @@ SPLIT_SWEEP = (16, 32, 64, 128, 256, 512, 1024)
 #: 4-stage ring); pages of 8 and 32 and a split planned by AUTO (None);
 #: the wide groups: R 12 at D 192 (nemotron-4-340b; three runs of 4 heads
 #: a group, lanes 24-31 idle) and R 16 at D 256 (four runs of 4); the
-#: moe models' G 16, R 1 and G 4, R 16 (two runs of 8) at D 128
+#: moe models' G 16, R 1 and G 4, R 16 (two runs of 8) at D 128; zamba2-7b's
+#: G 32, R 1 at D 112 (28 lane groups of 4 values, lanes 28-31 idle)
 DECODE_SHAPES = (
     (3, 80, 2, 2, 16, 16, 16, 16, (0, 17, 85)),
     (2, 96, 1, 8, 128, 32, 32, 64, (96, 33)),
@@ -608,6 +634,7 @@ DECODE_SHAPES = (
     (2, 96, 1, 16, 256, 32, 32, 64, (96, 33)),
     (2, 80, 16, 1, 128, 16, 16, None, (80, 41)),
     (2, 96, 4, 16, 128, 32, 32, 64, (96, 33)),
+    (2, 80, 32, 1, 112, 16, 16, None, (80, 41)),
 )
 
 #: the head geometries (G, R, D) of the kernels phase's variants:
@@ -861,6 +888,132 @@ def decode_shapes_check(device, hw):
     return rows
 
 
+def measure_kernel(hw, timer, name, fn, case, bound_fn, library,
+                   exact=False, head_start=False,
+                   dtypes=(torch.float32, torch.bfloat16)):
+    """Kernel vs plain in each of ``dtypes`` (``exact``: bit for bit),
+    then times in bf16, or in the one dtype a variant takes
+    (``head_start`` for microsecond kernels, see ``Timer.ms``);
+    ``case(dtype)`` builds the inputs, its ``*_bytes`` keys are
+    bookkeeping, not arguments."""
+    from repro_torch import kernels
+
+    entry = {"max_abs_err": {}}
+    for dtype in dtypes:
+        c = dict(case(dtype))
+        args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
+        got = fn(**args)
+        with kernels.force("plain"):
+            want = fn(**args)
+        torch.cuda.synchronize()
+        key = str(dtype).split(".")[1]
+        if exact:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {dtype}: the kernel is not "
+                                     f"bit-exact against its plain "
+                                     f"version")
+            entry["max_abs_err"][key] = 0.0
+        else:
+            entry["max_abs_err"][key] = check_close(got, want, dtype,
+                                                    f"{name} {dtype}")
+    timed = torch.bfloat16 if torch.bfloat16 in dtypes else dtypes[0]
+    entry["timed_dtype"] = str(timed).split(".")[1]
+    c = case(timed)                        # the serving dtype
+    args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
+    entry["kernel_ms"] = timer.ms(lambda: fn(**args), head_start=head_start)
+    entry["host_ms"] = host_ms(lambda: fn(**args))
+
+    def plain():
+        with kernels.force("plain"):
+            fn(**args)
+    entry["plain_ms"] = timer.ms(plain, head_start=head_start)
+    entry["library_ms"] = (timer.ms(library(c), head_start=head_start)
+                           if library else None)
+    entry["bound_ms"], entry["bound_by"] = bound_fn(c, hw)
+    return entry
+
+
+def flash_variant(measure, cfg, hw, device, label, heads, sq, sk, off,
+                  dtype, run):
+    """Flash at ``heads`` (G, R, D): ``sq`` queries at ``q_offset`` ``off``
+    over ``sk`` keys, AUTO's tiles, held and timed in ``dtype``; ``run``
+    names the engine run whose launches the case reports."""
+    from repro_torch.core.mapper import plan_attention_blocks
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    p = plan_attention_blocks(sq, sk, heads[2], hw)
+    tiles = (p.block_q, p.block_k)
+    entry = measure("flash_attention", flash_attention,
+                    lambda dt: flash_case(cfg, sq, sk, off, tiles, device,
+                                          dt, heads=heads),
+                    flash_bound, sdpa_call, dtypes=(dtype,))
+    return dict(shape=f"{label}: G {heads[0]}, R {heads[1]}, head_dim "
+                      f"{heads[2]}, {sq} queries at q_offset {off} over "
+                      f"{sk} keys, tiles {tiles}",
+                variant=label, run=run, **entry)
+
+
+def decode_variant(measure, timer, cfg, hw, device, name, fn, heads, quant,
+                   contiguous, run, sweep=False):
+    """A decode kernel (row 1, row 3 with ``quant``, row 4 with
+    ``contiguous``) at ``heads`` (G, R, D) over ``decode_case``'s ragged
+    lengths, 8 slots, a pool of 1024, with AUTO's plan and the grid it
+    launched; ``sweep`` also times it at each width of ``SPLIT_SWEEP``."""
+    from repro_torch.core.mapper import (decode_head_chunks,
+                                         plan_cache_block, plan_decode_split,
+                                         plan_paged_block)
+
+    g, r, d = heads
+    if contiguous:
+        bs = plan_cache_block(1024, d, hw, heads_per_group=r)
+    else:
+        bs = plan_paged_block(1024, d, 16, hw, heads_per_group=r)
+    w = plan_decode_split(1024, 8 * g, bs, d, hw, heads_per_group=r,
+                          page_block=None if contiguous else 16)
+
+    def case(dt):
+        if contiguous:
+            return contiguous_case(cfg, bs, device, dt, w, heads=heads)
+        c = decode_case(cfg, bs, device, dt, w, heads=heads)
+        return int8_pool(c, torch.Generator().manual_seed(SEED + 2)) \
+            if quant else c
+
+    fn.last_grid = None
+    entry = measure(name, fn, case, decode_bound,
+                    sdpa_decode_call if contiguous else None,
+                    head_start=True)
+    grid = fn.last_grid
+    label = f"R {r} D {d}"
+    if sweep:                    # the same call at other split widths
+        args = {k: x for k, x in case(BF16).items()
+                if not k.endswith("_bytes")}
+        entry["split_sweep_ms"] = {
+            width: timer.ms(lambda: fn(**dict(args, split=width)),
+                            head_start=True)
+            for width in SPLIT_SWEEP}
+    return dict(shape=f"{label}: slots 8, G {g}, pool 1024, ragged "
+                      f"lengths", variant=label, run=run,
+                plan=dict(block_s=bs, split=w, grid=list(grid),
+                          ctas=math.prod(grid),
+                          head_runs=decode_head_chunks(d, r)),
+                **entry)
+
+
+def gather_variant(measure, device, name, fn, quant, heads, run):
+    """A gather (row 5, row 6 with ``quant``) of one (8, 1024, G, D)
+    cache, pages of 16, every page mapped, bit for bit, with the plan
+    that launched."""
+    g, _, d = heads
+    shape = (8, 1024, g, d)
+    entry = measure(name, fn,
+                    lambda dt: pool_gather_case(shape, device, dt, quant,
+                                                SEED + 6),
+                    gather_bound, None, exact=True, head_start=True)
+    return dict(shape=f"G {g}, D {d}: {shape}, page 16, every page mapped",
+                variant=f"G {g} D {d}", run=run,
+                plan=dataclasses.asdict(fn.last_plan), **entry)
+
+
 def add_variants(results, cfg, hw, device, timer, measure):
     """The variants the dense and moe phases' models take, appended to
     each serving kernel's cases (after the serving shape, which stays
@@ -874,29 +1027,16 @@ def add_variants(results, cfg, hw, device, timer, measure):
     also timed at each width of ``SPLIT_SWEEP``); the gathers at D 192
     and at the two moe models' KV heads.  Each case names the dense or
     moe run whose launches it reports (``run``; None: no run takes
-    it)."""
-    from repro_torch.core.mapper import (decode_head_chunks,
-                                         plan_attention_blocks,
-                                         plan_cache_block, plan_decode_split,
-                                         plan_paged_block)
+    it).  zamba2-7b's variants are the hybrid phase's
+    (``hybrid_kernel_rows``)."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
     from repro_torch.kernels.paged_gather import (paged_dequant_gather,
                                                   paged_gather)
 
-    def flash(label, heads, sq, sk, off, dtype, run):
-        p = plan_attention_blocks(sq, sk, heads[2], hw)
-        tiles = (p.block_q, p.block_k)
-        entry = measure("flash_attention", flash_attention,
-                        lambda dt: flash_case(cfg, sq, sk, off, tiles,
-                                              device, dt, heads=heads),
-                        flash_bound, sdpa_call, dtypes=(dtype,))
-        return dict(shape=f"{label}: G {heads[0]}, R {heads[1]}, "
-                          f"head_dim {heads[2]}, {sq} queries at q_offset "
-                          f"{off} over {sk} keys, tiles {tiles}",
-                    variant=label, run=run, **entry)
+    def flash(*args):
+        return flash_variant(measure, cfg, hw, device, *args)
 
     results["flash_attention"] += [
         flash("f32 D 128", QWEN3_HEADS, 512, 512, 0, F32, "qwen3_fp32"),
@@ -913,42 +1053,6 @@ def add_variants(results, cfg, hw, device, timer, measure):
         flash("bf16 D 128 R 16", QWEN3_MOE_HEADS, 512, 512, 0, BF16,
               "qwen3_moe")]
 
-    def decode(name, fn, heads, quant, contiguous, run, sweep=False):
-        g, r, d = heads
-        if contiguous:
-            bs = plan_cache_block(1024, d, hw, heads_per_group=r)
-        else:
-            bs = plan_paged_block(1024, d, 16, hw, heads_per_group=r)
-        w = plan_decode_split(1024, 8 * g, bs, d, hw, heads_per_group=r,
-                              page_block=None if contiguous else 16)
-
-        def case(dt):
-            if contiguous:
-                return contiguous_case(cfg, bs, device, dt, w, heads=heads)
-            c = decode_case(cfg, bs, device, dt, w, heads=heads)
-            return int8_pool(c, torch.Generator().manual_seed(SEED + 2)) \
-                if quant else c
-
-        fn.last_grid = None
-        entry = measure(name, fn, case, decode_bound,
-                        sdpa_decode_call if contiguous else None,
-                        head_start=True)
-        grid = fn.last_grid
-        label = f"R {r} D {d}"
-        if sweep:                    # the same call at other split widths
-            args = {k: x for k, x in case(BF16).items()
-                    if not k.endswith("_bytes")}
-            entry["split_sweep_ms"] = {
-                width: timer.ms(lambda: fn(**dict(args, split=width)),
-                                head_start=True)
-                for width in SPLIT_SWEEP}
-        return dict(shape=f"{label}: slots 8, G {g}, pool 1024, ragged "
-                          f"lengths", variant=label, run=run,
-                    plan=dict(block_s=bs, split=w, grid=list(grid),
-                              ctas=math.prod(grid),
-                              head_runs=decode_head_chunks(d, r)),
-                    **entry)
-
     # kernel, wrapper, int8 pool, contiguous, the run of each geometry:
     # nemotron's, the widest, deepseek-moe's and qwen3-moe's
     for name, fn, quant, contiguous, runs in (
@@ -959,8 +1063,9 @@ def add_variants(results, cfg, hw, device, timer, measure):
             ("decode_attention", decode_attention, False, True,
              ("nemotron_gather", None, None, "qwen3_moe_gather"))):
         results[name] += [
-            decode(name, fn, heads, quant, contiguous, run,
-                   sweep=heads is NEMOTRON_HEADS)
+            decode_variant(measure, timer, cfg, hw, device, name, fn, heads,
+                           quant, contiguous, run,
+                           sweep=heads is NEMOTRON_HEADS)
             for heads, run in zip((NEMOTRON_HEADS, WIDEST_HEADS,
                                    DEEPSEEK_HEADS, QWEN3_MOE_HEADS), runs)]
     for name, fn, quant, runs in (
@@ -968,21 +1073,13 @@ def add_variants(results, cfg, hw, device, timer, measure):
              ("nemotron_gather", None, "qwen3_moe_gather")),
             ("paged_dequant_gather", paged_dequant_gather, True,
              (None, None, "qwen3_moe_int8_gather"))):
-        for (g, _, d), run in zip((NEMOTRON_HEADS, DEEPSEEK_HEADS,
-                                   QWEN3_MOE_HEADS), runs):
-            shape = (8, 1024, g, d)
-            entry = measure(name, fn,
-                            lambda dt, q=quant, shape=shape: pool_gather_case(
-                                shape, device, dt, q, SEED + 6),
-                            gather_bound, None, exact=True, head_start=True)
-            results[name].append(dict(
-                shape=f"G {g}, D {d}: {shape}, page 16, every page mapped",
-                variant=f"G {g} D {d}", run=run,
-                plan=dataclasses.asdict(fn.last_plan), **entry))
+        for heads, run in zip((NEMOTRON_HEADS, DEEPSEEK_HEADS,
+                               QWEN3_MOE_HEADS), runs):
+            results[name].append(gather_variant(measure, device, name, fn,
+                                                quant, heads, run))
 
 
 def kernels_phase(cfg, hw, timer, device):
-    from repro_torch import kernels
     from repro_torch.core.mapper import (plan_attention_blocks,
                                          plan_cache_block, plan_decode_split,
                                          plan_paged_block)
@@ -1007,47 +1104,8 @@ def kernels_phase(cfg, hw, timer, device):
     tiles128 = (p128.block_q, p128.block_k)
     results = {}
 
-    def measure(name, fn, case, bound_fn, library, exact=False,
-                head_start=False, dtypes=(torch.float32, torch.bfloat16)):
-        """Kernel vs plain in each of ``dtypes`` (``exact``: bit for bit),
-        then times in bf16, or in the one dtype a variant takes
-        (``head_start`` for microsecond kernels, see ``Timer.ms``);
-        ``case(dtype)`` builds the inputs, its ``*_bytes`` keys are
-        bookkeeping, not arguments."""
-        entry = {"max_abs_err": {}}
-        for dtype in dtypes:
-            c = dict(case(dtype))
-            args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
-            got = fn(**args)
-            with kernels.force("plain"):
-                want = fn(**args)
-            torch.cuda.synchronize()
-            key = str(dtype).split(".")[1]
-            if exact:
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} {dtype}: the kernel is not "
-                                         f"bit-exact against its plain "
-                                         f"version")
-                entry["max_abs_err"][key] = 0.0
-            else:
-                entry["max_abs_err"][key] = check_close(got, want, dtype,
-                                                        f"{name} {dtype}")
-        timed = torch.bfloat16 if torch.bfloat16 in dtypes else dtypes[0]
-        entry["timed_dtype"] = str(timed).split(".")[1]
-        c = case(timed)                        # the serving dtype
-        args = {k: x for k, x in c.items() if not k.endswith("_bytes")}
-        entry["kernel_ms"] = timer.ms(lambda: fn(**args),
-                                      head_start=head_start)
-        entry["host_ms"] = host_ms(lambda: fn(**args))
-
-        def plain():
-            with kernels.force("plain"):
-                fn(**args)
-        entry["plain_ms"] = timer.ms(plain, head_start=head_start)
-        entry["library_ms"] = (timer.ms(library(c), head_start=head_start)
-                               if library else None)
-        entry["bound_ms"], entry["bound_by"] = bound_fn(c, hw)
-        return entry
+    def measure(*args, **kw):
+        return measure_kernel(hw, timer, *args, **kw)
 
     def decode_entries(name, fn, case, plan_block, w, library, what):
         """The serving shape (ragged lengths) and a single live row of
@@ -2848,8 +2906,11 @@ QWEN3_MOE_RUNS = {"qwen3_moe": "chunked", "qwen3_moe_int8": "int8",
 #: plain in bf16, a model each, between the kernels' rounding and a
 #: planted fault (``WrongGroup``), both read on an H100: deepseek's 28
 #: layers 0.358 sound, 1.107 with the fault; qwen3-moe's 4 layers
-#: 0.117-0.152 sound on its four paths, 6.10 with the fault
-TEACHER_TOL = {"deepseek-moe-16b": 0.6, "qwen3-moe-235b-a22b": 0.3}
+#: 0.117-0.152 sound on its four paths, 6.10 with the fault; zamba2-7b's
+#: 9 layers chunked 0.109 sound, 1.965 with the fault at its last group's
+#: shared block, its 81 layers whole-prompt 0.257 and 0.744
+TEACHER_TOL = {"deepseek-moe-16b": 0.6, "qwen3-moe-235b-a22b": 0.3,
+               "zamba2-7b": 0.45}
 
 
 class RouteSpy:
@@ -2998,12 +3059,24 @@ def teacher_reading(kernel, plain, tol):
                 steps_above_tol_margin=int((margin > tol).sum()))
 
 
+def attention_calls(cfg):
+    """The decode attention calls of one tick: a call a layer, or for the
+    hybrid family one a group (its shared block)."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_groups
+
+        return n_groups(cfg)
+    return cfg.num_layers
+
+
 class WrongGroup:
-    """While installed, one layer's fused paged decode reads the wrong KV
-    group: at layer ``layer`` of every tick the queries are rolled one
-    group along before the kernel and its output rolled back, so group g
-    attends over group g - 1's keys and values.  A planted fault the
-    teacher-forced bound must see (``faulted``: the calls it changed)."""
+    """While installed, one attention call's fused paged decode reads the
+    wrong KV group: at call ``layer`` of every tick's ``layers`` calls
+    (``attention_calls``: a layer each, or the hybrid's shared block once
+    a group) the queries are rolled one group along before the kernel and
+    its output rolled back, so group g attends over group g - 1's keys
+    and values.  A planted fault the teacher-forced bound must see
+    (``faulted``: the calls it changed)."""
 
     def __init__(self, layers, layer):
         self.layers, self.layer = layers, layer
@@ -3028,27 +3101,31 @@ class WrongGroup:
         self._mod.paged_decode_attention = self._fn
 
 
-def teacher_run(label, engine, reqs, outs, tol, fault=False):
+def teacher_run(label, engine, reqs, outs, tol, fault=False, phase="moe"):
     """The teacher-forced check, untimed: ``engine()`` on the kernels and
     under ``kernels.force("plain")``, both fed ``outs`` (the timed run's
     outputs for ``reqs``' prompts), each step's logits recorded
-    (``TeacherForce``), the kernel run's routing counts (``RouteSpy``);
-    with ``fault``, a third run on the kernels with the last layer's
-    decode reading the wrong KV group (``WrongGroup``).  Gates: plain
-    launches nothing; every step's logits within ``tol`` of plain's and
-    the greedy picks equal wherever plain's top-2 margin exceeds ``tol``;
-    the fault's logits more than ``tol`` from plain's.
-    Prints a ``moe_teacher`` line; returns its reading."""
+    (``TeacherForce``), for a moe model the kernel run's routing counts
+    (``RouteSpy``); with ``fault``, a third run on the kernels with the
+    tick's last attention call reading the wrong KV group
+    (``WrongGroup``).  Gates: plain launches nothing; every step's logits
+    within ``tol`` of plain's and the greedy picks equal wherever plain's
+    top-2 margin exceeds ``tol``; the fault's logits more than ``tol``
+    from plain's.  Prints a ``{phase}_teacher`` line; returns its
+    reading."""
     from repro_torch import kernels
 
     force = {tuple(p): o for (p, _), o in zip(reqs, outs)}
     counters = launch_counters()
-    spy, recs, planted = RouteSpy(), {}, None
+    spy, recs, planted = None, {}, None
     for mode in ("kernel", "plain", "fault")[:3 if fault else 2]:
         eng = engine()
         recs[mode] = TeacherForce(eng, force)
+        if mode == "kernel" and eng.cfg.family == "moe":
+            spy = RouteSpy()
         if mode == "fault":
-            planted = WrongGroup(eng.cfg.num_layers, eng.cfg.num_layers - 1)
+            calls = attention_calls(eng.cfg)
+            planted = WrongGroup(calls, calls - 1)
         ctx = {"kernel": spy, "fault": planted}.get(mode)
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
@@ -3060,7 +3137,7 @@ def teacher_run(label, engine, reqs, outs, tol, fault=False):
                            {k: getattr(fn, attr)
                             for k, (fn, attr) in counters.items()}, set())
     reading = teacher_reading(recs["kernel"], recs["plain"], tol)
-    reading["routing"] = spy.counts()
+    reading["routing"] = spy.counts() if spy is not None else None
     if fault:
         f = teacher_reading(recs["fault"], recs["plain"], tol)
         reading["fault"] = dict(layer=planted.layer,
@@ -3068,7 +3145,7 @@ def teacher_run(label, engine, reqs, outs, tol, fault=False):
                                 max_abs_err=f["max_abs_err"],
                                 p50_abs_err=f["p50_abs_err"],
                                 argmax_differ=f["argmax_differ"])
-    emit("moe_teacher", run=label, **reading)
+    emit(f"{phase}_teacher", run=label, **reading)
     if reading["max_abs_err"] > tol or reading["argmax_differ_above_tol"]:
         raise AssertionError(f"{label}: teacher-forced logits {reading}")
     f = reading.get("fault")
@@ -3079,19 +3156,21 @@ def teacher_run(label, engine, reqs, outs, tol, fault=False):
     return reading
 
 
+def tree_bytes(tree):
+    """Bytes of every tensor in a nested dict of tensors."""
+    return sum(tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
 def tick_bound(params, hw):
     """Bytes a decode tick must read, every weight but the token
     embedding (its rows are gathered): the dense (E, C, d) buffers
     multiply every expert, so every expert's weights; and the time at
     the card's memory rate."""
-    def nbytes(tree):
-        return sum(nbytes(v) if isinstance(v, dict)
-                   else v.numel() * v.element_size() for v in tree.values())
-
     tok = params["embed"]["tok"]
-    total = nbytes(params) - tok.numel() * tok.element_size()
-    experts = nbytes({k: v for k, v in params["blocks"]["moe"].items()
-                      if k != "shared"})
+    total = tree_bytes(params) - tok.numel() * tok.element_size()
+    experts = tree_bytes({k: v for k, v in params["blocks"]["moe"].items()
+                          if k != "shared"})
     return dict(tick_bytes=total, expert_bytes=experts,
                 tick_bound_ms=total / hw.mem_bw * 1e3)
 
@@ -3190,6 +3269,168 @@ def moe_phase(device, reqs, hw):
     del params
     free_cuda()
     return runs
+
+
+# --------------------------------------------------------------------------- #
+# hybrid: zamba2-7b at full width
+# --------------------------------------------------------------------------- #
+
+#: zamba2-7b's attention heads: 32 KV heads of one query head each, head_dim
+#: 112 (the shared block's; its K/V slot is one a group)
+ZAMBA2_HEADS = (32, 1, 112)
+#: the float32 runs' and the timed chunked run's depth: two groups of 6,
+#: the second with 3 active and 3 padded layers, the shape of the
+#: published 81 (13 full groups and one of 3 plus 3 padded); 1.2 B
+#: parameters, 4.9 GB in float32
+HYBRID_CUT_LAYERS = 9
+#: the phase's requests: seeded prompts of 16-160 tokens, 8 new tokens
+#: each.  A chunked prompt token is a decode step through every layer
+#: (the exact recurrence), so the engine mix's first 4 requests (1,389
+#: prompt tokens) would make each of the phase's eight chunked runs
+#: several times longer
+HYBRID_REQUESTS = 4
+HYBRID_PROMPT = (16, 160)
+HYBRID_NEW = 8
+#: the float32 runs, kernels against ``force("plain")``: label -> (the
+#: ``ENGINE_RUNS`` path, the kernels it must launch).  Chunked prefill
+#: scans the decode step over the prompt, its attention through the
+#: contiguous decode (row 4) over the row cache: every chunked path
+#: launches ``decode_attention`` and no flash; whole-prompt prefill
+#: launches flash
+HYBRID_FP32_RUNS = {
+    "zamba2_fp32": ("chunked", {"paged_decode_attention",
+                                "decode_attention"}),
+    "zamba2_fp32_whole": ("whole_prompt", {"paged_decode_attention",
+                                           "flash_attention"}),
+    "zamba2_fp32_int8": ("int8", {"paged_decode_attention_int8",
+                                  "decode_attention"}),
+    "zamba2_fp32_gather": ("gather", {"paged_gather", "decode_attention"}),
+    "zamba2_fp32_int8_gather": ("int8_gather", {"paged_dequant_gather",
+                                                "decode_attention"}),
+}
+#: the bf16 runs, timed, then teacher-forced against plain with the
+#: planted fault: label -> (layers, the ``ENGINE_RUNS`` path, the kernels
+#: it must launch); whole-prompt prefill at all 81 layers (13.7 GB) is
+#: one forward a prompt
+HYBRID_BF16_RUNS = {
+    "zamba2_chunked": (HYBRID_CUT_LAYERS, "chunked",
+                       {"paged_decode_attention", "decode_attention"}),
+    "zamba2_whole_prompt": (81, "whole_prompt",
+                            {"paged_decode_attention", "flash_attention"}),
+}
+
+
+def hybrid_kernel_rows(cfg, hw, device, timer):
+    """The serving kernels at zamba2-7b's heads (G 32, R 1, D 112), each
+    against its plain version and timed beside its bound (and SDPA where
+    one call computes the same function): flash in f32 and bf16 (a 512
+    prompt, causal), rows 1, 3 and 4 over ``decode_case``'s ragged
+    lengths (8 slots, a pool of 1024), rows 5 and 6 over (8, 1024, 32,
+    112).  Each case names the hybrid run whose launches it reports."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.paged_gather import (paged_dequant_gather,
+                                                  paged_gather)
+
+    def measure(*args, **kw):
+        return measure_kernel(hw, timer, *args, **kw)
+
+    rows = {name: [] for name in SERVING_KERNELS}
+    rows["flash_attention"] = [
+        flash_variant(measure, cfg, hw, device, "f32 D 112", ZAMBA2_HEADS,
+                      512, 512, 0, F32, "zamba2_fp32_whole"),
+        flash_variant(measure, cfg, hw, device, "bf16 D 112", ZAMBA2_HEADS,
+                      512, 512, 0, BF16, "zamba2_whole_prompt")]
+    for name, fn, quant, contiguous, run in (
+            ("paged_decode_attention", paged_decode_attention, False, False,
+             "zamba2_chunked"),
+            ("paged_decode_attention_int8", paged_decode_attention, True,
+             False, "zamba2_fp32_int8"),
+            ("decode_attention", decode_attention, False, True,
+             "zamba2_chunked")):
+        rows[name].append(decode_variant(measure, timer, cfg, hw, device,
+                                         name, fn, ZAMBA2_HEADS, quant,
+                                         contiguous, run))
+    for name, fn, quant, run in (
+            ("paged_gather", paged_gather, False, "zamba2_fp32_gather"),
+            ("paged_dequant_gather", paged_dequant_gather, True,
+             "zamba2_fp32_int8_gather")):
+        rows[name].append(gather_variant(measure, device, name, fn, quant,
+                                         ZAMBA2_HEADS, run))
+    return rows
+
+
+def hybrid_tick_bound(params, cfg, hw):
+    """Bytes a decode tick must read: every weight it uses once (the tied
+    token table once, by the unembedding; the shared block once, though
+    it runs once a group; no padded layer's), and the time at the card's
+    memory rate."""
+    from repro_torch.models.hybrid import padded_layers
+
+    blocks = tree_bytes(params["blocks"])
+    total = tree_bytes(params) - blocks \
+        + blocks * cfg.num_layers // padded_layers(cfg)
+    return dict(tick_bytes=total, tick_bound_ms=total / hw.mem_bw * 1e3)
+
+
+def hybrid_phase(device, hw, timer, cfg):
+    """zamba2-7b at full width: its kernel rows (``hybrid_kernel_rows``);
+    in float32 cut to ``HYBRID_CUT_LAYERS`` layers on each path of
+    ``HYBRID_FP32_RUNS``, kernels against ``force("plain")``
+    (``kernel_plain``: identical streams, first decode-step logits within
+    1e-3, the path's kernels launched and no other, nothing by plain);
+    in bf16 on each run of ``HYBRID_BF16_RUNS`` (chunked at 9 layers,
+    whole-prompt at 81) with ``engine_run``'s gates, each teacher-forced
+    against plain with the planted fault (``teacher_run``).  Returns the
+    runs and the kernel rows; each model is freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+
+    rows = hybrid_kernel_rows(cfg, hw, device, timer)
+    emit("hybrid_kernels", card=nvidia_smi(), results=rows)
+    zamba = get_config("zamba2-7b")
+    hreqs = requests(HYBRID_REQUESTS, *HYBRID_PROMPT, HYBRID_NEW,
+                     zamba.vocab_size, SEED + 3)
+    if len({tuple(p) for p, _ in hreqs}) != len(hreqs):
+        raise AssertionError("the teacher-forced runs key steps by prompt")
+    runs = {}
+    f32 = dataclasses.replace(zamba, dtype="float32",
+                              num_layers=HYBRID_CUT_LAYERS)
+    params, init_s = draw_weights(f32, device)
+    for label, (path, expected) in HYBRID_FP32_RUNS.items():
+        opts, chunk, _ = ENGINE_RUNS[path]
+        reading, _ = kernel_plain(
+            lambda: ServeEngine(f32, slots=8, max_len=1024,
+                                prefill_chunk=chunk, params=params,
+                                seed=SEED, device=device, **opts), hreqs)
+        runs[label] = dict(arch=f32.name, dtype="float32", path=path,
+                           layers=f32.num_layers, init_s=init_s, **reading)
+        emit("hybrid", run=label, **runs[label])
+        check_kernel_plain(label, reading, expected)
+    del params
+    free_cuda()
+
+    for label, (layers, path, expected) in HYBRID_BF16_RUNS.items():
+        bcfg = dataclasses.replace(zamba, num_layers=layers)
+        params, init_s = draw_weights(bcfg, device)
+        bound = hybrid_tick_bound(params, bcfg, hw)
+        opts, chunk, _ = ENGINE_RUNS[path]
+
+        def engine():
+            return ServeEngine(bcfg, slots=8, max_len=1024,
+                               prefill_chunk=chunk, params=params,
+                               seed=SEED, device=device, **opts)
+
+        runs[label], outs = engine_run(
+            label, engine(), hreqs, opts, expected, phase="hybrid",
+            extra=lambda: {"init_s": init_s, "layers": layers, **bound})
+        runs[label]["teacher"] = teacher_run(
+            label, engine, hreqs, outs, TEACHER_TOL[zamba.name], fault=True,
+            phase="hybrid")
+        del params
+        free_cuda()
+    return runs, rows
 
 
 # --------------------------------------------------------------------------- #
@@ -3816,6 +4057,8 @@ def main() -> int:
         runs, params, reqs = timed("engine", engine_phase, device)
         dense = timed("dense", dense_phase, device, reqs)
         moe = timed("moe", moe_phase, device, reqs, hw)
+        hybrid, hybrid_rows = timed("hybrid", hybrid_phase, device, hw,
+                                    timer, cfg)
         timed("retune", retune_phase, device, params, reqs, tmp)
         prefix_runs = timed("prefix", prefix_phase, device,
                             params["smollm-135m"])
@@ -3825,6 +4068,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("timing", seconds=phase_s)
 
+    for name, cases in hybrid_rows.items():
+        kres[name] += cases
     summary = []
     for name, cases in kres.items():
         main_case = cases[0]
@@ -3851,8 +4096,8 @@ def main() -> int:
                                tuned_plan=tuned["tuned"],
                                seed_ms=tuned["seed_ms"],
                                tuned_ms=tuned["tuned_ms"])
-        # the dense and moe phases' variants: each case's numbers and the
-        # launches of the run that takes it (0: none does)
+        # the dense, moe and hybrid phases' variants: each case's numbers
+        # and the launches of the run that takes it (0: none does)
         summary[-1]["variants"] = [{
             "variant": c["variant"], "shape": c["shape"],
             "dtype": c["timed_dtype"], "max_abs_err": c["max_abs_err"],
@@ -3861,8 +4106,8 @@ def main() -> int:
             "bound_by": c["bound_by"], "plan": c.get("plan"),
             "split_sweep_ms": c.get("split_sweep_ms"),
             "run": c["run"],
-            "launches": ({**dense, **moe}[c["run"]]["launches"][name]
-                         if c["run"] else 0)}
+            "launches": ({**dense, **moe, **hybrid}[c["run"]]["launches"][
+                name] if c["run"] else 0)}
             for c in cases if "variant" in c]
         if name in ("paged_gather", "paged_dequant_gather"):
             # the large case and one page (the launch's floor)

@@ -1,9 +1,9 @@
 """Model configuration schema and the registry of served architectures.
 
 A trimmed copy of the JAX package's ``configs/base.py``: only the fields
-the served families read (dense, with qk-norm and untied embeddings, moe
-and ssm).  ``window``, ``local_global_ratio``, the hybrid, encdec and
-vlm fields and ``skip_shapes`` (the port has no ``SHAPES``) stay out.
+the served families read (dense, with qk-norm and untied embeddings, moe,
+ssm and hybrid).  ``window``, ``local_global_ratio``, the encdec and vlm
+fields and ``skip_shapes`` (the port has no ``SHAPES``) stay out.
 The port keeps its own copy so it imports nothing of the JAX package.
 ``reduced()`` yields the scaled-down variant the CPU tests run.
 """
@@ -20,7 +20,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 class ModelConfig:
     name: str
     family: str                      # dense (swiglu or squared_relu, tied
-                                     # or not) | moe | ssm served; hybrid,
+                                     # or not) | moe | ssm | hybrid served;
                                      # encdec, vlm: ROADMAP queue 1 item 9
     num_layers: int
     d_model: int
@@ -31,7 +31,7 @@ class ModelConfig:
     head_dim: Optional[int] = None   # default d_model // num_heads
     qk_norm: bool = False            # RMSNorm of q and k over head_dim
     rope_theta: float = 10_000.0
-    mlp_act: str = "swiglu"          # swiglu | squared_relu
+    mlp_act: str = "swiglu"          # swiglu | squared_relu | gelu
 
     # MoE
     moe_experts: int = 0
@@ -45,6 +45,9 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_groups: int = 1
     ssm_conv: int = 4
+
+    # hybrid (zamba2): one *shared* attention block applied every k layers
+    hybrid_attn_every: int = 0
 
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -93,6 +96,17 @@ class ModelConfig:
                 + 2 * self.ssm_heads + di * d + di + 2 * d
             )
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "hybrid":
+            # the reference's count: num_layers Mamba-2 layers (not the
+            # padded ones) and one shared block, its MLP counted as gated
+            di, ns = self.d_inner, self.ssm_state
+            mamba_layer = (
+                d * (2 * di + 2 * self.ssm_groups * ns + self.ssm_heads)
+                + self.ssm_conv * (di + 2 * self.ssm_groups * ns)
+                + 2 * self.ssm_heads + di * d + di + 2 * d
+            )
+            shared = attn + 3 * d * self.d_ff + 2 * d
+            return float(self.num_layers * mamba_layer + shared + emb)
         return float(self.num_layers * per_layer + emb + d)
 
     def n_params_active(self) -> float:
@@ -106,12 +120,13 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
-        same numbers as the JAX package's ``reduced()`` for dense, moe
-        and ssm)."""
+        same numbers as the JAX package's ``reduced()`` for the served
+        families: 2 layers, or 4 with a shared attention block every 2)."""
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers, 4 if self.hybrid_attn_every
+                           else 2),
             d_model=128,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else 0,
@@ -124,6 +139,7 @@ class ModelConfig:
             moe_dff=64 if self.moe_dff else 0,
             ssm_state=min(self.ssm_state, 16),
             ssm_head_dim=16,
+            hybrid_attn_every=min(self.hybrid_attn_every, 2),
         )
 
 

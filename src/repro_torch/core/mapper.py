@@ -756,8 +756,9 @@ FLASH_F32_MAX_HEAD_DIM = 128
 
 def flash_f32_lanes(head_dim: int) -> int:
     """Lanes a query row takes in the f32 flash kernel: one up to
-    head_dim 64, head_dim / 64 past it (``f32_lanes`` in the source)."""
-    return head_dim // 64 if head_dim > 64 else 1
+    head_dim 64, ceil(head_dim / 64) past it (two at 112 and 128;
+    ``f32_lanes`` in the source)."""
+    return -(-head_dim // 64) if head_dim > 64 else 1
 
 
 def flash_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:

@@ -39,21 +39,29 @@
 // re-packs the S (C-layout) fragments as the A operand of P V with no trip
 // through shared memory.  The one change of numerics against the Pallas
 // kernel: P is rounded to bf16 for its product with V (the row sums stay
-// f32).  head_dim 32, 64, 128 or 192.
+// f32).  head_dim 32, 64, 112, 128 or 192.
 //
 // head_dim 192 (nemotron-4-340b) keeps the same warp tile: the O
 // accumulator is 96 f32 registers a thread and Q's fragments 48, within
-// the 255 a thread of a 256-thread CTA may hold.
+// the 255 a thread of a 256-thread CTA may hold.  head_dim 112 (zamba2-7b)
+// is 7 k-steps of 16 for S and 14 n-tiles of 8 for P V (taken in pairs
+// by ldmatrix.x4.trans), so nothing is padded: a row is 14 16-byte
+// chunks of cp.async, 224 bytes in global memory and 240 in shared
+// memory, whose 60-word stride puts the 8 rows an ldmatrix reads on 8
+// distinct 4-bank groups.
 //
 // float32 (flash_kernel): CUDA cores, a query row on LPR lanes (one up to
-// head_dim 64; two at 128, each holding 64 values), each lane holding its
-// part of the scaled query and of the f32 accumulator in registers (at
-// D 128 one lane a row would need 256 registers for the two); a row's
-// partial dots are summed across its lanes by xor shuffles.  K/V tiles
-// staged in shared memory as f32 and read as broadcasts, the score row of
-// each query row in shared memory with an odd stride.  head_dim 32, 64 or
-// 128.  At D 64 and 32 (one lane a row) it keeps the fp32 path
-// bit-for-bit what it was (the serving parity check).
+// head_dim 64; two past it, each holding D / 2 values: 64 at 128, 56 at
+// 112), each lane holding its part of the scaled query and of the f32
+// accumulator in registers (at D 128 one lane a row would need 256
+// registers for the two); a row's partial dots are summed across its
+// lanes by xor shuffles.  At D 112 two lanes of 56 values split the row
+// exactly, where a 128-wide row of masked lanes would stage, read and
+// multiply 16 zero columns a key.  K/V tiles staged in shared memory as
+// f32 and read as broadcasts, the score row of each query row in shared
+// memory with an odd stride.  head_dim 32, 64, 112 or 128.  At D 64 and
+// 32 (one lane a row) it keeps the fp32 path bit-for-bit what it was (the
+// serving parity check).
 //
 // Shared memory: bf16 2 * 2 * block_k * (D + 8) * 2 bytes; f32 4 * (2 *
 // block_k * D + rows * (block_k + 1)) bytes, rows = threads / LPR,
@@ -68,11 +76,11 @@
 namespace {
 
 // lanes a query row's head_dim is spread over in the f32 kernel: one up
-// to D 64, D / 64 past it (D 128: two lanes of 64 values each, so a
-// lane's query and accumulator stay within 128 registers)
+// to D 64, ceil(D / 64) past it (D 112 and 128: two lanes of 56 and 64
+// values, so a lane's query and accumulator stay within 128 registers)
 template <int D>
 __host__ __device__ constexpr int f32_lanes() {
-  return D > 64 ? D / 64 : 1;
+  return D > 64 ? (D + 63) / 64 : 1;
 }
 
 template <int D>
@@ -85,6 +93,7 @@ flash_kernel(const float* __restrict__ q,   // (B, Sq, G, R, D)
              int q_offset, float scale, int causal) {
   constexpr int LPR = f32_lanes<D>();      // lanes a row
   constexpr int DL = D / LPR;              // values a lane holds
+  static_assert(D % LPR == 0, "a row's lanes split head_dim evenly");
   extern __shared__ float smem[];
   float* s_k = smem;                       // (block_k, D)
   float* s_v = s_k + block_k * D;          // (block_k, D)
@@ -432,8 +441,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32 (D 32, 64 or 128; block_q 1..128), 1 = bfloat16
-// (D 32, 64, 128 or 192; block_q a multiple of 16 in 16..128; block_k a
+// dtype: 0 = float32 (D 32, 64, 112 or 128; block_q 1..128), 1 = bfloat16
+// (D 32, 64, 112, 128 or 192; block_q a multiple of 16 in 16..128; block_k a
 // multiple of 16; 16-byte-aligned pointers).  causal: 1 masks k > i +
 // q_offset.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -452,6 +461,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       case 64:
         return launch_f32<64>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
                               q_offset, scale, causal, st);
+      case 112:
+        return launch_f32<112>(q, k, v, out, B, Sq, Sk, G, R, block_q,
+                               block_k, q_offset, scale, causal, st);
       case 128:
         return launch_f32<128>(q, k, v, out, B, Sq, Sk, G, R, block_q,
                                block_k, q_offset, scale, causal, st);
@@ -470,6 +482,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 64:
       return launch_bf16<64>(q, k, v, out, B, Sq, Sk, G, R, block_q, block_k,
                              q_offset, scale, causal, st);
+    case 112:
+      return launch_bf16<112>(q, k, v, out, B, Sq, Sk, G, R, block_q,
+                              block_k, q_offset, scale, causal, st);
     case 128:
       return launch_bf16<128>(q, k, v, out, B, Sq, Sk, G, R, block_q,
                               block_k, q_offset, scale, causal, st);

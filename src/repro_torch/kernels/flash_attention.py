@@ -10,10 +10,11 @@ paths) masks keys past ``q_pos + q_offset``; False attends to every key.
 Tiles ``(block_q, block_k)`` come from the serving router's plan.
 
 The dtype picks the kernel: bfloat16 runs on the tensor cores
-(``mma.sync``, 16 query rows a warp; head_dim 32, 64, 128 or 192),
+(``mma.sync``, 16 query rows a warp; head_dim 32, 64, 112, 128 or 192),
 float32 on the CUDA cores (a query row on one lane, or on two at head_dim
-128; head_dim 32, 64 or 128).  Anything else raises a ``ValueError``
-naming ROADMAP §2 A.1, where the other head_dims are listed.  Both count
+112 and 128; head_dim 32, 64, 112 or 128).  Anything else raises a
+``ValueError`` naming ROADMAP §2 A.1, where the other head_dims are
+listed.  Both count
 in ``flash_attention.launches``.
 
 ``flash_attention_plain`` is the plain PyTorch version, the schedule of
@@ -35,10 +36,10 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head_dims each kernel is built for: the reduced configs' (32),
-#: smollm-135m's (64), qwen3-8b's and the MoE configs' (128) in both, and
-#: nemotron-4-340b's (192) in bf16
-HEAD_DIMS = {torch.float32: (32, 64, 128),
-             torch.bfloat16: (32, 64, 128, 192)}
+#: smollm-135m's (64), zamba2-7b's (112), qwen3-8b's and the MoE configs'
+#: (128) in both, and nemotron-4-340b's (192) in bf16
+HEAD_DIMS = {torch.float32: (32, 64, 112, 128),
+             torch.bfloat16: (32, 64, 112, 128, 192)}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 

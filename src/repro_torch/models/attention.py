@@ -41,8 +41,9 @@ from repro_torch.kernels.paged_gather import (flat_position,
 from repro_torch.models.layers import apply_rope, rmsnorm
 
 __all__ = ["project_qkv", "attention_block", "paged_write_index",
-           "row_write_index", "cache_write", "paged_quant_write",
-           "chunk_cache_write", "attention_decode", "out_proj"]
+           "row_write_index", "decode_write_index", "cache_write",
+           "paged_quant_write", "chunk_cache_write", "attention_decode",
+           "out_proj"]
 
 
 def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin):
@@ -112,6 +113,16 @@ def row_write_index(pos: torch.Tensor, kv_len: int):
     pos = pos.long()
     rows = (pos < kv_len).nonzero().flatten()
     return rows, rows * kv_len + pos[rows]
+
+
+def decode_write_index(pos: torch.Tensor, kv_len: int, page_tables=None,
+                       page_block=None):
+    """A decode step's write index, shared by every layer of the step:
+    ``paged_write_index`` through ``page_tables``, else
+    ``row_write_index``."""
+    if page_tables is not None:
+        return paged_write_index(pos, page_tables, page_block, kv_len)
+    return row_write_index(pos, kv_len)
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, index) -> None:

@@ -16,7 +16,11 @@ stacked on a leading axis):
 
 and for the ssm family (Mamba-2) ``blocks.ln (L, D)`` and ``blocks.ssm``
 (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``,
-``out_norm``, ``out_proj``, each with a leading layer axis),
+``out_norm``, ``out_proj``, each with a leading layer axis); for the
+hybrid family (zamba2) the same ``blocks`` stacked over the padded
+layers (``models.hybrid.padded_layers``) beside one unstacked
+``shared.{ln1 (D,), attn, ln2 (D,), mlp}`` block (the attention and MLP
+shapes above without the layer axis),
 
 so ``weights.params_from_jax`` is a plain conversion and the tests hold
 the port against the reference on the same weights.
@@ -39,41 +43,64 @@ def param_shapes(cfg: ModelConfig) -> dict:
     "normal", "zeros" or "ones", ``scale`` None means min(0.02,
     fan_in^-0.5).  The keys are the JAX package's (``embed_specs``,
     ``attention_specs``, ``mlp_specs``, ``moe_specs``)."""
-    d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    n, f = cfg.num_layers, cfg.d_ff
-    served = (cfg.family == "ssm" and cfg.tie_embeddings) or (
+    served = (cfg.family in ("ssm", "hybrid") and cfg.tie_embeddings) or (
         cfg.family == "dense" and cfg.mlp_act in ("swiglu", "squared_relu")
     ) or cfg.family == "moe"
     if not served:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family (swiglu or "
             f"squared_relu, tied or untied), the moe family and the tied "
-            f"ssm family; geglu, hybrid, encdec and vlm come with "
+            f"ssm and hybrid families; geglu, encdec and vlm come with "
             f"ROADMAP queue 1 item 9")
     if cfg.family == "ssm":
-        return _ssm_shapes(cfg)
+        return _ssm_shapes(cfg, cfg.num_layers)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import padded_layers
+
+        tree = _ssm_shapes(cfg, padded_layers(cfg))
+        d = cfg.d_model
+        shared = {"ln1": ((d,), "zeros", None), "attn": _attn_shapes(cfg),
+                  "ln2": ((d,), "zeros", None), "mlp": _mlp_shapes(cfg)}
+        # the reference's key order (the order init_params draws in)
+        return {"embed": tree["embed"], "shared": shared,
+                "blocks": tree["blocks"], "ln_f": tree["ln_f"]}
+    d, n = cfg.d_model, cfg.num_layers
     emb = {"tok": ((cfg.vocab_size, d), "normal", 0.02)}
     if not cfg.tie_embeddings:
         emb["unembed"] = ((d, cfg.vocab_size), "normal", 0.02)
-    attn = {"wq": ((n, d, h, hd), "normal", None),
-            "wk": ((n, d, g, hd), "normal", None),
-            "wv": ((n, d, g, hd), "normal", None),
-            "wo": ((n, h, hd, d), "normal", None)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ((n, hd), "zeros", None)
-        attn["k_norm"] = ((n, hd), "zeros", None)
-    blocks = {"ln1": ((n, d), "zeros", None), "attn": attn,
+    blocks = {"ln1": ((n, d), "zeros", None),
+              "attn": _stacked(_attn_shapes(cfg), n),
               "ln2": ((n, d), "zeros", None)}
     if cfg.family == "moe":
         blocks["moe"] = _stacked(moe_shapes(cfg), n)
-    elif cfg.mlp_act == "swiglu":
-        blocks["mlp"] = {"w_gate": ((n, d, f), "normal", None),
-                         "w_up": ((n, d, f), "normal", None),
-                         "w_down": ((n, f, d), "normal", None)}
     else:
-        blocks["mlp"] = {"w_in": ((n, d, f), "normal", None),
-                         "w_down": ((n, f, d), "normal", None)}
+        blocks["mlp"] = _stacked(_mlp_shapes(cfg), n)
     return {"embed": emb, "blocks": blocks, "ln_f": ((d,), "zeros", None)}
+
+
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    """One layer's attention projections (the JAX ``attention_specs``)."""
+    d, h, g, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = {"wq": ((d, h, hd), "normal", None),
+            "wk": ((d, g, hd), "normal", None),
+            "wv": ((d, g, hd), "normal", None),
+            "wo": ((h, hd, d), "normal", None)}
+    if cfg.qk_norm:
+        attn["q_norm"] = ((hd,), "zeros", None)
+        attn["k_norm"] = ((hd,), "zeros", None)
+    return attn
+
+
+def _mlp_shapes(cfg: ModelConfig) -> dict:
+    """One layer's MLP (the JAX ``mlp_specs``): gated for swiglu, else
+    ``w_in`` and ``w_down``."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "swiglu":
+        return {"w_gate": ((d, f), "normal", None),
+                "w_up": ((d, f), "normal", None),
+                "w_down": ((f, d), "normal", None)}
+    return {"w_in": ((d, f), "normal", None),
+            "w_down": ((f, d), "normal", None)}
 
 
 def _stacked(tree: dict, n: int) -> dict:
@@ -82,9 +109,11 @@ def _stacked(tree: dict, n: int) -> dict:
             else ((n, *v[0]), *v[1:]) for k, v in tree.items()}
 
 
-def _ssm_shapes(cfg: ModelConfig) -> dict:
-    """The stacked Mamba-2 tree (the JAX ``ssm_model_specs``)."""
-    d, di, L = cfg.d_model, cfg.d_inner, cfg.num_layers
+def _ssm_shapes(cfg: ModelConfig, L: int) -> dict:
+    """The Mamba-2 tree stacked over ``L`` layers (the JAX
+    ``ssm_model_specs``; the hybrid's ``blocks`` over its padded
+    layers)."""
+    d, di = cfg.d_model, cfg.d_inner
     g, n, hh = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * g * n
     return {
@@ -171,12 +200,16 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
-    """SwiGLU ``(silu(x W_gate) * x W_up) W_down`` or squared ReLU
-    ``relu(x W_in)^2 W_down``."""
+    """SwiGLU ``(silu(x W_gate) * x W_up) W_down``, squared ReLU
+    ``relu(x W_in)^2 W_down`` or GELU ``gelu(x W_in) W_down``.  GELU is
+    the tanh approximation, the default of the reference's
+    ``jax.nn.gelu`` (torch's default is the exact erf form)."""
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     elif act == "squared_relu":
         h = torch.square(F.relu(x @ params["w_in"]))
+    elif act == "gelu":
+        h = F.gelu(x @ params["w_in"], approximate="tanh")
     else:
         raise NotImplementedError(f"mlp_act {act!r} is not ported")
     return h @ params["w_down"]

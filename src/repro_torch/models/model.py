@@ -1,5 +1,5 @@
-"""Model facade — the dense, moe and ssm branches of the JAX package's
-``Model``.
+"""Model facade — the dense, moe, ssm and hybrid branches of the JAX
+package's ``Model``.
 
     m = build_model(get_config("smollm-135m"), device="cuda")
     params = m.init(seed=0)
@@ -15,7 +15,12 @@
                                   paged_decode_split=...)
 
 The ssm family (Mamba-2) takes ``prefill_tiles=None`` (no attention to
-map) and ignores the decode step's block and page arguments.
+map) and ignores the decode step's block and page arguments.  The hybrid
+family (zamba2) takes both for its shared attention block; its
+whole-prompt prefill seeds only that block's K/V and leaves the ssm
+states and conv windows at zero, as the reference's does ("simplified:
+zeros", ``repro/models/model.py``), and its chunked prefill is the exact
+recurrence (its decode step over the prompt).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hw import resolve_device
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import init_params
@@ -59,10 +65,15 @@ class Model:
         """Zeroed K/V caches in ``cache_dtype`` (default: the model's
         dtype; the int8 pool passes ``torch.int8``).  ssm: the
         length-free state and conv window (``max_len`` and
-        ``cache_dtype`` unused)."""
+        ``cache_dtype`` unused); hybrid: the shared block's K/V per group
+        in ``cache_dtype`` beside the ssm state and conv window."""
         if self.cfg.family == "ssm":
             return ssm_mod.ssm_init_cache(self.cfg, batch, self.dtype,
                                           self.device)
+        if self.cfg.family == "hybrid":
+            return hybrid_mod.hybrid_init_cache(
+                self.cfg, batch, max_len, self.dtype, self.device,
+                cache_dtype=cache_dtype)
         return tf_mod.init_cache(self.cfg, batch, max_len,
                                  cache_dtype or self.dtype, self.device)
 
@@ -77,6 +88,16 @@ class Model:
                 params, tokens, self.cfg, return_cache=True)
             cache = {"state": state, "conv": conv.to(self.dtype),
                      "pos": tokens.shape[1]}
+        elif self.cfg.family == "hybrid":
+            logits, (k, v) = hybrid_mod.hybrid_forward(
+                params, tokens, self.cfg, prefill_tiles=prefill_tiles)
+            # the K/V of the shared block; the ssm state and conv window
+            # stay zero (the reference's "simplified: zeros")
+            cache = self.init_cache(tokens.shape[0], 0)
+            pad = (0, 0, 0, 0, 0, max_len - k.shape[2])
+            cache.update(k=torch.nn.functional.pad(k, pad).to(self.dtype),
+                         v=torch.nn.functional.pad(v, pad).to(self.dtype),
+                         pos=tokens.shape[1])
         else:
             logits, (k, v) = tf_mod.forward(params, tokens, self.cfg,
                                             prefill_tiles=prefill_tiles)
@@ -98,19 +119,32 @@ class Model:
         final chunk (attention needs no validity mask: padded queries
         are independent rows the caller discards).
 
-        ssm runs its own decode step over the chunk's first ``n_valid``
-        tokens (the exact recurrence; the reference scans all C steps
-        and masks the padded ones, which leave the cache as it was);
-        the padded positions' logits are zeros."""
-        if self.cfg.family == "ssm":
+        ssm and hybrid run their own decode step over the chunk's first
+        ``n_valid`` tokens (the exact recurrence; the reference scans all
+        C steps and masks the padded ones, which leave the cache as it
+        was); the padded positions' logits are zeros.  The hybrid's
+        step reads the row cache's K/V through the contiguous decode
+        kernel (a ``None`` block: planned for the row), where the
+        reference's step, given no ``decode_block``, runs the jnp
+        ``decode_attention_grouped`` of the same function."""
+        fam = self.cfg.family
+        if fam in ("ssm", "hybrid"):
             b, c = tokens.shape
             logits = torch.zeros((b, c, self.cfg.vocab_size),
                                  dtype=torch.float32, device=tokens.device)
+            start = int(cache["pos"])
             for i in range(int(n_valid)):
-                lg, cache = ssm_mod.ssm_decode(params, cache,
-                                               tokens[:, i:i + 1], self.cfg)
+                if fam == "ssm":
+                    lg, cache = ssm_mod.ssm_decode(
+                        params, cache, tokens[:, i:i + 1], self.cfg)
+                else:
+                    pos = torch.full((b,), start + i, dtype=torch.int32,
+                                     device=tokens.device)
+                    lg, cache = hybrid_mod.hybrid_decode(
+                        params, dict(cache, pos=pos), tokens[:, i:i + 1],
+                        self.cfg)
                 logits[:, i] = lg[:, 0]
-            return logits, cache
+            return logits, dict(cache, pos=start + int(n_valid))
         return tf_mod.chunk_prefill_step(params, cache, tokens, self.cfg,
                                          prefill_tiles=prefill_tiles)
 
@@ -130,10 +164,12 @@ class Model:
         ``decode_split``/``paged_decode_split`` are the router's split
         widths of the two sweeps (``None``: ``attention_decode`` plans
         AUTO).  ssm ignores all six: no attention sweep, no time axis to
-        page."""
+        page; hybrid passes them to its shared block's attention."""
         if self.cfg.family == "ssm":
             return ssm_mod.ssm_decode(params, cache, tokens, self.cfg)
-        return tf_mod.decode_step(
+        step = hybrid_mod.hybrid_decode if self.cfg.family == "hybrid" \
+            else tf_mod.decode_step
+        return step(
             params, cache, tokens, self.cfg, decode_block=decode_block,
             decode_split=decode_split, page_tables=page_tables,
             page_block=None if page_block is None else int(page_block),
@@ -144,10 +180,10 @@ class Model:
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     """The model on ``device`` (default "cuda"; raises when there is no
     CUDA device — pass device="cpu" for the plain versions)."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense "
-            f"(swiglu or squared_relu, qk-norm, tied or untied), moe and "
-            f"ssm, and hybrid, encdec, vlm and the geglu MLP come with "
+            f"(swiglu or squared_relu, qk-norm, tied or untied), moe, ssm "
+            f"and hybrid, and encdec, vlm and the geglu MLP come with "
             f"ROADMAP queue 1 item 9")
     return Model(cfg, resolve_device(device))

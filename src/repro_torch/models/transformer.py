@@ -15,8 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (attention_block, attention_decode,
                                           chunk_cache_write, out_proj,
-                                          paged_write_index, project_qkv,
-                                          row_write_index)
+                                          project_qkv, decode_write_index)
 from repro_torch.models.layers import (embed, mlp, rmsnorm, rope_tables,
                                        unembed)
 from repro_torch.models.moe import moe_mlp
@@ -129,11 +128,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     pos = cache["pos"]
     x = embed(params["embed"], tokens)
     cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    kv_len = cache["k"].shape[2]
-    if page_tables is not None:
-        index = paged_write_index(pos, page_tables, page_block, kv_len)
-    else:
-        index = row_write_index(pos, kv_len)
+    index = decode_write_index(pos, cache["k"].shape[2], page_tables,
+                               page_block)
     quant = "k_scale" in cache
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)

@@ -1,21 +1,27 @@
 """CacheAdapter — each served family's face of the ragged decode pool.
 
-The dense, moe and ssm subset of the JAX package's ``serve/adapters.py``.
-One generic ``FamilyCacheAdapter`` serves all three, because the families
-differ only in which cache keys carry a time axis (``length_keys``),
-whether prompt padding is safe (``prefill_buckets``) and whether a cached
-prompt prefix is complete context for another request
-(``shareable_prefix``):
-dense and moe keep K/V (L, slots, T, G, hd) — for the int8 pool with
-per-(physical block, KV group) scales — and a padded prompt is masked by
-each row's ``pos``; ssm keeps a length-free recurrent state and conv
-window, which padding would corrupt, so its prompts prefill at their
-exact length and it shares no prefix.  moe shares none either: capacity
-routing couples a token's deeper K/V to the other tokens routed with it,
-so a cached block is not what another request would compute (the
-reference excludes it for the same reason).  hybrid, encdec and vlm come
-with ROADMAP queue 1 item 9.  The engine keeps one cache dict for the
-pool plus a per-row ``pos`` vector, and needs four operations on it:
+The dense, moe, ssm and hybrid subset of the JAX package's
+``serve/adapters.py``.  One generic ``FamilyCacheAdapter`` serves all
+four, because the families differ only in which cache keys carry a time
+axis (``length_keys``), whether prompt padding is safe
+(``prefill_buckets``) and whether a cached prompt prefix is complete
+context for another request (``shareable_prefix``): dense and moe keep
+K/V (L, slots, T, G, hd) — for the int8 pool with per-(physical block,
+KV group) scales — and a padded prompt is masked by each row's ``pos``;
+ssm keeps a length-free recurrent state and conv window, which padding
+would corrupt, so its prompts prefill at their exact length and it
+shares no prefix.  moe shares none either: capacity routing couples a
+token's deeper K/V to the other tokens routed with it, so a cached block
+is not what another request would compute (the reference excludes it
+for the same reason).  hybrid keeps its shared block's K/V (n_groups,
+slots, T, G, hd) as the length keys beside a length-free ssm state and
+conv window per padded layer, which land shape-exact in the slot; its
+whole-prompt prefill leaves those at zero and its chunked prefill steps
+only the prompt's own tokens, so padding stays safe, and it shares no
+prefix: its recurrent state lives outside the blocks.  encdec and vlm
+come with ROADMAP queue 1 item 9.  The engine keeps one cache dict for
+the pool plus a per-row ``pos`` vector, and needs four operations on
+it:
 
   ``init_pool``    build the pool cache with a per-row ``pos`` vector
   ``prefill_len``  how long to pad a prompt before prefill
@@ -59,8 +65,8 @@ class FamilyCacheAdapter:
     #: True when the family's whole per-position sequence state lives in
     #: the paged K/V blocks, so a prompt prefix cached by one request is
     #: complete context for another (radix prefix sharing): dense only;
-    #: ssm carries its state outside any block, and moe's blocks depend
-    #: on the tokens routed beside them
+    #: ssm and hybrid carry a state outside any block, and moe's blocks
+    #: depend on the tokens routed beside them
     shareable_prefix: bool = False
 
     @property
@@ -210,6 +216,7 @@ ADAPTERS: dict[str, FamilyCacheAdapter] = {
     "dense": FamilyCacheAdapter("dense", shareable_prefix=True),
     "moe": FamilyCacheAdapter("moe"),
     "ssm": FamilyCacheAdapter("ssm", length_keys=(), prefill_buckets=False),
+    "hybrid": FamilyCacheAdapter("hybrid"),
 }
 
 
@@ -221,5 +228,5 @@ def get_adapter(family: str) -> FamilyCacheAdapter:
     except KeyError:
         raise NotImplementedError(
             f"no CacheAdapter for family {family!r}; the port serves "
-            f"{tuple(sorted(ADAPTERS))}, and hybrid, encdec and vlm come "
-            f"with ROADMAP queue 1 item 9") from None
+            f"{tuple(sorted(ADAPTERS))}, and encdec and vlm come with "
+            f"ROADMAP queue 1 item 9") from None

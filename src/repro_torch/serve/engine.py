@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine — the dense and ssm paths of the
-JAX package's ``serve/engine.py`` on PyTorch.
+"""Continuous-batching serving engine — the dense, moe, ssm and hybrid
+paths of the JAX package's ``serve/engine.py`` on PyTorch.
 
   * admitted requests prefill either whole (prompt padded to its bucket,
     true-last-token logits via ``Model.prefill(last_pos=...)``) or, by
@@ -20,7 +20,9 @@ JAX package's ``serve/engine.py`` on PyTorch.
   * an attention-free family (ssm, Mamba-2) keeps a length-free state
     per slot: its prompts prefill at their exact length, its chunked
     prefill keeps the configured width ("auto" is 32: there are no
-    flash tiles), and the pool's growth is block accounting only;
+    flash tiles), and the pool's growth is block accounting only; the
+    hybrid family (zamba2) pools its shared attention block's K/V per
+    group as dense pools a layer's, beside each slot's ssm state;
   * ``prefix_cache=True`` (``serve.radix``) shares prompt prefixes on
     the paged, chunked dense path: a request whose prompt begins with
     blocks another request wrote maps those physical blocks into the
@@ -479,7 +481,8 @@ class ServeEngine:
         prefill RESUMES mid-prompt, computing only the private suffix.
 
         A length-free row cache (ssm) keeps the configured chunk width;
-        a length-bound one clamps it to the row."""
+        a length-bound one (dense, moe, and hybrid, whose K/V grow with
+        the row) clamps it to the row."""
         pb = self.adapter.prefill_len(req.prompt_len,
                                       self.router.quantize_prompt)
         tiles = self._prefill_tiles(pb)

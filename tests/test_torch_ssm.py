@@ -209,7 +209,7 @@ def test_ssm_adapter_router_and_unported_families():
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         build_model(encdec, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        get_adapter("hybrid")
+        get_adapter("encdec")
 
 
 def test_cli_serves_mamba2_on_cpu(capsys):
