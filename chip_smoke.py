@@ -215,6 +215,37 @@ Phases, each printing one JSON line:
            last group's shared block (``teacher_run``, ``TEACHER_TOL``;
            ``hybrid_teacher`` lines), on ``HYBRID_REQUESTS`` seeded
            prompts of 16-160 tokens with ``HYBRID_NEW`` new tokens each;
+  encdec   whisper-medium (24 encoder and 24 decoder layers, 16 heads
+           over 16 KV heads at head_dim 64, a GELU MLP, tied, vocab
+           51865, 1,500 stub frames; weights drawn on the card): first
+           its kernel rows (``encdec_kernel_rows``, an ``encdec_kernels``
+           line): flash at G 16, R 1, D 64 causal at a 512 prompt,
+           non-causal 1,500 x 1,500 (the encoder) and 64 x 1,500 (the
+           prefill's cross-attention), row 4 over a full
+           1,500-position cross cache at 8 rows (``cross_case``), rows 1,
+           3 and 4 over ``decode_case``'s ragged lengths, rows 5 and 6 at
+           (8, 1024, 16, 64), each against its plain version in f32 and
+           bf16 and timed beside SDPA where one call computes it and its
+           bound; then in float32 cut to ``ENCDEC_FP32_LAYERS`` encoder
+           and decoder layers on each path of ``ENCDEC_FP32_RUNS`` (the
+           default options, whole-prompt since encdec cannot chunk;
+           contiguous, gather, int8, int8 with the gather), the kernels
+           against ``kernels.force("plain")`` (``kernel_plain``: identical
+           streams, first decode-step logits within 1e-3, nothing by
+           plain) with every kernel at its exact count
+           (``encdec_launches``: flash 3 call sites a request, a launch
+           a layer each; one row-4 cross read a layer a tick on every
+           path, beside the path's self-attention reads), and two rows of
+           one prompt with distinct seeded frames (``encdec_frames``:
+           kernels against plain and each row against its own batch-1
+           run within 1e-3, the rows apart); then in bf16 at full depth
+           on the default options with ``engine_run``'s gates, the exact
+           counts and the tick's bound (``encdec_tick_bound``), the tied
+           unembedding at vocab 51865 (``unembed_check``), teacher-forced
+           against plain with the planted fault at the last layer's
+           cross read (``WrongGroup`` on ``decode_attention``;
+           ``TEACHER_TOL``), on ``ENCDEC_REQUESTS`` seeded prompts of
+           16-160 tokens with ``ENCDEC_NEW`` new tokens each;
   retune   smollm-135m at full width, default chunked path, TUNED, the
            engine phase's params, the mix's first ``RETUNE_REQUESTS``
            requests, each run in a private tuning cache: untraced, traced
@@ -271,7 +302,7 @@ with ``tuned_ms`` beside AUTO's ``ms``; a suite row's ``launches``
 counts NAIVE, FIXED and AUTO over every case, and ``tuned_launches``
 TUNED's at its cases; a serving row's ``prefix_launches`` counts the
 prefix phase's runs; ``variants`` the added variants, each with the
-launches of the dense, moe or hybrid run that takes it), and as the
+launches of the dense, moe, hybrid or encdec run that takes it), and as the
 last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  It needs one CUDA device and exits
@@ -2908,9 +2939,11 @@ QWEN3_MOE_RUNS = {"qwen3_moe": "chunked", "qwen3_moe_int8": "int8",
 #: layers 0.358 sound, 1.107 with the fault; qwen3-moe's 4 layers
 #: 0.117-0.152 sound on its four paths, 6.10 with the fault; zamba2-7b's
 #: 9 layers chunked 0.109 sound, 1.965 with the fault at its last group's
-#: shared block, its 81 layers whole-prompt 0.257 and 0.744
+#: shared block, its 81 layers whole-prompt 0.257 and 0.744;
+#: whisper-medium's 24 + 24 layers 0.038 sound, 0.477 with the fault at
+#: its last layer's cross read
 TEACHER_TOL = {"deepseek-moe-16b": 0.6, "qwen3-moe-235b-a22b": 0.3,
-               "zamba2-7b": 0.45}
+               "zamba2-7b": 0.45, "whisper-medium": 0.15}
 
 
 class RouteSpy:
@@ -3070,22 +3103,24 @@ def attention_calls(cfg):
 
 
 class WrongGroup:
-    """While installed, one attention call's fused paged decode reads the
-    wrong KV group: at call ``layer`` of every tick's ``layers`` calls
-    (``attention_calls``: a layer each, or the hybrid's shared block once
-    a group) the queries are rolled one group along before the kernel and
-    its output rolled back, so group g attends over group g - 1's keys
-    and values.  A planted fault the teacher-forced bound must see
-    (``faulted``: the calls it changed)."""
+    """While installed, one attention call's decode read takes the wrong
+    KV group: at call ``layer`` of every tick's ``layers`` calls of the
+    wrapper ``fn`` as ``models.attention`` names it (the fused paged
+    decode by default, one call a layer or, for the hybrid, its shared
+    block's once a group, ``attention_calls``; whisper's cross read, the
+    contiguous decode once a layer) the queries are rolled one group
+    along before the kernel and its output rolled back, so group g
+    attends over group g - 1's keys and values.  A planted fault the
+    teacher-forced bound must see (``faulted``: the calls it changed)."""
 
-    def __init__(self, layers, layer):
-        self.layers, self.layer = layers, layer
+    def __init__(self, layers, layer, fn="paged_decode_attention"):
+        self.layers, self.layer, self.name = layers, layer, fn
         self.calls = self.faulted = 0
 
     def __enter__(self):
         from repro_torch.models import attention
 
-        self._mod, self._fn = attention, attention.paged_decode_attention
+        self._mod, self._fn = attention, getattr(attention, self.name)
 
         def decode(q, *a, **kw):
             i, self.calls = self.calls, self.calls + 1
@@ -3094,11 +3129,11 @@ class WrongGroup:
             self.faulted += 1
             return self._fn(q.roll(1, 1), *a, **kw).roll(-1, 1)
 
-        attention.paged_decode_attention = decode
+        setattr(attention, self.name, decode)
         return self
 
     def __exit__(self, *exc):
-        self._mod.paged_decode_attention = self._fn
+        setattr(self._mod, self.name, self._fn)
 
 
 def teacher_run(label, engine, reqs, outs, tol, fault=False, phase="moe"):
@@ -3108,7 +3143,8 @@ def teacher_run(label, engine, reqs, outs, tol, fault=False, phase="moe"):
     (``TeacherForce``), for a moe model the kernel run's routing counts
     (``RouteSpy``); with ``fault``, a third run on the kernels with the
     tick's last attention call reading the wrong KV group
-    (``WrongGroup``).  Gates: plain launches nothing; every step's logits
+    (``WrongGroup``; ``fault`` may instead be a function of the config
+    that returns the ``WrongGroup`` to plant).  Gates: plain launches nothing; every step's logits
     within ``tol`` of plain's and the greedy picks equal wherever plain's
     top-2 margin exceeds ``tol``; the fault's logits more than ``tol``
     from plain's.  Prints a ``{phase}_teacher`` line; returns its
@@ -3123,7 +3159,9 @@ def teacher_run(label, engine, reqs, outs, tol, fault=False, phase="moe"):
         recs[mode] = TeacherForce(eng, force)
         if mode == "kernel" and eng.cfg.family == "moe":
             spy = RouteSpy()
-        if mode == "fault":
+        if mode == "fault" and callable(fault):
+            planted = fault(eng.cfg)
+        elif mode == "fault":
             calls = attention_calls(eng.cfg)
             planted = WrongGroup(calls, calls - 1)
         ctx = {"kernel": spy, "fault": planted}.get(mode)
@@ -3430,6 +3468,326 @@ def hybrid_phase(device, hw, timer, cfg):
             phase="hybrid")
         del params
         free_cuda()
+    return runs, rows
+
+
+# --------------------------------------------------------------------------- #
+# encdec: whisper-medium at full width
+# --------------------------------------------------------------------------- #
+
+#: whisper-medium's attention heads: 16 KV heads of one query head each,
+#: head_dim 64 (the decoder's self-attention, the encoder's and the
+#: cross-attention's alike)
+WHISPER_HEADS = (16, 1, 64)
+#: the stub frames a request's encoder takes: the cross cache's length
+WHISPER_FRAMES = 1500
+#: the float32 runs' depth: 4 encoder and 4 decoder layers of the 24 each
+#: (0.18 B parameters with the embedding, 0.7 GB in float32).  The plain
+#: runs' cross read sweeps 1,500 positions in 16-position windows of torch
+#: ops (94 a layer a tick), and their encoder 1,500 x 1,500 in tiles, so
+#: depth is what the plain runs pay for
+ENCDEC_FP32_LAYERS = 4
+#: the phase's requests: seeded prompts of 16-160 tokens, 8 new tokens
+#: each.  The plain runs pay most of the phase's time, a request's
+#: encoder (~0.3 s a layer for plain flash at 1,500 x 1,500) and its
+#: ticks (~57 ms a layer for the plain cross read at 8 slots), read on
+#: an H100 80GB HBM3 at 700 W: with 4 requests the phase took ~120 s
+ENCDEC_REQUESTS = 3
+ENCDEC_PROMPT = (16, 160)
+ENCDEC_NEW = 8
+#: the float32 runs, kernels against ``force("plain")``: label -> the
+#: ``ENGINE_RUNS`` path ("chunked" is the engine's default options, chunk
+#: "auto", which encdec serves whole: it cannot chunk)
+ENCDEC_FP32_RUNS = {"whisper_fp32": "chunked",
+                    "whisper_fp32_contiguous": "contiguous",
+                    "whisper_fp32_gather": "gather",
+                    "whisper_fp32_int8": "int8",
+                    "whisper_fp32_int8_gather": "int8_gather"}
+#: a decode tick's launches a decoder layer on each path: the
+#: self-attention's read (the fused paged sweep, or a gather of K and V
+#: then the contiguous sweep, or the contiguous sweep over the slot rows)
+#: and the cross read, one ``decode_attention`` a layer on every path
+ENCDEC_DECODE_READS = {
+    "chunked": {"paged_decode_attention": 1, "decode_attention": 1},
+    "contiguous": {"decode_attention": 2},
+    "gather": {"paged_gather": 2, "decode_attention": 2},
+    "int8": {"paged_decode_attention_int8": 1, "decode_attention": 1},
+    "int8_gather": {"paged_dequant_gather": 2, "decode_attention": 2}}
+
+
+def encdec_launches(cfg, path, requests, ticks):
+    """The exact launches of one whisper run: flash at three call sites a
+    request, a launch a layer each (the encoder's self-attention, the
+    prefill's cross-attention, the decoder's self-attention), the path's
+    decode reads a layer a tick (``ENCDEC_DECODE_READS``), every other
+    kernel none."""
+    out = {"flash_attention": requests * (cfg.encoder_layers
+                                          + 2 * cfg.num_layers)}
+    for k, n in ENCDEC_DECODE_READS[path].items():
+        out[k] = n * cfg.num_layers * ticks
+    return out
+
+
+def check_exact_launches(label, launches, expected):
+    """Each kernel launched exactly its ``expected`` count (0 if absent)."""
+    for k, n in launches.items():
+        if n != expected.get(k, 0):
+            raise AssertionError(f"{label}: {k} launched {n} times, "
+                                 f"expected {expected.get(k, 0)}")
+
+
+def cross_case(device, dtype, hw):
+    """Row 4 over a full cross cache: 8 rows of 1,500 positions at
+    whisper's heads, every ``cache_len`` 1500 (the sweep stops inside its
+    last ``block_s`` window), at the plan the model's cross read takes
+    (``models.encdec.cross_decode_plan``)."""
+    from repro_torch.models.encdec import cross_decode_plan
+
+    b, t = 8, WHISPER_FRAMES
+    g, r, d = WHISPER_HEADS
+    bs, w = cross_decode_plan(t, b * g, d, r, hw)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    return dict(q=rand(b, g, r, d), k_cache=rand(b, t, g, d),
+                v_cache=rand(b, t, g, d),
+                cache_len=torch.full((b,), t, dtype=torch.int32,
+                                     device=device), block_s=bs, split=w)
+
+
+def encdec_kernel_rows(cfg, hw, device, timer):
+    """The serving kernels at whisper-medium's heads (G 16, R 1, D 64),
+    each against its plain version in f32 and bf16 and timed in bf16
+    beside its bound (and SDPA where one call computes it): flash causal
+    at a 512 prompt, non-causal 1,500 x 1,500 (the encoder) and 64 x
+    1,500 (the prefill's
+    cross-attention); row 4 over a full 1,500-position cross cache at 8
+    rows (``cross_case``); rows 1, 3 and 4 over ``decode_case``'s ragged
+    lengths; rows 5 and 6 over (8, 1024, 16, 64).  Each case names the
+    encdec run whose launches it reports."""
+    from repro_torch.core.mapper import plan_attention_blocks
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.kernels.paged_gather import (paged_dequant_gather,
+                                                  paged_gather)
+
+    def measure(*args, **kw):
+        return measure_kernel(hw, timer, *args, **kw)
+
+    g, r, d = WHISPER_HEADS
+    rows = {name: [] for name in SERVING_KERNELS}
+    for label, sq, sk, causal, dtypes, run in (
+            ("prompt 512", 512, 512, True, (F32, BF16), "whisper_bf16"),
+            ("encoder 1500", WHISPER_FRAMES, WHISPER_FRAMES, False,
+             (F32, BF16), "whisper_bf16"),
+            ("cross 64 x 1500", 64, WHISPER_FRAMES, False, (F32, BF16),
+             "whisper_bf16")):
+        p = plan_attention_blocks(sq, sk, d, hw)
+        tiles = (p.block_q, p.block_k)
+        entry = measure("flash_attention", flash_attention,
+                        lambda dt: flash_case(cfg, sq, sk, 0, tiles, device,
+                                              dt, causal=causal,
+                                              heads=WHISPER_HEADS),
+                        flash_bound, sdpa_call, dtypes=dtypes)
+        rows["flash_attention"].append(dict(
+            shape=f"whisper {label}: G {g}, R {r}, head_dim {d}, {sq} "
+                  f"queries over {sk} keys, "
+                  f"{'causal' if causal else 'non-causal'}, tiles {tiles}",
+            variant=f"whisper {label}", run=run, **entry))
+    entry = measure("decode_attention", decode_attention,
+                    lambda dt: cross_case(device, dt, hw), decode_bound,
+                    sdpa_decode_call, head_start=True)
+    c = cross_case(device, BF16, hw)
+    rows["decode_attention"].append(dict(
+        shape=f"whisper cross: 8 rows, G {g}, R {r}, D {d}, "
+              f"{WHISPER_FRAMES} positions each, every row full",
+        variant="whisper cross 1500", run="whisper_bf16",
+        plan=dict(block_s=c["block_s"], split=c["split"],
+                  grid=list(decode_attention.last_grid)), **entry))
+    for name, fn, quant, contiguous, run in (
+            ("paged_decode_attention", paged_decode_attention, False, False,
+             "whisper_bf16"),
+            ("paged_decode_attention_int8", paged_decode_attention, True,
+             False, "whisper_fp32_int8"),
+            ("decode_attention", decode_attention, False, True,
+             "whisper_fp32_contiguous")):
+        rows[name].append(decode_variant(measure, timer, cfg, hw, device,
+                                         name, fn, WHISPER_HEADS, quant,
+                                         contiguous, run))
+    for name, fn, quant, run in (
+            ("paged_gather", paged_gather, False, "whisper_fp32_gather"),
+            ("paged_dequant_gather", paged_dequant_gather, True,
+             "whisper_fp32_int8_gather")):
+        rows[name].append(gather_variant(measure, device, name, fn, quant,
+                                         WHISPER_HEADS, run))
+    return rows
+
+
+def distinct_frames_check(cfg, params, device, hw):
+    """The model with distinct seeded frames for two rows of one prompt
+    (float32): one batch-2 prefill and 3 decode steps from its row cache
+    (the contiguous reads, a vector ``pos``, the same seeded tokens fed
+    to every run) on the kernels, against ``force("plain")`` and against
+    each row's own batch-1 run on the kernels.  The engine's frames are
+    zeros, so every request's cross K/V are equal there and a slot
+    mix-up in ck/cv cannot show in its streams; here the rows differ
+    only by their frames.  Gates: every step's logits within 1e-3 of
+    plain and of the row's own run; the two rows' logits apart."""
+    from repro_torch import kernels
+    from repro_torch.core.mapper import plan_attention_blocks
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    frames = torch.randn((2, cfg.encoder_tokens, cfg.d_model), generator=gen,
+                         device=device)
+    rng = np.random.default_rng(SEED + 8)
+    prompt = rng.integers(1, cfg.vocab_size, size=64)
+    feed = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(3, 1))).to(
+        device)
+    p = plan_attention_blocks(64, 64, cfg.head_dim, hw)
+    counters = launch_counters()
+
+    def run(rows, mode):
+        b = len(rows)
+        toks = torch.from_numpy(np.tile(prompt, (b, 1))).to(device)
+        with kernels.force(mode):
+            logits, cache = model.prefill(params, toks, 128,
+                                          prefill_tiles=(p.block_q,
+                                                         p.block_k),
+                                          frames=frames[rows])
+            cache["pos"] = torch.full((b,), 64, dtype=torch.int32,
+                                      device=device)
+            out = [logits[:, -1]]
+            for i in range(feed.shape[0]):
+                logits, cache = model.decode_step(params, cache,
+                                                  feed[i].expand(b, 1))
+                out.append(logits[:, 0])
+        return torch.stack(out, 1), cache
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    both, cache = run([0, 1], "kernel")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    plain, _ = run([0, 1], "plain")
+    alone = torch.cat([run([i], "kernel")[0] for i in (0, 1)])
+    reading = dict(
+        layers=cfg.num_layers, steps=both.shape[1],
+        plain_max_abs_err=float((both - plain).abs().max()),
+        alone_max_abs_err=float((both - alone).abs().max()),
+        rows_apart=float((both[0] - both[1]).abs().max()),
+        cross_rows_apart=float((cache["ck"][:, 0]
+                                - cache["ck"][:, 1]).abs().max()),
+        launches=launches)
+    emit("encdec_frames", **reading)
+    if reading["plain_max_abs_err"] > 1e-3 \
+            or reading["alone_max_abs_err"] > 1e-3:
+        raise AssertionError(f"distinct frames: {reading}")
+    if reading["rows_apart"] < 1e-2 or reading["cross_rows_apart"] == 0:
+        raise AssertionError(f"distinct frames gave equal rows: {reading}")
+    return reading
+
+
+def encdec_tick_bound(params, cfg, reqs, hw):
+    """Bytes a decode tick must read: every decoder weight it uses once
+    (the tied token table once, by the unembedding; not the encoder's,
+    nor the cross-attention's K and V projections, whose outputs are
+    cached), and the live rows' cross K/V (every request live, 1,500
+    positions a layer) and self K/V (each at its prompt plus half its
+    new tokens, the run's mean); and the time at the card's memory
+    rate.  The kernels read every slot's cross cache, dead slots'
+    too."""
+    dec = params["dec_blocks"]
+    weights = tree_bytes(dec) - tree_bytes(
+        {k: dec["cross"][k] for k in ("wk", "wv")}) \
+        + tree_bytes(params["embed"]) + tree_bytes({"f": params["ln_f"]})
+    es = params["ln_f"].element_size()
+    kv_row = cfg.num_layers * max(cfg.num_kv_heads, 1) * cfg.head_dim * 2 \
+        * es
+    cross = len(reqs) * cfg.encoder_tokens * kv_row
+    self_kv = int(sum(len(p) + m / 2 for p, m in reqs) * kv_row)
+    total = weights + cross + self_kv
+    return dict(tick_bytes=total, weight_bytes=weights, cross_bytes=cross,
+                self_kv_bytes=self_kv, tick_bound_ms=total / hw.mem_bw * 1e3)
+
+
+def encdec_phase(device, hw, timer, cfg):
+    """whisper-medium at full width: its kernel rows
+    (``encdec_kernel_rows``); in float32 cut to ``ENCDEC_FP32_LAYERS``
+    encoder and decoder layers on each path of ``ENCDEC_FP32_RUNS``,
+    kernels against ``force("plain")`` (``kernel_plain``: identical
+    streams, first decode-step logits within 1e-3, each kernel at its
+    exact count, ``encdec_launches``, nothing by plain), and the
+    distinct-frames check (``distinct_frames_check``); in bf16 at full
+    depth on the engine's default options with ``engine_run``'s gates,
+    the exact counts and the tick's bound (``encdec_tick_bound``), its
+    unembedding (``unembed_check``), then teacher-forced against plain
+    with the planted fault at the last layer's cross read (``teacher_run``,
+    ``TEACHER_TOL``), on ``ENCDEC_REQUESTS`` seeded prompts of 16-160
+    tokens with ``ENCDEC_NEW`` new tokens each.  Returns the runs and the
+    kernel rows; each model is freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+
+    rows = encdec_kernel_rows(cfg, hw, device, timer)
+    emit("encdec_kernels", card=nvidia_smi(), results=rows)
+    whisper = get_config("whisper-medium")
+    ereqs = requests(ENCDEC_REQUESTS, *ENCDEC_PROMPT, ENCDEC_NEW,
+                     whisper.vocab_size, SEED + 4)
+    if len({tuple(p) for p, _ in ereqs}) != len(ereqs):
+        raise AssertionError("the teacher-forced runs key steps by prompt")
+    runs = {}
+    f32 = dataclasses.replace(whisper, dtype="float32",
+                              num_layers=ENCDEC_FP32_LAYERS,
+                              encoder_layers=ENCDEC_FP32_LAYERS)
+    params, init_s = draw_weights(f32, device)
+    for label, path in ENCDEC_FP32_RUNS.items():
+        opts, chunk, _ = ENGINE_RUNS[path]
+        reading, modes = kernel_plain(
+            lambda: ServeEngine(f32, slots=8, max_len=1024,
+                                prefill_chunk=chunk, params=params,
+                                seed=SEED, device=device, **opts), ereqs)
+        ticks = modes["kernel"][0].summary.decode_steps
+        expected = encdec_launches(f32, path, len(ereqs), ticks)
+        runs[label] = dict(arch=f32.name, dtype="float32", path=path,
+                           layers=f32.num_layers, init_s=init_s,
+                           decode_ticks=ticks, expected_launches=expected,
+                           **reading)
+        emit("encdec", run=label, **runs[label])
+        check_kernel_plain(label, reading, set(expected))
+        check_exact_launches(label, reading["launches"], expected)
+    runs["whisper_frames"] = distinct_frames_check(f32, params, device, hw)
+    del params
+    free_cuda()
+
+    params, init_s = draw_weights(whisper, device)
+    unembed_check("whisper_bf16", params, device)
+    bound = encdec_tick_bound(params, whisper, ereqs, hw)
+    opts, chunk, _ = ENGINE_RUNS["chunked"]
+
+    def engine():
+        return ServeEngine(whisper, slots=8, max_len=1024,
+                           prefill_chunk=chunk, params=params, seed=SEED,
+                           device=device, **opts)
+
+    keys = {"flash_attention", *ENCDEC_DECODE_READS["chunked"]}
+    run, outs = engine_run("whisper_bf16", engine(), ereqs, opts, keys,
+                           phase="encdec",
+                           extra=lambda: {"init_s": init_s, **bound})
+    check_exact_launches("whisper_bf16", run["launches"], encdec_launches(
+        whisper, "chunked", len(ereqs), run["decode_ticks"]))
+    last = whisper.num_layers - 1
+    run["teacher"] = teacher_run(
+        "whisper_bf16", engine, ereqs, outs, TEACHER_TOL[whisper.name],
+        fault=lambda c: WrongGroup(c.num_layers, last, "decode_attention"),
+        phase="encdec")
+    runs["whisper_bf16"] = run
+    del params
+    free_cuda()
     return runs, rows
 
 
@@ -4059,6 +4417,8 @@ def main() -> int:
         moe = timed("moe", moe_phase, device, reqs, hw)
         hybrid, hybrid_rows = timed("hybrid", hybrid_phase, device, hw,
                                     timer, cfg)
+        encdec, encdec_rows = timed("encdec", encdec_phase, device, hw,
+                                    timer, cfg)
         timed("retune", retune_phase, device, params, reqs, tmp)
         prefix_runs = timed("prefix", prefix_phase, device,
                             params["smollm-135m"])
@@ -4068,8 +4428,9 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("timing", seconds=phase_s)
 
-    for name, cases in hybrid_rows.items():
-        kres[name] += cases
+    for rows in (hybrid_rows, encdec_rows):
+        for name, cases in rows.items():
+            kres[name] += cases
     summary = []
     for name, cases in kres.items():
         main_case = cases[0]
@@ -4096,8 +4457,8 @@ def main() -> int:
                                tuned_plan=tuned["tuned"],
                                seed_ms=tuned["seed_ms"],
                                tuned_ms=tuned["tuned_ms"])
-        # the dense, moe and hybrid phases' variants: each case's numbers
-        # and the launches of the run that takes it (0: none does)
+        # the dense, moe, hybrid and encdec phases' variants: each case's
+        # numbers and the launches of the run that takes it (0: none does)
         summary[-1]["variants"] = [{
             "variant": c["variant"], "shape": c["shape"],
             "dtype": c["timed_dtype"], "max_abs_err": c["max_abs_err"],
@@ -4106,8 +4467,8 @@ def main() -> int:
             "bound_by": c["bound_by"], "plan": c.get("plan"),
             "split_sweep_ms": c.get("split_sweep_ms"),
             "run": c["run"],
-            "launches": ({**dense, **moe, **hybrid}[c["run"]]["launches"][
-                name] if c["run"] else 0)}
+            "launches": ({**dense, **moe, **hybrid, **encdec}[c["run"]][
+                "launches"][name] if c["run"] else 0)}
             for c in cases if "variant" in c]
         if name in ("paged_gather", "paged_dequant_gather"):
             # the large case and one page (the launch's floor)

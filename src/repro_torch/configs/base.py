@@ -2,8 +2,9 @@
 
 A trimmed copy of the JAX package's ``configs/base.py``: only the fields
 the served families read (dense, with qk-norm and untied embeddings, moe,
-ssm and hybrid).  ``window``, ``local_global_ratio``, the encdec and vlm
-fields and ``skip_shapes`` (the port has no ``SHAPES``) stay out.
+ssm, hybrid and encdec).  ``window``, ``local_global_ratio`` (gemma3's
+window masks), ``prefix_tokens`` (vlm) and ``skip_shapes`` (the port has
+no ``SHAPES``) stay out: they come with ROADMAP queue 1 items 9b and 9c.
 The port keeps its own copy so it imports nothing of the JAX package.
 ``reduced()`` yields the scaled-down variant the CPU tests run.
 """
@@ -20,8 +21,9 @@ __all__ = ["ModelConfig", "register", "get_config", "list_configs"]
 class ModelConfig:
     name: str
     family: str                      # dense (swiglu or squared_relu, tied
-                                     # or not) | moe | ssm | hybrid served;
-                                     # encdec, vlm: ROADMAP queue 1 item 9
+                                     # or not) | moe | ssm | hybrid |
+                                     # encdec served; vlm: ROADMAP queue 1
+                                     # item 9c
     num_layers: int
     d_model: int
     num_heads: int
@@ -48,6 +50,10 @@ class ModelConfig:
 
     # hybrid (zamba2): one *shared* attention block applied every k layers
     hybrid_attn_every: int = 0
+
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_tokens: int = 0          # stub frame count (1500 for whisper)
 
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -107,7 +113,13 @@ class ModelConfig:
             )
             shared = attn + 3 * d * self.d_ff + 2 * d
             return float(self.num_layers * mamba_layer + shared + emb)
-        return float(self.num_layers * per_layer + emb + d)
+        total = self.num_layers * per_layer
+        if self.family == "encdec":
+            # encoder layers: self-attention and MLP; the decoder adds a
+            # cross-attention block a layer
+            total += self.encoder_layers * (attn + mlp + 2 * d) \
+                + self.num_layers * attn
+        return float(total + emb + d)
 
     def n_params_active(self) -> float:
         """Active params per token (moe: the routed top-k and the shared
@@ -121,7 +133,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family and topology, tiny dims (the
         same numbers as the JAX package's ``reduced()`` for the served
-        families: 2 layers, or 4 with a shared attention block every 2)."""
+        families: 2 layers, or 4 with a shared attention block every 2;
+        encdec 2 encoder layers over 24 frames)."""
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
@@ -140,6 +153,8 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16),
             ssm_head_dim=16,
             hybrid_attn_every=min(self.hybrid_attn_every, 2),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_tokens=min(self.encoder_tokens, 24),
         )
 
 

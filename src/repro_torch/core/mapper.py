@@ -186,7 +186,7 @@ __all__ = ["MappingPolicy", "Regime", "resolve_lws", "classify_regime",
            "plan_nn", "nn_plan_for_block", "nn_smem_bytes",
            "nn_step_bytes",
            "GcnPlan", "plan_gcn", "gcn_plan_for_block", "AttentionPlan",
-           "plan_attention_blocks",
+           "plan_attention_blocks", "plan_encdec_tiles",
            "attention_plan_for_blocks", "flash_smem_bytes",
            "flash_f32_lanes",
            "decode_smem_bytes", "decode_block_for", "plan_cache_block",
@@ -786,6 +786,24 @@ def plan_attention_blocks(seq_q: int, seq_k: int, head_dim: int,
     return attention_plan_for_blocks(seq_q, seq_k, head_dim, hw,
                                      resolve_lws(seq_q, hw.sm_count),
                                      MAX_BLOCK_K)
+
+
+def plan_encdec_tiles(prompt_len: int, encoder_tokens: int, head_dim: int,
+                      hw: GpuParams) -> tuple[tuple, tuple]:
+    """The flash tiles of an encoder-decoder prefill's two non-causal
+    sweeps, which the serving router does not key (its prefill tiles are
+    the decoder's causal self-attention at the prompt bucket): the
+    encoder's self-attention, ``encoder_tokens`` queries over as many
+    keys, and the decoder's cross-attention, ``prompt_len`` queries over
+    the ``encoder_tokens`` encoder positions; each
+    ``plan_attention_blocks``'s Eq. 1 tiles.  Flash has that one rule
+    under every policy (the tuner's seed for it too; only TUNED refines
+    the router's own flash plans), so these are the engine's tiles
+    whatever its policy.  Returns ((block_q, block_k) of the encoder,
+    (block_q, block_k) of the cross-attention)."""
+    enc = plan_attention_blocks(encoder_tokens, encoder_tokens, head_dim, hw)
+    cross = plan_attention_blocks(prompt_len, encoder_tokens, head_dim, hw)
+    return (enc.block_q, enc.block_k), (cross.block_q, cross.block_k)
 
 
 def attention_plan_for_blocks(seq_q: int, seq_k: int, head_dim: int,

@@ -6,7 +6,7 @@
 
 ``--arch`` takes any registered config (``repro_torch.configs``:
 smollm-135m, qwen3-8b, nemotron-4-340b, deepseek-moe-16b,
-qwen3-moe-235b-a22b, mamba2-1.3b, zamba2-7b).
+qwen3-moe-235b-a22b, mamba2-1.3b, zamba2-7b, whisper-medium).
 
 Runs on the CUDA device by default and raises without one;
 ``--device cpu`` runs the kernels' plain versions (reduced width is the
@@ -79,7 +79,7 @@ def main(argv=None) -> dict:
                          "share a leading token run map the same physical "
                          "KV blocks and resume prefill mid-prompt; engages "
                          "on the paged, chunked dense path, a no-op "
-                         "elsewhere (moe, ssm and hybrid included)")
+                         "elsewhere (moe, ssm, hybrid and encdec included)")
     ap.add_argument("--shared-prefix", type=int, metavar="N", default=0,
                     help="give 90%% of the requests one common N-token "
                          "preamble (0: independent prompts)")

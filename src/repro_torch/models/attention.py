@@ -18,6 +18,15 @@ sweep's ``block_s`` is planned here (``plan_cache_block`` under AUTO for
 the tensors' device), and a sweep given no split width gets AUTO's
 (``plan_decode_split``), so every read goes through a kernel wrapper.
 
+The encoder-decoder family (whisper) adds non-causal attention with no
+RoPE: the encoder's self-attention (``attention_block(causal=False,
+cos=None)``, flash) and the decoder's cross-attention over the encoder's
+K/V (``cross_kv``), at prefill flash with ``causal=False`` over the
+encoder's positions (``cross_attention``) and at decode the contiguous
+sweep over the static per-row cross cache, every row at its full length
+(``cross_attention_decode``).  The reference runs the jnp
+``chunked_attention`` there; both kernels compute that function.
+
 The KV pool is updated IN PLACE (``index_put_`` on flat views, slice
 assignment on row caches) where the JAX package rebuilds it
 functionally; every such write says so.
@@ -43,14 +52,17 @@ from repro_torch.models.layers import apply_rope, rmsnorm
 __all__ = ["project_qkv", "attention_block", "paged_write_index",
            "row_write_index", "decode_write_index", "cache_write",
            "paged_quant_write", "chunk_cache_write", "attention_decode",
-           "out_proj"]
+           "out_proj", "cross_kv", "cross_attention",
+           "cross_attention_decode"]
 
 
-def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin):
+def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos=None,
+                sin=None):
     """Project into the grouped layout: q (B, S, G, R, D), k/v
     (B, S, G, D), q and k RMS-normed over head_dim when ``cfg.qk_norm``,
-    then rope applied, all contiguous.  Every path projects here:
-    prefill, prefill chunks (a radix resume's too) and decode."""
+    then rope applied (none when ``cos`` is None: whisper's encoder), all
+    contiguous.  Every path projects here: prefill, prefill chunks (a
+    radix resume's too) and decode."""
     b, s, _ = x.shape
     g = max(cfg.num_kv_heads, 1)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
@@ -59,8 +71,9 @@ def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin):
     if cfg.qk_norm:          # over head_dim, before RoPE (qwen3)
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q = q.reshape(b, s, g, cfg.heads_per_group, cfg.head_dim)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
@@ -73,13 +86,64 @@ def out_proj(params: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                    cos, sin, prefill_tiles: tuple):
-    """Whole-prompt causal attention at the mapper's ``prefill_tiles``
-    (block_q, block_k); returns (out (B, S, D), (k, v))."""
+                    cos=None, sin=None, prefill_tiles: tuple,
+                    causal: bool = True):
+    """Whole-prompt attention, causal unless ``causal=False`` (whisper's
+    encoder), at the mapper's ``prefill_tiles`` (block_q, block_k), RoPE
+    from ``cos``/``sin`` (none when None); returns (out (B, S, D),
+    (k, v))."""
     q, k, v = project_qkv(params, x, cfg, cos, sin)
     bq, bk = prefill_tiles
-    o = flash_attention(q, k, v, block_q=bq, block_k=bk, q_offset=0)
+    o = flash_attention(q, k, v, block_q=bq, block_k=bk, q_offset=0,
+                        causal=causal)
     return out_proj(params, o, cfg), (k, v)
+
+
+def cross_kv(params: dict, enc: torch.Tensor):
+    """A decoder layer's cross-attention K/V over the encoder states
+    ``enc`` (B, T, d): each (B, T, G, D), contiguous, no RoPE (the
+    reference's ``_cross_kv``)."""
+    k = torch.einsum("btd,dgk->btgk", enc, params["wk"])
+    v = torch.einsum("btd,dgk->btgk", enc, params["wv"])
+    return k.contiguous(), v.contiguous()
+
+
+def _cross_q(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The cross-attention's queries (B, S, G, R, D), contiguous: no
+    RoPE, no qk-norm."""
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    return q.reshape(b, s, max(cfg.num_kv_heads, 1), cfg.heads_per_group,
+                     cfg.head_dim).contiguous()
+
+
+def cross_attention(params: dict, x: torch.Tensor, ck: torch.Tensor,
+                    cv: torch.Tensor, cfg: ModelConfig, *,
+                    tiles: tuple) -> torch.Tensor:
+    """Prefill cross-attention: x (B, S, d) attends to every one of the
+    encoder's T positions in ``ck``/``cv`` (B, T, G, D) through flash
+    with ``causal=False`` at ``tiles`` (block_q, block_k); returns
+    (B, S, d)."""
+    q = _cross_q(params, x, cfg)
+    o = flash_attention(q, ck, cv, block_q=tiles[0], block_k=tiles[1],
+                        q_offset=0, causal=False)
+    return out_proj(params, o, cfg)
+
+
+def cross_attention_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, cfg: ModelConfig, *,
+                           cache_len: torch.Tensor, block_s: int,
+                           split: int) -> torch.Tensor:
+    """Decode cross-attention: each row's one query x (B, 1, d) over its
+    static cross cache ``ck``/``cv`` (B, T, G, D; contiguous, as a layer
+    of the pool's (L, slots, T, G, D) is) through the contiguous decode
+    sweep, ``cache_len`` (B,) int32 at T for every row and the sweep's
+    ``block_s`` and ``split`` planned once a step by the caller; returns
+    (B, 1, d)."""
+    q = _cross_q(params, x, cfg)[:, 0]
+    o = decode_attention(q, ck, cv, cache_len, block_s=int(block_s),
+                         split=int(split))
+    return out_proj(params, o[:, None], cfg)
 
 
 def paged_write_index(pos: torch.Tensor, page_tables: torch.Tensor,

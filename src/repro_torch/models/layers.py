@@ -20,7 +20,11 @@ and for the ssm family (Mamba-2) ``blocks.ln (L, D)`` and ``blocks.ssm``
 hybrid family (zamba2) the same ``blocks`` stacked over the padded
 layers (``models.hybrid.padded_layers``) beside one unstacked
 ``shared.{ln1 (D,), attn, ln2 (D,), mlp}`` block (the attention and MLP
-shapes above without the layer axis),
+shapes above without the layer axis); for the encdec family (whisper)
+``enc_blocks.{ln1, attn, ln2, mlp}`` stacked over ``encoder_layers``,
+``enc_ln_f (D,)``, ``dec_blocks.{ln1, attn, ln2, mlp, ln_x, cross}``
+stacked over ``num_layers`` (``cross`` an attention's projections) and
+``ln_f``, beside the tied ``embed.tok``,
 
 so ``weights.params_from_jax`` is a plain conversion and the tests hold
 the port against the reference on the same weights.
@@ -43,15 +47,19 @@ def param_shapes(cfg: ModelConfig) -> dict:
     "normal", "zeros" or "ones", ``scale`` None means min(0.02,
     fan_in^-0.5).  The keys are the JAX package's (``embed_specs``,
     ``attention_specs``, ``mlp_specs``, ``moe_specs``)."""
-    served = (cfg.family in ("ssm", "hybrid") and cfg.tie_embeddings) or (
+    served = (cfg.family in ("ssm", "hybrid", "encdec")
+              and cfg.tie_embeddings) or (
         cfg.family == "dense" and cfg.mlp_act in ("swiglu", "squared_relu")
     ) or cfg.family == "moe"
     if not served:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family (swiglu or "
             f"squared_relu, tied or untied), the moe family and the tied "
-            f"ssm and hybrid families; geglu, encdec and vlm come with "
-            f"ROADMAP queue 1 item 9")
+            f"ssm, hybrid and encdec families; the geglu MLP, the window "
+            f"and prefix-LM masks and vlm come with ROADMAP queue 1 items "
+            f"9b and 9c")
+    if cfg.family == "encdec":
+        return _encdec_shapes(cfg)
     if cfg.family == "ssm":
         return _ssm_shapes(cfg, cfg.num_layers)
     if cfg.family == "hybrid":
@@ -76,6 +84,21 @@ def param_shapes(cfg: ModelConfig) -> dict:
     else:
         blocks["mlp"] = _stacked(_mlp_shapes(cfg), n)
     return {"embed": emb, "blocks": blocks, "ln_f": ((d,), "zeros", None)}
+
+
+def _encdec_shapes(cfg: ModelConfig) -> dict:
+    """The whisper tree (the JAX ``encdec_model_specs``): pre-norm
+    encoder blocks, decoder blocks with a cross-attention block after
+    the self-attention, norms at zeros, no qk-norm, a tied embedding."""
+    d = cfg.d_model
+    enc = {"ln1": ((d,), "zeros", None), "attn": _attn_shapes(cfg),
+           "ln2": ((d,), "zeros", None), "mlp": _mlp_shapes(cfg)}
+    dec = dict(enc, ln_x=((d,), "zeros", None), cross=_attn_shapes(cfg))
+    return {"embed": {"tok": ((cfg.vocab_size, d), "normal", 0.02)},
+            "enc_blocks": _stacked(enc, cfg.encoder_layers),
+            "enc_ln_f": ((d,), "zeros", None),
+            "dec_blocks": _stacked(dec, cfg.num_layers),
+            "ln_f": ((d,), "zeros", None)}
 
 
 def _attn_shapes(cfg: ModelConfig) -> dict:

@@ -1,5 +1,5 @@
-"""Model facade — the dense, moe, ssm and hybrid branches of the JAX
-package's ``Model``.
+"""Model facade — the dense, moe, ssm, hybrid and encdec branches of the
+JAX package's ``Model``.
 
     m = build_model(get_config("smollm-135m"), device="cuda")
     params = m.init(seed=0)
@@ -20,7 +20,12 @@ family (zamba2) takes both for its shared attention block; its
 whole-prompt prefill seeds only that block's K/V and leaves the ssm
 states and conv windows at zero, as the reference's does ("simplified:
 zeros", ``repro/models/model.py``), and its chunked prefill is the exact
-recurrence (its decode step over the prompt).
+recurrence (its decode step over the prompt).  The encdec family
+(whisper) prefills whole prompts only (``supports_chunked_prefill``):
+``prefill`` takes the encoder's ``frames`` (B, T_enc, d), zeros when
+none are given (the serving adapter's stub), and its cache carries the
+cross-attention's static ``ck``/``cv`` beside the self-attention's
+K/V.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hw import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
@@ -66,7 +72,13 @@ class Model:
         dtype; the int8 pool passes ``torch.int8``).  ssm: the
         length-free state and conv window (``max_len`` and
         ``cache_dtype`` unused); hybrid: the shared block's K/V per group
-        in ``cache_dtype`` beside the ssm state and conv window."""
+        in ``cache_dtype`` beside the ssm state and conv window; encdec:
+        the self-attention's K/V in ``cache_dtype`` beside the
+        cross-attention's ck/cv in the model's dtype."""
+        if self.cfg.family == "encdec":
+            return encdec_mod.encdec_init_cache(
+                self.cfg, batch, max_len, self.dtype, self.device,
+                cache_dtype=cache_dtype)
         if self.cfg.family == "ssm":
             return ssm_mod.ssm_init_cache(self.cfg, batch, self.dtype,
                                           self.device)
@@ -77,13 +89,41 @@ class Model:
         return tf_mod.init_cache(self.cfg, batch, max_len,
                                  cache_dtype or self.dtype, self.device)
 
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Families servable through ``prefill_chunk``: encdec is out (its
+        cross-attention cache needs the whole encoder pass up front)."""
+        return self.cfg.family in ("dense", "moe", "ssm", "hybrid")
+
+    def stub_frames(self, rows: int) -> torch.Tensor:
+        """Zero encoder frames (rows, T_enc, d) in the model's dtype: the
+        conv/mel frontend is a stub, as in the reference."""
+        cfg = self.cfg
+        return torch.zeros((rows, cfg.encoder_tokens, cfg.d_model),
+                           dtype=self.dtype, device=self.device)
+
     def prefill(self, params: dict, tokens: torch.Tensor, max_len: int, *,
-                prefill_tiles: tuple, last_pos=None):
+                prefill_tiles: tuple, last_pos=None, frames=None):
         """Run the prompt at the mapper's ``prefill_tiles``; return
         (last-token logits (B, 1, V), primed cache padded to ``max_len``).
         ``last_pos`` (B,) picks each row's true final-token logits when
-        prompts are right-padded."""
-        if self.cfg.family == "ssm":
+        prompts are right-padded.  ``frames`` (B, T_enc, d) are encdec's
+        encoder inputs (None: ``stub_frames``); other families take
+        none."""
+        if frames is not None and self.cfg.family != "encdec":
+            raise ValueError(f"{self.cfg.family} takes no encoder frames")
+        if self.cfg.family == "encdec":
+            if frames is None:
+                frames = self.stub_frames(tokens.shape[0])
+            logits, (k, v), (ck, cv) = encdec_mod.encdec_forward(
+                params, tokens, frames, self.cfg,
+                prefill_tiles=prefill_tiles)
+            pad = (0, 0, 0, 0, 0, max_len - k.shape[2])
+            cache = {"k": torch.nn.functional.pad(k, pad).to(self.dtype),
+                     "v": torch.nn.functional.pad(v, pad).to(self.dtype),
+                     "ck": ck.to(self.dtype), "cv": cv.to(self.dtype),
+                     "pos": tokens.shape[1]}
+        elif self.cfg.family == "ssm":
             logits, (state, conv) = ssm_mod.ssm_forward(
                 params, tokens, self.cfg, return_cache=True)
             cache = {"state": state, "conv": conv.to(self.dtype),
@@ -128,6 +168,9 @@ class Model:
         reference's step, given no ``decode_block``, runs the jnp
         ``decode_attention_grouped`` of the same function."""
         fam = self.cfg.family
+        if not self.supports_chunked_prefill:
+            raise ValueError(f"family {fam!r} has no chunked prefill (see "
+                             f"supports_chunked_prefill)")
         if fam in ("ssm", "hybrid"):
             b, c = tokens.shape
             logits = torch.zeros((b, c, self.cfg.vocab_size),
@@ -164,11 +207,13 @@ class Model:
         ``decode_split``/``paged_decode_split`` are the router's split
         widths of the two sweeps (``None``: ``attention_decode`` plans
         AUTO).  ssm ignores all six: no attention sweep, no time axis to
-        page; hybrid passes them to its shared block's attention."""
+        page; hybrid passes them to its shared block's attention, encdec
+        to its self-attention (its cross-attention plans its own read)."""
         if self.cfg.family == "ssm":
             return ssm_mod.ssm_decode(params, cache, tokens, self.cfg)
-        step = hybrid_mod.hybrid_decode if self.cfg.family == "hybrid" \
-            else tf_mod.decode_step
+        step = {"hybrid": hybrid_mod.hybrid_decode,
+                "encdec": encdec_mod.encdec_decode}.get(
+                    self.cfg.family, tf_mod.decode_step)
         return step(
             params, cache, tokens, self.cfg, decode_block=decode_block,
             decode_split=decode_split, page_tables=page_tables,
@@ -180,10 +225,10 @@ class Model:
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     """The model on ``device`` (default "cuda"; raises when there is no
     CUDA device — pass device="cpu" for the plain versions)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; the port serves dense "
-            f"(swiglu or squared_relu, qk-norm, tied or untied), moe, ssm "
-            f"and hybrid, and encdec, vlm and the geglu MLP come with "
-            f"ROADMAP queue 1 item 9")
+            f"(swiglu or squared_relu, qk-norm, tied or untied), moe, ssm, "
+            f"hybrid and encdec, and vlm, the geglu MLP and the window and "
+            f"prefix-LM masks come with ROADMAP queue 1 items 9b and 9c")
     return Model(cfg, resolve_device(device))

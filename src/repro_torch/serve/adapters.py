@@ -1,11 +1,12 @@
 """CacheAdapter — each served family's face of the ragged decode pool.
 
-The dense, moe, ssm and hybrid subset of the JAX package's
+The dense, moe, ssm, hybrid and encdec subset of the JAX package's
 ``serve/adapters.py``.  One generic ``FamilyCacheAdapter`` serves all
-four, because the families differ only in which cache keys carry a time
+five, because the families differ only in which cache keys carry a time
 axis (``length_keys``), whether prompt padding is safe
-(``prefill_buckets``) and whether a cached prompt prefix is complete
-context for another request (``shareable_prefix``): dense and moe keep
+(``prefill_buckets``), whether a cached prompt prefix is complete
+context for another request (``shareable_prefix``) and what else a
+prefill takes (``extras``): dense and moe keep
 K/V (L, slots, T, G, hd) — for the int8 pool with per-(physical block,
 KV group) scales — and a padded prompt is masked by each row's ``pos``;
 ssm keeps a length-free recurrent state and conv window, which padding
@@ -18,16 +19,22 @@ slots, T, G, hd) as the length keys beside a length-free ssm state and
 conv window per padded layer, which land shape-exact in the slot; its
 whole-prompt prefill leaves those at zero and its chunked prefill steps
 only the prompt's own tokens, so padding stays safe, and it shares no
-prefix: its recurrent state lives outside the blocks.  encdec and vlm
-come with ROADMAP queue 1 item 9.  The engine keeps one cache dict for
-the pool plus a per-row ``pos`` vector, and needs four operations on
-it:
+prefix: its recurrent state lives outside the blocks.  encdec (whisper)
+keeps the self-attention's K/V as the length keys beside the
+cross-attention's static ck/cv (L, slots, T_enc, G, hd), which land
+shape-exact in the slot, stay in the model's dtype on the int8 pool and
+never grow; its prefill takes stub encoder frames (``prefill_extras``),
+and it shares no prefix: its context begins with the frames, not with
+tokens.  vlm comes with ROADMAP queue 1 item 9c.  The engine keeps one
+cache dict for the pool plus a per-row ``pos`` vector, and needs five
+operations on it:
 
-  ``init_pool``    build the pool cache with a per-row ``pos`` vector
-  ``prefill_len``  how long to pad a prompt before prefill
-  ``write_row``    land one prefilled request's cache in the pool
-                   (from ``start`` on when a radix prefix is shared)
-  ``grow``         pad the pool's time axis to a longer bucket
+  ``init_pool``       build the pool cache with a per-row ``pos`` vector
+  ``prefill_len``     how long to pad a prompt before prefill
+  ``prefill_extras``  the family's other prefill inputs (encoder frames)
+  ``write_row``       land one prefilled request's cache in the pool
+                      (from ``start`` on when a radix prefix is shared)
+  ``grow``            pad the pool's time axis to a longer bucket
 
 Unlike the JAX package, ``write_row`` updates the pool IN PLACE
 (``index_put_`` on the flat view, slice assignment on a row) and
@@ -37,7 +44,7 @@ Unlike the JAX package, ``write_row`` updates the pool IN PLACE
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +75,9 @@ class FamilyCacheAdapter:
     #: ssm and hybrid carry a state outside any block, and moe's blocks
     #: depend on the tokens routed beside them
     shareable_prefix: bool = False
+    #: (model, rows) -> the family's other prefill inputs, keyword
+    #: arguments of ``Model.prefill`` (encdec: the stub ``frames``)
+    extras: Optional[Callable[[Any, int], dict]] = None
 
     @property
     def grows_with_len(self) -> bool:
@@ -103,6 +113,11 @@ class FamilyCacheAdapter:
         else the exact length."""
         return quantize(prompt_len) if self.prefill_buckets else prompt_len
 
+    def prefill_extras(self, model, rows: int) -> dict:
+        """The family's other prefill inputs for ``rows`` requests
+        (``{}`` for most families)."""
+        return self.extras(model, rows) if self.extras else {}
+
     def write_row(self, cache: dict, slot: int, row_cache: dict,
                   prompt_len: int, kv_len: int,
                   page_map: Optional[torch.Tensor] = None,
@@ -128,8 +143,8 @@ class FamilyCacheAdapter:
         On the int8 pool (``k_scale``/``v_scale`` present) ``scale_map``
         (the lease's flat physical blocks, logical order) and
         ``page_block`` drive the quantising write (``_quantize_prompt``).
-        Keys with no time axis (the ssm state and conv window) land
-        shape-exact in the slot.  The row's ``pos`` becomes the true
+        Keys with no time axis (the ssm state and conv window, the
+        cross-attention's ck/cv) land shape-exact in the slot.  The row's ``pos`` becomes the true
         prompt length."""
         assert start == 0 or page_map is not None, \
             "a mid-prompt write start needs the paged pool"
@@ -212,11 +227,18 @@ class FamilyCacheAdapter:
         return out
 
 
+def _encdec_frames(model, rows: int) -> dict:
+    """Stub encoder frames, zeros (rows, T_enc, d) in the model's dtype
+    (``Model.stub_frames``: the conv/mel frontend is a stub)."""
+    return {"frames": model.stub_frames(rows)}
+
+
 ADAPTERS: dict[str, FamilyCacheAdapter] = {
     "dense": FamilyCacheAdapter("dense", shareable_prefix=True),
     "moe": FamilyCacheAdapter("moe"),
     "ssm": FamilyCacheAdapter("ssm", length_keys=(), prefill_buckets=False),
     "hybrid": FamilyCacheAdapter("hybrid"),
+    "encdec": FamilyCacheAdapter("encdec", extras=_encdec_frames),
 }
 
 
@@ -228,5 +250,5 @@ def get_adapter(family: str) -> FamilyCacheAdapter:
     except KeyError:
         raise NotImplementedError(
             f"no CacheAdapter for family {family!r}; the port serves "
-            f"{tuple(sorted(ADAPTERS))}, and encdec and vlm come with "
-            f"ROADMAP queue 1 item 9") from None
+            f"{tuple(sorted(ADAPTERS))}, and vlm comes with ROADMAP "
+            f"queue 1 item 9c") from None

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine — the dense, moe, ssm and hybrid
-paths of the JAX package's ``serve/engine.py`` on PyTorch.
+"""Continuous-batching serving engine — the dense, moe, ssm, hybrid and
+encdec paths of the JAX package's ``serve/engine.py`` on PyTorch.
 
   * admitted requests prefill either whole (prompt padded to its bucket,
     true-last-token logits via ``Model.prefill(last_pos=...)``) or, by
@@ -22,7 +22,12 @@ paths of the JAX package's ``serve/engine.py`` on PyTorch.
     prefill keeps the configured width ("auto" is 32: there are no
     flash tiles), and the pool's growth is block accounting only; the
     hybrid family (zamba2) pools its shared attention block's K/V per
-    group as dense pools a layer's, beside each slot's ssm state;
+    group as dense pools a layer's, beside each slot's ssm state; the
+    encoder-decoder family (whisper) prefills whole prompts only (the
+    model's ``supports_chunked_prefill``: "auto" and an int width both
+    fall back to it, as in the reference), each with the adapter's stub
+    encoder frames, and pools each slot's static cross-attention K/V
+    beside its self-attention K/V;
   * ``prefix_cache=True`` (``serve.radix``) shares prompt prefixes on
     the paged, chunked dense path: a request whose prompt begins with
     blocks another request wrote maps those physical blocks into the
@@ -132,7 +137,8 @@ class ServeEngine:
     weights from ``seed``.  ``prefill_chunk``: "auto" (the default)
     chunks prefill at the bucket's flash ``block_q`` (32 tokens for an
     attention-free family), an int fixes the width, ``None`` prefills
-    whole prompts.  ``paged`` (default True)
+    whole prompts; a family the model cannot chunk (encdec) prefills
+    whole prompts whatever is asked.  ``paged`` (default True)
     keeps the KV pool in leased blocks, ``fused_decode`` (default True)
     reads them inside the paged sweep instead of gathering first, and
     ``kv_dtype`` ("fp32", the model's dtype, or "int8", which needs the
@@ -154,7 +160,8 @@ class ServeEngine:
     scheduler's rule; ``total_blocks`` budgets the paged pool below its
     physical grid (admission control); ``prefix_cache`` turns on radix
     prefix sharing, which engages only on a paged, chunked,
-    ``shareable_prefix`` family (dense) and is a no-op elsewhere.
+    ``shareable_prefix`` family (dense) and is a no-op elsewhere (encdec
+    included).
 
     Example::
 
@@ -263,7 +270,8 @@ class ServeEngine:
         self._total_blocks = total_blocks
         self._admission = admission
         self._chunk_cfg = prefill_chunk
-        self._chunked = prefill_chunk is not None
+        self._chunked = (prefill_chunk is not None
+                         and self.model.supports_chunked_prefill)
         self.prefix_cache = bool(prefix_cache)
         if self.obs.enabled:
             # run-level context the trace's header carries: what
@@ -441,7 +449,8 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, rcache = self.model.prefill(
                 self.params, torch.from_numpy(toks).to(self.device), pb,
-                last_pos=[plen - 1], prefill_tiles=tiles)
+                last_pos=[plen - 1], prefill_tiles=tiles,
+                **self.adapter.prefill_extras(self.model, 1))
             first = int(logits[0, -1].argmax())      # waits for the device
             self.metrics.add_prefill_time(time.perf_counter() - t0)
         self.obs.count("admits")

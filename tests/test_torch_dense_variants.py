@@ -149,7 +149,7 @@ def test_params_from_jax_key_for_key(arch):
 def test_unported_mlp_and_families_still_raise():
     gemma = get_config("smollm-135m")
     gemma = dataclasses.replace(gemma, mlp_act="geglu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 items 9b and 9c"):
         param_shapes(gemma)
 
 

@@ -298,8 +298,8 @@ def test_hybrid_adapter_and_unported_families():
     ad = get_adapter("hybrid")
     assert ad.length_keys == ("k", "v") and ad.grows_with_len
     assert ad.prefill_buckets and not ad.shareable_prefix
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        get_adapter("encdec")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9c"):
+        get_adapter("vlm")
 
 
 # --------------------------------------------------------------------------- #

@@ -203,13 +203,12 @@ def test_ssm_adapter_router_and_unported_families():
     plan = router.resolve(router.bucket(600))
     assert plan.decode_block is None and plan.paged_decode_block is None
     assert router.prefill_tiles(600) is None
-    encdec = ModelConfig(name="m", family="encdec", num_layers=1,
-                         d_model=8, num_heads=1, num_kv_heads=1, d_ff=8,
-                         vocab_size=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        build_model(encdec, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        get_adapter("encdec")
+    vlm = ModelConfig(name="m", family="vlm", num_layers=1, d_model=8,
+                      num_heads=1, num_kv_heads=1, d_ff=8, vocab_size=8)
+    with pytest.raises(NotImplementedError, match="queue 1 items 9b and 9c"):
+        build_model(vlm, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9c"):
+        get_adapter("vlm")
 
 
 def test_cli_serves_mamba2_on_cpu(capsys):
